@@ -82,11 +82,11 @@ class Resampler:
       exact: the bit-exact sequential mode of the JAX package; not ported
         yet, so ``True`` raises ``NotImplementedError``.
       device: where every stream's state lives and the work runs: ``"cuda"``
-        (the hand-written kernels) or ``"cpu"`` (their plain versions).
-        ``"cuda"`` without a usable card raises; nothing falls back.
+        (the default: the hand-written kernels) or ``"cpu"`` (their plain
+        versions). ``"cuda"`` without a usable card raises; nothing falls back.
     """
 
-    def __init__(self, batch: int, *, exact: bool = True, device):
+    def __init__(self, batch: int, *, exact: bool = True, device="cuda"):
         if exact:
             raise NotImplementedError(
                 "exact=True needs the sequential f32 scans of ops/scan.py and the "

@@ -10,6 +10,14 @@ For each kernel: the wrapper, its plain PyTorch version and a launch count.
   ``polyphase_fused16_pallas``; its plain version is
   :func:`polyphase_fused16_plain`.
 
+Both kernels first launch csrc/band_ranges.cu on the same stream: for each
+weight tile and group of ``GROUP`` columns, the first and last K-row holding
+a nonzero weight (plain version: :func:`band_ranges`). The contraction then
+skips the K-rows outside those ranges. Skipping products with an exactly
+zero weight leaves every sum unchanged, except that a NaN or Inf in the
+input at a zero-weight position no longer reaches the output (no PCM input
+holds one).
+
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no fallback.
 Any other device raises. ``<wrapper>.launches`` counts kernel launches only.
@@ -22,8 +30,10 @@ import torch
 from ..runtime import kernels
 from .polyphase import polyphase_banded
 
-__all__ = ["polyphase_banded_cuda", "polyphase_fused16_cuda",
-           "polyphase_fused16_plain", "reset_launch_counts"]
+__all__ = ["GROUP", "band_ranges", "band_ranges_cuda", "polyphase_banded_cuda",
+           "polyphase_fused16_cuda", "polyphase_fused16_plain", "reset_launch_counts"]
+
+GROUP = 32   # columns of one band range in the plain version (csrc/banded_tile.cuh's GROUP)
 
 
 def _route(*tensors: torch.Tensor) -> str:
@@ -53,6 +63,54 @@ def _check_starts(starts: torch.Tensor, nt: int) -> None:
                          f"{starts.dtype} {tuple(starts.shape)}")
 
 
+def _check_pitch(x: torch.Tensor, L: int) -> None:
+    """The kernels copy slab rows in 16-byte chunks: the row pitch and the
+    base address must be multiples of 16 bytes."""
+    if (L * x.element_size()) % 16 or x.data_ptr() % 16:
+        raise ValueError(f"row pitch {L} x {x.element_size()} bytes (or the base address) "
+                         "is not a multiple of 16 bytes")
+
+
+def _weight_tiles(Wt: torch.Tensor) -> int:
+    """Number of distinct weight tiles: 1 when the tile stride is 0."""
+    return 1 if Wt.stride(0) == 0 else Wt.shape[0]
+
+
+def band_ranges(Wt: torch.Tensor) -> torch.Tensor:
+    """Plain version of the band-range kernel: int32 ``[ntw, 128 // GROUP, 2]``,
+    for each distinct weight tile (one when the tile stride is 0) and each
+    group of ``GROUP`` columns, the first and last K-row holding a weight
+    unequal to 0 (NaN counts, -0.0 does not); ``(K, -1)`` for an empty group."""
+    ntw, K = _weight_tiles(Wt), Wt.shape[1]
+    nz = (Wt[:ntw] != 0).reshape(ntw, K, 128 // GROUP, GROUP).any(-1)    # [ntw, K, groups]
+    k = torch.arange(K, device=Wt.device)[None, :, None]
+    first = torch.where(nz, k, K).amin(1)
+    last = torch.where(nz, k, -1).amax(1)
+    return torch.stack([first, last], -1).to(torch.int32)
+
+
+def _band_parts(Wt: torch.Tensor) -> torch.Tensor:
+    """Scratch for the band-range kernel's partials, sized by the library."""
+    n = kernels.library().eal_band_parts_len(Wt.shape[1])
+    return torch.empty((_weight_tiles(Wt), n), dtype=torch.int32, device=Wt.device)
+
+
+def band_ranges_cuda(Wt: torch.Tensor) -> torch.Tensor:
+    """The band-range kernel alone (the contraction wrappers launch it
+    themselves), reduced over its partials; the same result as
+    :func:`band_ranges`. For checking the kernel on the card."""
+    if _route(Wt) == "cpu":
+        return band_ranges(Wt)
+    tile_stride = _check_weights(Wt)
+    parts = _band_parts(Wt)
+    rc = kernels.library().eal_band_ranges(
+        Wt.data_ptr(), parts.data_ptr(), parts.shape[0], Wt.shape[1], tile_stride,
+        torch.cuda.current_stream(Wt.device).cuda_stream)
+    _raise_on(rc, "band_ranges")
+    parts = parts.view(parts.shape[0], -1, 128 // GROUP, 2)      # [ntw, pieces, groups, 2]
+    return torch.stack([parts[..., 0].amin(1), parts[..., 1].amax(1)], -1)
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -64,7 +122,9 @@ def polyphase_banded_cuda(xext: torch.Tensor, Wt: torch.Tensor, starts: torch.Te
     Wt[t//128, k, t%128]`` for ``t < T``.
 
     xext: f32 ``[..., L]``; Wt: f32 ``[nt, K, 128]``; starts: int32 ``[nt]``
-    with ``start + K <= L``. Returns f32 ``[..., T]``.
+    with ``start + K <= L``. Returns f32 ``[..., T]``. On the card, ``L * 4``
+    must be a multiple of 16 bytes (``ValueError`` otherwise), and products
+    whose weight is exactly zero are skipped (see the module docstring).
     """
     if _route(xext, Wt, starts) == "cpu":
         return polyphase_banded(xext, Wt, starts, T=T)
@@ -76,10 +136,13 @@ def polyphase_banded_cuda(xext: torch.Tensor, Wt: torch.Tensor, starts: torch.Te
     if not 0 < T <= nt * 128:
         raise ValueError(f"T={T} outside (0, {nt * 128}]")
     *lead, L = xext.shape
+    _check_pitch(xext, L)
+    _check_pitch(Wt, 128)
     M = xext.numel() // L
     out = torch.empty((*lead, T), dtype=torch.float32, device=xext.device)
+    parts = _band_parts(Wt)
     rc = kernels.library().eal_polyphase_banded(
-        xext.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        xext.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(), parts.data_ptr(),
         M, L, nt, K, tile_stride, T, torch.cuda.current_stream(xext.device).cuda_stream)
     _raise_on(rc, "polyphase_banded")
     polyphase_banded_cuda.launches += 1
@@ -117,6 +180,9 @@ def polyphase_fused16_cuda(x2: torch.Tensor, Wt: torch.Tensor, starts: torch.Ten
       starts: int32 ``[nt]`` tile starts.
     Returns: (samples int16 ``[M, nt*128]``, clip mask int8 ``[M, nt*128]``).
     Columns past the real output count carry values the caller ignores.
+    On the card, ``L * 2`` must be a multiple of 16 bytes (``ValueError``
+    otherwise), and products whose weight is exactly zero are skipped (see
+    the module docstring).
     """
     if _route(x2, Wt, starts) == "cpu":
         return polyphase_fused16_plain(x2, Wt, starts)
@@ -126,11 +192,15 @@ def polyphase_fused16_cuda(x2: torch.Tensor, Wt: torch.Tensor, starts: torch.Ten
     if x2.dtype != torch.int16 or x2.dim() != 2 or not x2.is_contiguous():
         raise ValueError(f"x2 must be contiguous int16 [M, L], got {x2.dtype} {tuple(x2.shape)}")
     M, L = x2.shape
+    _check_pitch(x2, L)
+    _check_pitch(Wt, 128)
     out = torch.empty((M, nt * 128), dtype=torch.int16, device=x2.device)
     clip = torch.empty((M, nt * 128), dtype=torch.int8, device=x2.device)
+    parts = _band_parts(Wt)
     rc = kernels.library().eal_polyphase_fused16(
         x2.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(), clip.data_ptr(),
-        M, L, nt, K, tile_stride, torch.cuda.current_stream(x2.device).cuda_stream)
+        parts.data_ptr(), M, L, nt, K, tile_stride,
+        torch.cuda.current_stream(x2.device).cuda_stream)
     _raise_on(rc, "polyphase_fused16")
     polyphase_fused16_cuda.launches += 1
     return out, clip

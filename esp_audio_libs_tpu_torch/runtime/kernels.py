@@ -1,10 +1,13 @@
 """First-use build and ctypes loader of the hand-written CUDA kernels.
 
-``esp_audio_libs_tpu_torch/csrc/*.cu`` compile with nvcc into one shared
-library with a plain C interface, ``build/kernels/libeal_kernels.so``:
+``esp_audio_libs_tpu_torch/csrc/*.cu`` compile with nvcc, one process per
+source, all started together, and link into one shared library with a plain
+C interface, ``build/kernels/libeal_kernels.so``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libeal_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \
+         -Xcompiler -fPIC -o <obj> csrc/<source>.cu          # for each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/kernels/libeal_kernels.so <objs>
 
 The build runs the first time a kernel is launched (never at import), and
 again whenever a source is newer than the library. Each C entry point takes
@@ -41,44 +44,65 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def compile_library(src_dir: Path, lib_path: Path, ptxas_report: bool = False) -> str:
+    """Compile every ``*.cu`` of ``src_dir`` (one nvcc each, all started
+    together) and link them into ``lib_path``; returns nvcc's output. With
+    ``ptxas_report`` it adds ``-Xptxas -v``: registers, shared memory and
+    spills per kernel. The one build recipe of the kernels."""
+    nvcc = _nvcc()
+    sources = sorted(src_dir.glob("*.cu"))
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+             *(["-Xptxas", "-v"] if ptxas_report else []), "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)]
+        reports = []
+        for proc in procs:
+            out, err = proc.communicate()
+            reports.append(out + err)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError("nvcc failed:\n" + "\n".join(reports))
+        lib = Path(tmp) / lib_path.name
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(lib, lib_path)
+    return "\n".join(reports)
 
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into LIB_PATH unless it is newer than every source.
-    With ``verbose``, a build that runs adds ``-Xptxas -v`` and prints
-    ptxas's report (registers, shared memory, spills per kernel)."""
-    deps = _sources() + sorted(CSRC.glob("*.cuh"))
+    With ``verbose``, a build that runs prints ptxas's report."""
     if LIB_PATH.exists():
         built = LIB_PATH.stat().st_mtime
-        if all(p.stat().st_mtime <= built for p in deps):
+        if all(p.stat().st_mtime <= built for p in CSRC.glob("*.cu*")):
             return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    report = compile_library(CSRC, LIB_PATH, ptxas_report=verbose)
     if verbose:
-        print(proc.stderr)
+        print(report)
     return LIB_PATH
 
 
 @functools.lru_cache(None)
 def library() -> C.CDLL:
     """The kernel library, built on first use, with its C signatures bound."""
-    lib = C.CDLL(str(build()))
+    return bind(C.CDLL(str(build())))
+
+
+def bind(lib: C.CDLL) -> C.CDLL:
+    """Set the C signatures of the kernel entry points on a loaded library."""
     p = C.c_void_p
+    i, ll = C.c_int, C.c_longlong
+    lib.eal_band_parts_len.restype = C.c_longlong
+    lib.eal_band_parts_len.argtypes = [i]
+    lib.eal_band_ranges.restype = C.c_int
+    lib.eal_band_ranges.argtypes = [p, p, i, i, ll, p]
     lib.eal_polyphase_banded.restype = C.c_int
-    lib.eal_polyphase_banded.argtypes = [p, p, p, p, C.c_int, C.c_int, C.c_int, C.c_int,
-                                         C.c_longlong, C.c_int, p]
+    lib.eal_polyphase_banded.argtypes = [p, p, p, p, p, i, i, i, i, ll, i, p]
     lib.eal_polyphase_fused16.restype = C.c_int
-    lib.eal_polyphase_fused16.argtypes = [p, p, p, p, p, C.c_int, C.c_int, C.c_int, C.c_int,
-                                          C.c_longlong, p]
+    lib.eal_polyphase_fused16.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, p]
     return lib

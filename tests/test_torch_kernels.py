@@ -7,9 +7,13 @@ JAX installed (skipping the JAX-configuring conftest):
 
 The tests marked ``cuda`` hold each kernel against its plain PyTorch version
 at the slice's shapes and skip without a card; the others check the
-wrappers' routing on the CPU.
+wrappers' routing on the CPU, the plain band-range function, and a CPU
+emulation of the kernels' 3xTF32 arithmetic on a chunk's real operands,
+which predicts what the card shows.
 """
 
+import dataclasses
+import math
 import os
 
 import numpy as np
@@ -19,7 +23,9 @@ import torch
 from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+from esp_audio_libs_tpu_torch.ops import quantization as q
 from esp_audio_libs_tpu_torch.runtime import kernels
+from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
 torch.set_num_threads(2)
 
@@ -112,6 +118,132 @@ def test_wrappers_refuse_other_devices():
         pk.polyphase_fused16_cuda(x.to(torch.int16), W, s)
 
 
+def _band_cases():
+    rng = np.random.default_rng(5)
+    K = 256
+    banded = random_banded(rng, 3, K, 90)
+    zero = np.zeros((2, K, 128), np.float32)
+    zero[1] = random_banded(rng, 1, K, 40)[0]              # tile 0 all zero
+    past_gen = random_banded(rng, 2, K, 60)
+    past_gen[1, :, 70:] = 0.0                                # columns at or past gen
+    edges = np.zeros((1, K, 128), np.float32)
+    edges[0, 0, 3] = 1.0                                     # row 0, group 0
+    edges[0, K - 1, 40] = -2.0                               # row K-1, group 1
+    edges[0, 5:9, 100] = -0.0                                # -0.0 is empty (group 3)
+    edges[0, 17, 70] = np.nan                                # NaN counts (group 2)
+    return {"random_banded": banded, "zero_tile": zero, "past_gen": past_gen,
+            "edges": edges}
+
+
+@pytest.mark.parametrize("case", ["random_banded", "zero_tile", "past_gen", "edges", "stride0"])
+def test_band_ranges_plain(case):
+    """The band-range kernel's plain version against a per-column scan of
+    ``Wt != 0``: first and last nonzero K-row per 32-column group, (K, -1)
+    when a group is empty; one tile when the tile stride is 0."""
+    cases = _band_cases()
+    if case == "stride0":
+        W = torch.from_numpy(cases["random_banded"][1])[None].expand(6, -1, -1)
+        ref_tiles = cases["random_banded"][1:2]
+    else:
+        W = torch.from_numpy(cases[case])
+        ref_tiles = cases[case]
+    K = W.shape[1]
+    got = pk.band_ranges(W).numpy()
+    assert got.shape == (ref_tiles.shape[0], 128 // pk.GROUP, 2) and got.dtype == np.int32
+    for i, tile in enumerate(ref_tiles):
+        for grp in range(128 // pk.GROUP):
+            rows = np.nonzero((tile[:, grp * pk.GROUP:(grp + 1) * pk.GROUP] != 0).any(1))[0]
+            want = (rows[0], rows[-1]) if rows.size else (K, -1)
+            assert tuple(got[i, grp]) == want, (i, grp)
+    assert torch.equal(pk.band_ranges_cuda(W), pk.band_ranges(W))       # CPU routing
+    if case == "edges":
+        assert tuple(got[0, 0]) == (0, 0) and tuple(got[0, 1]) == (K - 1, K - 1)
+        assert tuple(got[0, 2]) == (17, 17) and tuple(got[0, 3]) == (K, -1)
+
+
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the int32 view: round the magnitude to 10
+    mantissa bits, ties away from zero (finite inputs)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(a: torch.Tensor):
+    big = _tf32_rna(a)
+    return big, _tf32_rna(a - big)
+
+
+def emulate_3xtf32(xext: torch.Tensor, Wt: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """The kernels' contraction as the card computes it: both operands split
+    into TF32 big + small halves; per 8-row step, small*big + big*small +
+    big*big summed from zero (TF32 products are exact; the step's sum is
+    taken in f64 and rounded once, as the tensor core rounds its result)
+    and added to an f32 accumulator with one round-to-nearest add per step.
+    Returns f32 ``[M, nt * 128]``."""
+    nt, K, _ = Wt.shape
+    M, _ = xext.shape
+    cols = starts.long()[:, None] + torch.arange(K)
+    slabs = xext[:, cols].permute(1, 0, 2)                                  # [nt, M, K]
+    ab, as_ = _split(slabs)
+    bb, bs = _split(Wt.contiguous())
+    acc = torch.zeros((nt, M, 128), dtype=torch.float32)
+    for k in range(0, K, 8):
+        sl = slice(k, k + 8)
+        d = (torch.bmm(as_[..., sl].double(), bb[:, sl].double())
+             + torch.bmm(ab[..., sl].double(), bs[:, sl].double())
+             + torch.bmm(ab[..., sl].double(), bb[:, sl].double()))
+        acc = acc + d.float()
+    return acc.permute(1, 0, 2).reshape(M, nt * 128)
+
+
+def _chunk_operands(batch: int, frames: int):
+    """The first chunk's real contraction operands of a CPU Resampler at the
+    slice's configuration (44.1 kHz -> 16 kHz stereo s16, 64 taps, 32
+    filters): raw int16 slabs [M, L], weight tiles, starts, out_max, the
+    PCM gain factor."""
+    r = Resampler(batch=batch, exact=False, device="cpu")
+    r.initialize(ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, 32))
+    data = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (batch, frames * 4), dtype=np.uint8))
+    out_max = math.ceil(frames * float(r.sample_ratio)) + 8
+    g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
+                   r.sample_ratio, frames, out_max)
+    L = r._slab_len(frames)
+    Wt, starts = tpoly.banded_weights_device(r._filters, r._direct,
+                                             *r._device_grids([g], out_max)[0],
+                                             g.output_generated, K=r._K, taps_p=r._taps_p, L=L)
+    raw = q.unpack_pcm16_planar2_raw(data)
+    raw = torch.nn.functional.pad(torch.cat([torch.zeros_like(raw[..., :r.hist_len]), raw], -1),
+                                  (0, L - r.hist_len - frames))
+    return raw.reshape(-1, L).contiguous(), Wt, starts, out_max, float(q.gain_factor(16, 0.0))
+
+
+def test_3xtf32_emulation_within_contract():
+    """On a chunk's real operands (B = 8 streams), the 3xTF32 arithmetic of
+    the kernels stays within the banded tolerance of the plain f32
+    contraction, and within 1 LSB of it after the 16-bit quantize, both on
+    the f32 path (x scaled) and on the fused int16 path (gain in Wt); plain
+    one-pass TF32 does not hold the tolerance."""
+    x2, Wt, starts, out_max, factor = _chunk_operands(8, 8192)
+    xf = x2.float() * factor
+    ref = tpoly.polyphase_banded(xf, Wt, starts, T=out_max)
+    emu = emulate_3xtf32(xf, Wt, starts)[:, :out_max]
+    torch.testing.assert_close(emu, ref, rtol=RTOL, atol=ATOL)
+    s_e, _ = q.float_to_int(emu, 16)
+    s_r, _ = q.float_to_int(ref, 16)
+    assert (s_e.int() - s_r.int()).abs().max() <= 1
+
+    Wf = Wt * factor
+    s_p, c_p = pk.polyphase_fused16_plain(x2, Wf, starts)
+    s_k, c_k = pk._quantize16(emulate_3xtf32(x2.float(), Wf, starts))
+    d = (s_k.int() - s_p.int()).abs()
+    assert d.max() <= 1
+    assert torch.equal(c_k[d == 0], c_p[d == 0])
+
+    one_pass = tpoly.polyphase_banded(_tf32_rna(xf), _tf32_rna(Wt.contiguous()), starts, T=out_max)
+    assert not torch.allclose(one_pass, ref, rtol=RTOL, atol=ATOL)
+
+
 # --------------------------------------------------------- on the card
 
 
@@ -119,7 +251,8 @@ def test_wrappers_refuse_other_devices():
 @pytest.mark.parametrize("M,L,nt,K,step", [
     (4096, 8576, 24, 768, 359),       # 44.1k -> 16k main contraction
     (512, 23296, 177, 512, 128),      # 16k -> 44.1k post-filter conv
-    (37, 2100, 6, 512, 310)])         # ragged rows, unaligned starts
+    (37, 2100, 6, 512, 310),          # ragged rows, unaligned starts
+    (5, 2100, 6, 512, 301)])          # fewer rows than one warp's fragment
 def test_banded_kernel_matches_plain(cuda, M, L, nt, K, step):
     rng = np.random.default_rng(M)
     x = torch.from_numpy(rng.standard_normal((M, L)).astype(np.float32)).to(cuda)
@@ -181,3 +314,77 @@ def test_resampler_on_card_matches_cpu(cuda, monkeypatch, src, dst, fused):
     assert d.max() <= 1
     assert np.abs(cg.astype(np.int64) - cc.astype(np.int64)).sum() <= (d > 0).sum()
     assert torch.equal(hg, hc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random_banded", "zero_tile", "past_gen", "edges", "stride0"])
+def test_band_ranges_kernel_matches_plain(cuda, case):
+    cases = _band_cases()
+    if case == "stride0":
+        W = torch.from_numpy(cases["random_banded"][1]).to(cuda)[None].expand(6, -1, -1)
+    else:
+        W = torch.from_numpy(cases[case]).to(cuda)
+    got = pk.band_ranges_cuda(W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk.band_ranges(W))
+
+
+@pytest.mark.cuda
+def test_banded_kernel_nan_weight_in_band_reaches_output(cuda):
+    rng = np.random.default_rng(3)
+    M, L, nt, K = 40, 1024, 3, 512
+    x = torch.from_numpy(rng.standard_normal((M, L)).astype(np.float32)).to(cuda)
+    Wt = torch.from_numpy(random_banded(rng, nt, K, 200)).to(cuda)
+    col = Wt[1, :, 77]
+    k = int(torch.nonzero(col)[5])
+    Wt[1, k, 77] = float("nan")
+    starts = torch.tensor([0, 200, 400], dtype=torch.int32, device=cuda)
+    got = pk.polyphase_banded_cuda(x, Wt, starts, T=nt * 128)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[:, 128 + 77]).all()
+    finite = torch.ones_like(got, dtype=torch.bool)
+    finite[:, 128 + 77] = False
+    assert torch.isfinite(got[finite]).all()
+
+
+@pytest.mark.cuda
+def test_kernels_all_zero_tile_gives_zeros(cuda):
+    rng = np.random.default_rng(4)
+    M, L, nt, K = 300, 2048, 4, 512
+    Wt = torch.from_numpy(random_banded(rng, nt, K, 150)).to(cuda)
+    Wt[2] = 0.0
+    starts = torch.tensor([0, 300, 600, 900], dtype=torch.int32, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((M, L)).astype(np.float32)).to(cuda)
+    y = pk.polyphase_banded_cuda(x, Wt, starts, T=nt * 128)
+    x16 = torch.from_numpy(rng.integers(-32768, 32768, (M, L), dtype=np.int16)).to(cuda)
+    s16, clip = pk.polyphase_fused16_cuda(x16, Wt * (1.0 / 32768.0), starts)
+    torch.cuda.synchronize()
+    assert not y[:, 256:384].any() and y[:, :256].abs().sum() > 0
+    assert not s16[:, 256:384].any() and not clip[:, 256:384].any()
+
+
+@pytest.mark.cuda
+def test_fused16_kernel_main_shape(cuda):
+    """M = 4096 rows, L = 8576, 24 tiles of K = 768 with 318-tap bands."""
+    rng = np.random.default_rng(16)
+    M, L, nt, K = 4096, 8576, 24, 768
+    x = torch.from_numpy(rng.integers(-32768, 32768, (M, L), dtype=np.int16)).to(cuda)
+    Wt = torch.from_numpy(random_banded(rng, nt, K, 318) * np.float32(0.05 / 32768.0)).to(cuda)
+    starts = torch.from_numpy(np.minimum(np.arange(nt) * 359, L - K).astype(np.int32)).to(cuda)
+    s_k, c_k = pk.polyphase_fused16_cuda(x, Wt, starts)
+    torch.cuda.synchronize()
+    s_p, c_p = pk.polyphase_fused16_plain(x, Wt, starts)
+    d = (s_k.int() - s_p.int()).abs()
+    assert int(d.max()) <= 1
+    assert torch.equal(c_k[d == 0], c_p[d == 0])
+    assert 0 < int(c_p.sum()) < c_p.numel()            # both clipped and unclipped samples
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_unaligned_row_pitch(cuda):
+    W = torch.zeros((2, 512, 128), device=cuda)
+    s = torch.tensor([0, 128], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pk.polyphase_banded_cuda(torch.zeros((8, 1027), device=cuda), W, s, T=256)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pk.polyphase_fused16_cuda(torch.zeros((8, 1028), dtype=torch.int16, device=cuda), W, s)

@@ -221,6 +221,8 @@ def test_exact_mode_and_missing_cuda_raise():
         pytest.skip("a card is present: Resampler(device='cuda') is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         Resampler(batch=B, exact=False, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Resampler(batch=B, exact=False)        # the card is the default
 
 
 def test_port_imports_no_jax():

@@ -1,0 +1,234 @@
+#!/usr/bin/env python3
+"""Probe variants of the banded kernels' shared main loop on one GPU.
+
+Each variant is the checkout's ``esp_audio_libs_tpu_torch/csrc`` with one
+text edit to ``banded_tile.cuh``, built into its own library under
+``build/variants/<name>/`` by the package's build recipe, all variants at
+once:
+
+  as_is       the sources unchanged;
+  one_pass    only big*big: one mma per fragment instead of three (a speed
+              probe; its results are wrong by TF32 rounding);
+  direct_acc  the tensor core carries the running sum (no fresh fragment
+              per 8-row step, no FADD): a numerics probe;
+  no_copies   every cp.async zero-fills instead of reading device memory
+              (a speed probe: the compute alone);
+  no_compute  the mma steps are dropped (a speed probe: the copies, barriers
+              and epilogue alone).
+
+For each variant, in turns (first to last, then last to first), it times the
+banded kernel at the main shape (the bench configuration's first chunk,
+M 4096 x L 8576, 24 tiles, K 768), the fused int16 kernel at the same shape
+and the banded kernel at the post-filter shape (M 512, 177 tiles sharing one
+tile), by CUDA events over 20 launches after 2 warm-ups, and reports the
+largest error against the plain version on those operands and, at the
+random main shape of tests/test_torch_kernels.py, the largest ratio of
+|kernel - plain| and |kernel - exact f64| to the banded tolerance. It also
+counts the mma.sync the band ranges ask for at the main shape.
+
+Run from the repository root on a machine with an NVIDIA GPU:
+
+    python3 tools/kernel_variants.py [--variants as_is one_pass ...]
+
+The last line is one JSON object with the means.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes as C
+import json
+import math
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk  # noqa: E402
+from esp_audio_libs_tpu_torch.ops.polyphase import polyphase_banded  # noqa: E402
+from esp_audio_libs_tpu_torch.runtime import kernels  # noqa: E402
+
+OUT = REPO / "build" / "variants"
+RTOL, ATOL = cs.TOL_BANDED["rtol"], cs.TOL_BANDED["atol"]
+
+_THREE_PASSES = '''          mma_tf32(d[ni], as, bb[ni]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(d[ni], ab, bs[ni]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(d[ni], ab, bb[ni]);
+'''
+_FRESH_SUM = _THREE_PASSES.join(['''        float d[4][4];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[ni][e] = 0.0f;
+''', '''#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[4 * q + ni][e] = __fadd_rn(acc[4 * q + ni][e], d[ni][e]);
+'''])
+_COMPUTE_HEAD = '''#pragma unroll
+    for (int sub = 0; sub < BK / 8; ++sub) {
+      const int ka = k0 + 8 * sub;
+      if (ka > ke || ka + 7 < kb) continue;
+'''
+
+VARIANTS = {
+    "as_is": [],
+    "one_pass": [(_THREE_PASSES, '''          mma_tf32(d[ni], ab, bb[ni]);
+        }
+''')],
+    "direct_acc": [(_FRESH_SUM, '''#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[4 * q + ni], as, bb[ni]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[4 * q + ni], ab, bs[ni]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[4 * q + ni], ab, bb[ni]);
+''')],
+    "no_copies": [('"r"(valid ? 16 : 0)', '"r"(0)')],
+    "no_compute": [(_COMPUTE_HEAD, '''    if (sh == 99 && As[0] == Tin(1) && Bs[0] == 2.0f) acc[0][0] += 1.0f;
+#pragma unroll
+    for (int sub = 0; sub < 0; ++sub) {
+      const int ka = k0 + 8 * sub;
+      if (ka > ke || ka + 7 < kb) continue;
+''')],
+}
+
+
+def make_variant(name: str) -> Path:
+    dst = OUT / name
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    for src in list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh")):
+        shutil.copy(src, dst / src.name)
+    tile = dst / "banded_tile.cuh"
+    text = tile.read_text()
+    for old, new in VARIANTS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: its edit no longer matches banded_tile.cuh")
+        text = text.replace(old, new)
+    tile.write_text(text)
+    return dst
+
+
+def build_all(names):
+    """Build every variant with the package's own recipe
+    (``kernels.compile_library``), all at once; returns {name: (CDLL, ptxas
+    lines)}."""
+    dirs = {name: make_variant(name) for name in names}
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        outs = dict(zip(dirs, pool.map(
+            lambda d: kernels.compile_library(d, d / "lib.so", ptxas_report=True), dirs.values())))
+    libs = {}
+    for name, out in outs.items():
+        report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
+        libs[name] = (kernels.bind(C.CDLL(str(dirs[name] / "lib.so"))), report)
+    return libs
+
+
+def mma_count(Wt: torch.Tensor, M: int) -> int:
+    """mma.sync m16n8k8 of one launch: per tile and 32-column group, the
+    8-row steps (aligned to the block's 32-row stages) that meet the group's
+    band, times 4 n8 fragments, 3 passes and 8 warps per 128-row block."""
+    r = pk.band_ranges(Wt).cpu().numpy()
+    nt = Wt.shape[0]
+    steps = 0
+    for i in range(nt):
+        rr = r[0 if r.shape[0] == 1 else i]
+        kb, ke = rr[:, 0].min(), rr[:, 1].max()
+        if kb > ke:
+            continue
+        base = kb // 32 * 32
+        for lo, hi in rr:
+            steps += sum(1 for ka in range(base, ke + 1, 8) if ka <= hi and ka + 7 >= lo)
+    return steps * 4 * 3 * 8 * math.ceil(M / 128)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.card_line()
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {card}, max SM clock {clocks}")
+    libs = build_all(args.variants)
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, (cs.BATCH, cs.FRAMES * 4), dtype=np.uint8)
+    down = cs.make_resampler(44100.0, 16000.0, cs.BATCH, "cuda")
+    xf, x2, Wt, starts, out_max, factor = cs.chunk_operands(down, torch.as_tensor(data, device="cuda"))
+    Wf = Wt * factor
+    up = cs.make_resampler(16000.0, 44100.0, 256, "cuda")
+    out_up = math.ceil(cs.FRAMES * float(up.sample_ratio)) + 8
+    nt2 = -(-out_up // 128)
+    L2 = -(-(up._post_Hlen + out_up + up._post_K) // 128) * 128
+    xe = torch.randn(512, L2, device="cuda") * 0.3
+    W2 = up._post_W2[None].expand(nt2, up._post_K, 128)
+    st2 = torch.arange(nt2, dtype=torch.int32, device="cuda") * 128
+    p_main = polyphase_banded(xf, Wt, starts, T=out_max)
+    s_plain, _ = pk.polyphase_fused16_plain(x2, Wf, starts)
+    p_post = polyphase_banded(xe, W2, st2, T=out_up)
+
+    # the random main shape of tests/test_torch_kernels.py::test_banded_kernel_matches_plain
+    g = np.random.default_rng(4096)
+    rx = torch.from_numpy(g.standard_normal((4096, 8576)).astype(np.float32)).cuda()
+    rW = np.zeros((24, 768, 128), np.float32)
+    for i in range(24):
+        for j in range(128):
+            o = g.integers(0, 768 - 318)
+            rW[i, o:o + 318, j] = g.standard_normal(318).astype(np.float32)
+    rW = torch.from_numpy(rW).cuda()
+    rs = torch.from_numpy(np.minimum(np.arange(24) * 359, 8576 - 768).astype(np.int32)).cuda()
+    rT = 24 * 128 - 11
+    r_plain = polyphase_banded(rx, rW, rs, T=rT)
+    r_exact = polyphase_banded(rx.double(), rW.double(), rs, T=rT)
+    tol = ATOL + RTOL * r_plain.abs()
+    print(f"mma.sync per launch at the main shape: {mma_count(Wt, xf.shape[0])}; "
+          f"random main shape, plain vs exact: {float(((r_plain.double() - r_exact).abs() / tol).max()):.4f} of the tolerance")
+
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        kernels.library = lambda name=name: libs[name][0]
+        k = pk.polyphase_banded_cuda(xf, Wt, starts, T=out_max)
+        s16, _ = pk.polyphase_fused16_cuda(x2, Wf, starts)
+        k2 = pk.polyphase_banded_cuda(xe, W2, st2, T=out_up)
+        rk = pk.polyphase_banded_cuda(rx, rW, rs, T=rT)
+        torch.cuda.synchronize()
+        row = {
+            "banded_ms": cs.cuda_time(lambda: pk.polyphase_banded_cuda(xf, Wt, starts, T=out_max), 20),
+            "fused16_ms": cs.cuda_time(lambda: pk.polyphase_fused16_cuda(x2, Wf, starts), 20),
+            "post_ms": cs.cuda_time(lambda: pk.polyphase_banded_cuda(xe, W2, st2, T=out_up), 20),
+            "err_main": float((k - p_main).abs().max()),
+            "err_fused_lsb": int((s16.int() - s_plain.int()).abs().max()),
+            "err_post": float((k2 - p_post).abs().max()),
+            "random_vs_plain_tol": float(((rk - r_plain).abs() / tol).max()),
+            "random_vs_exact_tol": float(((rk.double() - r_exact).abs() / tol).max()),
+        }
+        results[name].append(row)
+        print(name, json.dumps(row))
+    means = {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+             for name, rows in results.items()}
+    for name, m in means.items():
+        print(f"{name}: banded {m['banded_ms']:.4f} ms, fused16 {m['fused16_ms']:.4f} ms, "
+              f"post-filter {m['post_ms']:.4f} ms (means of 2 turns)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,8 @@ tier off and then on, and reports for each:
   * the untraced wall time of ``--reps`` calls (median, min, max);
   * one call traced with CUDA activity only (the lightest trace): its wall
     time, the device busy time (union of kernel and copy intervals), the
-    contraction kernel's time and the idle share of that traced wall;
+    contraction kernels' time (with the band-range kernel each launches
+    first, also shown alone) and the idle share of that traced wall;
   * the idle share estimated from the untraced median wall minus the traced
     busy time (two different calls, so an estimate, printed as such);
   * one call traced with CPU + CUDA activity: the top ops by device time,
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -41,7 +43,8 @@ sys.path.insert(0, str(REPO))
 
 from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration  # noqa: E402
 
-KERNEL_NAMES = ("polyphase_banded", "polyphase_fused16")
+# the contraction kernels and the band-range kernel each of them launches first
+KERNEL_NAMES = ("polyphase_banded", "polyphase_fused16", "band_ranges")
 
 
 def _busy_us(events) -> float:
@@ -81,6 +84,7 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us(dev) / 1e3
     kernel = _busy_us([e for e in dev if any(k in e.name for k in KERNEL_NAMES)]) / 1e3
+    band = _busy_us([e for e in dev if "band_ranges" in e.name]) / 1e3
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_ops:
         _timed_call(r, data, args.frames, args.chunks)
@@ -89,7 +93,8 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
     median = float(np.median(walls))
     row = {"fused": fused, "untraced_ms_median": median, "untraced_ms_min": min(walls),
            "untraced_ms_max": max(walls), "traced_wall_ms": traced_wall,
-           "device_busy_ms": busy, "kernel_ms": kernel, "other_device_ms": busy - kernel,
+           "device_busy_ms": busy, "kernel_ms": kernel, "band_ranges_ms": band,
+           "other_device_ms": busy - kernel,
            "traced_idle_share": 1.0 - busy / traced_wall,
            "estimated_idle_share_untraced": 1.0 - busy / median}
     return row, table
@@ -110,6 +115,9 @@ def main() -> None:
     data = torch.as_tensor(np.random.default_rng(0).integers(
         0, 256, (args.batch, args.chunks * args.frames * 4), dtype=np.uint8), device="cuda")
 
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
     rows, tables = [], []
     for fused in (False, True):
         row, table = profile_tier(fused, data, args)
@@ -118,7 +126,8 @@ def main() -> None:
         print(f"fused tier {'on' if fused else 'off'}: untraced {row['untraced_ms_median']:.3f} ms "
               f"(median of {args.reps}, {row['untraced_ms_min']:.3f}-{row['untraced_ms_max']:.3f}); "
               f"traced {row['traced_wall_ms']:.3f} ms, device busy {row['device_busy_ms']:.3f} ms "
-              f"(kernel {row['kernel_ms']:.3f}, other {row['other_device_ms']:.3f}), "
+              f"(kernel {row['kernel_ms']:.3f} of which band ranges {row['band_ranges_ms']:.3f}, "
+              f"other {row['other_device_ms']:.3f}), "
               f"traced idle {row['traced_idle_share']:.3f}, "
               f"estimated untraced idle {row['estimated_idle_share_untraced']:.3f}")
     if args.out is not None:
@@ -126,7 +135,7 @@ def main() -> None:
         args.out.write_text("\n".join(tables))
     else:
         print("\n".join(tables))
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "batch": args.batch,
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card, "batch": args.batch,
                       "frames": args.frames, "chunks": args.chunks, "tiers": rows}))
 
 
