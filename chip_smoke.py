@@ -24,10 +24,33 @@ Phases, each printing a line:
                steady-state input rate taken at the median of 5 timed calls.
   5. upsample - 16 kHz -> 44.1 kHz with the post-filter at batch 256, compared
                the same way.
-The launch counts of phases 4-5 show that the main path ran through the
-kernels. The last three lines are the card line, one JSON object describing
-the kernels, and ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before those lines. Imports nothing of JAX.
+  6. flac kernel - the FLAC frame kernel against its plain version on the
+               card, byte for byte, on the real parsed buckets of
+               tools/flac_kernel_fleet.py (depths 8/12/16/20/24/32, mono,
+               stereo in every channel assignment, 3 and 8 channels, wasted
+               bits, the 32-bit mode, int8/int16/int32 planes and the int8
+               escape tier, rows of 16-byte multiples and not), each bucket
+               run at every order class that covers it, with both
+               accumulators where the 32-bit one is valid and with its plane
+               widened; then the composed shape's bucket (4096 frames x 2
+               channels x 4096), kernel and plain version timed with CUDA
+               events beside the bound (an estimated serial floor is
+               printed beside it, in the text line only).
+  7. flac corpus - every corpus/independent/*.flac decoded by
+               FLACDecoder(device="cuda"): all frames SUCCESS and md5_ok (the
+               STREAMINFO MD5 pins the reference decoder's PCM).
+  8. flac -> 16k composed - 256 streams of 16 x 4096-sample stereo frames:
+               BatchedFLACDecoder.decode_streams_to_device, then a Resampler
+               44.1 -> 16 kHz on the device PCM; MD5 of the host decode, the
+               device PCM and the resampled output against the host-roundtrip
+               chain, 8 streams against a CPU run of the port; rates at the
+               median of 5 calls.
+The launch counts of phases 4-5 and of phase 8's timed calls, each set to 0
+just before and read just after, show that the main paths ran through the
+kernels; phase 8 asserts its exact counts. The last three lines are the
+card line, one JSON object describing the kernels, and
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
+lines. Imports nothing of JAX.
 """
 
 import json
@@ -41,6 +64,8 @@ TOL_BANDED = dict(rtol=2e-6, atol=4e-5)   # f32 sums of ~300 products, another o
 FRAMES, CHUNKS, BATCH, CMP_STREAMS = 8192, 8, 2048, 8
 PEAK_TF32, PEAK_BYTES = 495e12, 3.35e12   # H100 SXM: dense TF32 tensor cores; HBM3
 TF32_PASSES = 3                            # 3xTF32: three tensor-core products per product
+FLAC_STREAMS, FLAC_FRAMES, FLAC_BLOCK = 256, 16, 4096   # bench_all.py's composed row
+CHAIN_OPS, OP_CYCLES = 3, 4   # FLAC step chain: multiply-add, shift, add; assumed cycles each
 
 
 def fail(msg: str) -> None:
@@ -224,6 +249,218 @@ def run_stream(src, dst, batch, data, label, reps=5):
           f"from the CPU port, {clips} clipped samples")
 
 
+def tools_import(name: str):
+    """A module of tools/ (numpy and the port only, no JAX)."""
+    import importlib
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    return importlib.import_module(name)
+
+
+def flac_headers(blobs, device):
+    """Decoders of ``device`` that have read each blob's header, and the
+    frame sections after the headers."""
+    from esp_audio_libs_tpu_torch.models import FLACDecoder
+    decs, bodies = [], []
+    for i, blob in enumerate(blobs):
+        d = FLACDecoder(device=device)
+        if d.read_header(blob) != 0:
+            fail(f"FLAC stream {i}: read_header failed")
+        decs.append(d)
+        bodies.append(blob[d.get_bytes_index():])
+    return decs, bodies
+
+
+def flac_kernel_phase(composed_blob):
+    """Phase 6: the frame kernel byte for byte against its plain version on
+    real parsed buckets (tools/flac_kernel_fleet.py); timed at the composed
+    shape. Returns the kernels-line entry without its launch count."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.models.flac import parsed_buckets
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    from esp_audio_libs_tpu_torch.runtime.transport import SLICE_OUT_BYTES
+
+    fleet = tools_import("flac_kernel_fleet")
+    buckets = fleet.fleet_buckets("cuda")
+    cover = fleet.coverage(buckets)
+    if fleet.missing(cover):
+        fail(f"the FLAC kernel fleet does not cover {fleet.missing(cover)}")
+    n_runs = 0
+    for bkey, arrays, kw in buckets:
+        tensors, kw_dev = fleet.on_device(arrays, kw, "cuda")
+        plain = fk.flac_frame_plain(*tensors, **kw_dev)
+        for label, plane, esc, kwv in fleet.kernel_variants(arrays, kw):
+            extra = {} if esc is None else dict(zip(("esc_pos", "esc_val"),
+                                                    fleet.on_device(esc, {}, "cuda")[0]))
+            got = fk.flac_frame_cuda(torch.as_tensor(plane, device="cuda"), *tensors[1:], **kwv,
+                                     **extra)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain):
+                bad = int((got != plain).sum())
+                fail(f"flac_frame differs from its plain version in {bad} bytes: bucket {bkey}, "
+                     f"{label}")
+            n_runs += 1
+    print(f"flac kernel: {n_runs} launches on {len(buckets)} real buckets byte-identical to the "
+          f"plain version; covered " + ", ".join(f"{k} {sorted(v)}" for k, v in cover.items()))
+
+    # the composed shape: the whole fleet's largest bucket
+    decs, bodies = flac_headers([composed_blob] * FLAC_STREAMS, "cuda")
+    bkey, arrays, kw = max(parsed_buckets(decs, bodies), key=lambda b: b[1][0].shape[0])
+    tensors, kw_dev = fleet.on_device(arrays, kw, "cuda")
+    got = fk.flac_frame_cuda(*tensors, **kw_dev)
+    plain = fk.flac_frame_plain(*tensors, **kw_dev)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        fail(f"flac_frame differs from its plain version at the composed shape {bkey}")
+    F, C, T = arrays[0].shape
+    ms = cuda_time(lambda: fk.flac_frame_cuda(*tensors, **kw_dev))
+    plain_ms = cuda_time(lambda: fk.flac_frame_plain(*tensors, **kw_dev), iters=2, warmup=1)
+    # one dispatch of the main path (a transport slice of streams) and one
+    # frame, escapes left out: times only
+    per = SLICE_OUT_BYTES // (FLAC_FRAMES * FLAC_BLOCK * 2 * 2) * (F // FLAC_STREAMS)
+    lean = {k: v for k, v in kw_dev.items() if not k.startswith("esc")}
+    ms_dispatch = cuda_time(lambda: fk.flac_frame_cuda(*[t[:per] for t in tensors], **lean))
+    ms_one = cuda_time(lambda: fk.flac_frame_cuda(*[t[:1] for t in tensors], **lean))
+    esc_bytes = sum(kw[k].nbytes for k in ("esc_pos", "esc_val") if k in kw)
+    nbytes = sum(a.nbytes for a in arrays) + esc_bytes + got.numel()
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    mhz = float(clock[0]) if clock else float("nan")
+    est_floor_ms = T * CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
+    tier = "int8+escapes" if esc_bytes else f"{arrays[0].dtype}"
+    print(f"kernel flac_frame F={F} C={C} T={T} ({tier}, W={kw['max_order']}, use64={kw['use64']}, "
+          f"{F * C} lanes): byte-identical, {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes: {nbytes} B at 3.35 TB/s; no integer multiply-add peak "
+          f"is published), {bound_ms / ms:.1%} of the bound; "
+          f"one dispatch of the main path ({per} frames) {ms_dispatch:.4f} ms, "
+          f"one frame {ms_one:.4f} ms (measured serial chain: {ms_one / T * 1e6:.1f} ns per step); "
+          f"estimated serial floor {est_floor_ms:.4f} ms (an estimate, not measured: T x "
+          f"{CHAIN_OPS} dependent ops x an assumed {OP_CYCLES} cycles at {mhz:.0f} MHz)")
+    return {"name": "flac_frame", "route": "cuda",
+            "source": "esp_audio_libs_tpu_torch/csrc/flac_frame.cu",
+            "replaces": "esp_audio_libs_tpu/models/flac.py:40 / esp_audio_libs_tpu/ops/lpc.py:43",
+            "launches": 0, "max_abs_err": 0, "byte_exact": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "dispatch_ms": ms_dispatch, "one_frame_ms": ms_one}
+
+
+def flac_corpus_phase():
+    """Phase 7: every corpus/independent file decoded on the card, md5_ok."""
+    from pathlib import Path
+    files = sorted((Path(__file__).resolve().parent / "corpus" / "independent").glob("*.flac"))
+    if len(files) < 20:
+        fail(f"corpus/independent holds {len(files)} files")
+    for path in files:
+        blob = path.read_bytes()
+        (dec,), (body,) = flac_headers([blob], "cuda")
+        pcm, r = dec.decode_stream(body)
+        if not pcm or r["md5_ok"] is not True or any(c != 0 for c in r["frame_results"]):
+            fail(f"{path.name}: md5_ok={r['md5_ok']}, frame results {set(r['frame_results'])}")
+    print(f"flac corpus: {len(files)} corpus/independent files decoded on the card, all frames "
+          f"SUCCESS, all md5_ok (mut_flip_payload_bits_i32_overflow.flac included)")
+
+
+def flac_composed_phase(composed_blob, reps=5):
+    """Phase 8: FLAC fleet -> device PCM -> 44.1 -> 16 kHz Resampler, checked
+    and timed; returns the launch counts of the phase."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedFLACDecoder
+    from esp_audio_libs_tpu_torch.models.flac import _parse_streams
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.runtime.transport import SLICE_OUT_BYTES
+
+    frames = FLAC_FRAMES * FLAC_BLOCK
+    # a call dispatches one frame-kernel launch per transport slice of
+    # streams; a chain call resamples its one chunk in one contraction
+    per_slice = SLICE_OUT_BYTES // (frames * 2 * 2)
+    want = {"flac_frame": 2 * reps * -(-FLAC_STREAMS // per_slice), "polyphase_banded": reps}
+    bat = BatchedFLACDecoder(FLAC_STREAMS, device="cuda")
+    if any(h != 0 for h in bat.read_headers([composed_blob] * FLAC_STREAMS)):
+        fail("composed fleet: read_header failed")
+    bodies = [composed_blob[d.get_bytes_index():] for d in bat.decoders]
+
+    host = bat.decode_streams(bodies, verify_md5=True)
+    if not all(r["md5_ok"] is True for _, r in host):
+        fail("composed fleet: decode_streams on the card is not md5_ok for every stream")
+    pcm_host = np.stack([np.frombuffer(p, np.uint8) for p, _ in host])
+    pcm_dev, res = bat.decode_streams_to_device(bodies)
+    torch.cuda.synchronize()
+    if not pcm_dev.is_cuda or not np.array_equal(pcm_dev.cpu().numpy(), pcm_host):
+        fail("composed fleet: device PCM differs from the host-roundtrip PCM")
+    if any(r["num_samples"] != frames * 2 for r in res):
+        fail("composed fleet: sample counts")
+    out_dev = make_resampler(44100.0, 16000.0, FLAC_STREAMS, "cuda").resample_stream(
+        pcm_dev, frames, 1)
+    out_host = make_resampler(44100.0, 16000.0, FLAC_STREAMS, "cuda").resample_stream(
+        torch.as_tensor(pcm_host, device="cuda"), frames, 1)
+    torch.cuda.synchronize()
+    if (out_dev[1] != out_host[1] or not torch.equal(out_dev[0], out_host[0])
+            or not np.array_equal(out_dev[2], out_host[2])):
+        fail("composed chain: resampled device PCM differs from the host-roundtrip chain")
+
+    r = make_resampler(44100.0, 16000.0, FLAC_STREAMS, "cuda")
+    dec_times, chain_times = [], []
+    fk.reset_launch_counts()
+    pk.reset_launch_counts()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        bat.decode_streams_to_device(bodies)
+        torch.cuda.synchronize()
+        dec_times.append(time.perf_counter() - t0)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pcm, _ = bat.decode_streams_to_device(bodies)
+        r.resample_stream(pcm, frames, 1)
+        torch.cuda.synchronize()
+        chain_times.append(time.perf_counter() - t0)
+    launches = {"flac_frame": fk.flac_frame_cuda.launches,
+                "polyphase_banded": pk.polyphase_banded_cuda.launches}
+    if launches != want:
+        fail(f"the composed chain launched {launches}, expected {want}")
+    t0 = time.perf_counter()
+    _parse_streams(bat.decoders, bodies)
+    parse_s = time.perf_counter() - t0
+
+    cpu = BatchedFLACDecoder(CMP_STREAMS, device="cpu")
+    cpu.read_headers([composed_blob] * CMP_STREAMS)
+    pcm_cpu, _ = cpu.decode_streams_to_device(bodies[:CMP_STREAMS])
+    if not np.array_equal(pcm_cpu.numpy(), pcm_host[:CMP_STREAMS]):
+        fail("composed fleet: CPU port PCM differs from the card's")
+    ndiff, clips = compare_stream(out_dev, make_resampler(44100.0, 16000.0, CMP_STREAMS, "cpu")
+                                  .resample_stream(pcm_cpu, frames, 1), "composed chain")
+    n_in = FLAC_STREAMS * frames * 2
+    med_d, med_c = float(np.median(dec_times)), float(np.median(chain_times))
+    print(f"flac->16k composed {FLAC_STREAMS} streams x {FLAC_FRAMES} x {FLAC_BLOCK} stereo s16: "
+          f"md5_ok all, device PCM = host PCM, device chain = host-roundtrip chain byte for byte, "
+          f"{ndiff} samples of {CMP_STREAMS} streams differ by 1 LSB from the CPU port, {clips} "
+          f"clipped; decode_streams_to_device {n_in / med_d / 1e6:.1f} Msamples/s "
+          f"({med_d * 1e3:.2f} ms/call, min {min(dec_times) * 1e3:.2f}, max "
+          f"{max(dec_times) * 1e3:.2f}), whole chain {n_in / med_c / 1e6:.1f} Msamples/s "
+          f"({med_c * 1e3:.2f} ms/call, min {min(chain_times) * 1e3:.2f}, max "
+          f"{max(chain_times) * 1e3:.2f}) at the median of {reps} calls; host parse of one call "
+          f"{parse_s * 1e3:.2f} ms; gens {out_dev[1]}")
+    print(f"launches on the composed path ({reps} decode calls, then {reps} chain calls): "
+          f"{launches}")
+    return launches
+
+
+def flac_phases():
+    """Phases 6-8; returns the kernels-line entry of flac_frame."""
+    fg = tools_import("flacgen")
+    P = fg.SubframePlan
+    composed_blob, _ = fg.make_flac(rng_seed=1, depth=16, channels=2, block_size=FLAC_BLOCK,
+                                    n_frames=FLAC_FRAMES,
+                                    plans=[[P("lpc", order=8, fit=True)] * 2] * FLAC_FRAMES)
+    entry = flac_kernel_phase(composed_blob)
+    flac_corpus_phase()
+    entry["launches"] = flac_composed_phase(composed_blob)["flac_frame"]
+    return entry
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -346,6 +583,9 @@ def main() -> None:
         if n == 0:
             fail(f"the main path never launched {name}")
 
+    # 6-8. FLAC
+    flac = flac_phases()
+
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",
          "source": "esp_audio_libs_tpu_torch/csrc/polyphase_banded.cu",
@@ -360,7 +600,8 @@ def main() -> None:
          "replaces": "esp_audio_libs_tpu/ops/polyphase_pallas.py:270",
          "launches": launches["polyphase_fused16"], "max_abs_err": err_fused,
          "ms": ms_f, "plain_ms": ms_fp, "bound_ms": bound_f, "bound_by": by_f,
-         "library_ms": lib_f}]}
+         "library_ms": lib_f},
+        flac]}
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

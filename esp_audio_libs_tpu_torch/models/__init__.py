@@ -1,3 +1,13 @@
+"""User-facing pipelines of the port: the fast-mode ``Resampler`` and the
+FLAC decoders (``FLACDecoder`` for one stream, ``BatchedFLACDecoder`` for a
+fleet, and the device-resident ``decode_streams_to_device[_grouped]`` that
+feed the Resampler without a host round trip). Each runs on ``"cuda"`` by
+default and raises without a card."""
+
+from .batch import BatchedFLACDecoder  # noqa: F401
+from .flac import (FLACDecoder, decode_streams_to_device,  # noqa: F401
+                   decode_streams_to_device_grouped)
 from .resampler import Resampler, ResamplerConfiguration, ResamplerResults  # noqa: F401
 
-__all__ = ["Resampler", "ResamplerConfiguration", "ResamplerResults"]
+__all__ = ["BatchedFLACDecoder", "FLACDecoder", "Resampler", "ResamplerConfiguration",
+           "ResamplerResults", "decode_streams_to_device", "decode_streams_to_device_grouped"]

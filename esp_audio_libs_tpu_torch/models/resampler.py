@@ -34,6 +34,7 @@ from ..ops import quantization as q
 from ..ops import sinc
 from ..ops.polyphase import TILE, banded_K, banded_weights_device
 from ..ops.polyphase_kernels import polyphase_banded_cuda, polyphase_fused16_cuda
+from ..runtime.kernels import entry_device
 from ..runtime.native import design_filterbank_native
 from ..runtime.phase_grid import HISTORY_MARGIN, PhaseState, phase_grid, required_samples
 
@@ -92,12 +93,7 @@ class Resampler:
                 "exact=True needs the sequential f32 scans of ops/scan.py and the "
                 "device biquad (ROADMAP.md, Queue 1 item 3), not ported yet; "
                 "use exact=False")
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("Resampler(device='cuda'): CUDA is not available")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}: expected cpu or cuda")
+        self.device = entry_device(device, "Resampler")
         self.batch = batch
         self._initialized = False
 

@@ -25,11 +25,27 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 REPO = Path(__file__).resolve().parent.parent.parent
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = REPO / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libeal_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def entry_device(device, what: str):
+    """The ``torch.device`` of an entry point such as ``Resampler`` or
+    ``FLACDecoder`` (named by ``what``): ``cuda`` runs the kernels and needs
+    a card, ``cpu`` runs their plain versions, anything else raises. Nothing
+    falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what}(device={str(dev)!r}): CUDA is not available")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    return dev
 
 
 def _nvcc() -> str:
@@ -105,4 +121,7 @@ def bind(lib: C.CDLL) -> C.CDLL:
     lib.eal_polyphase_banded.argtypes = [p, p, p, p, p, i, i, i, i, ll, i, p]
     lib.eal_polyphase_fused16.restype = C.c_int
     lib.eal_polyphase_fused16.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, p]
+    lib.eal_flac_frame.restype = C.c_int
+    lib.eal_flac_frame.argtypes = [p, i, p, p, i, p, p, p, p, p, p,
+                                   i, i, i, i, i, i, i, i, p]
     return lib

@@ -2,9 +2,12 @@
 
 The same library the JAX package loads (esp_audio_libs_tpu/runtime/native.py),
 built from ``native/`` by ``native/build_host.sh``: filter design with exact
-glibc f32 libm semantics and the serial f32 phase-grid recurrence come from
-one C++ source for both packages. Only the resampler's four entry points are
-bound here. The library is built at first use if it is missing.
+glibc f32 libm semantics, the serial f32 phase-grid recurrence and the FLAC
+bitstream front-end (sync, headers, CRC, Rice decoding into residual tables,
+and the decoder-state save/load blob) come from one C++ source for both
+packages. Bound here: the resampler's four entry points and the FLAC
+front-end; the MP3 front-end is not bound yet. The library is built at first
+use if it is missing.
 """
 
 from __future__ import annotations
@@ -42,6 +45,49 @@ def host_lib() -> C.CDLL:
     lib.eal_required_samples.argtypes = [C.c_int, C.c_float, C.c_int, C.c_int, C.c_float]
     lib.eal_expected_output.restype = C.c_uint
     lib.eal_expected_output.argtypes = [C.c_int, C.c_float, C.c_int, C.c_int, C.c_float]
+
+    # ---- FLAC front-end ----
+    u8p = C.POINTER(C.c_uint8)
+    i16p = C.POINTER(C.c_int16)
+    lib.eal_flac_create.restype = C.c_void_p
+    lib.eal_flac_destroy.argtypes = [C.c_void_p]
+    lib.eal_flac_read_header.restype = C.c_int32
+    lib.eal_flac_read_header.argtypes = [C.c_void_p, u8p, C.c_size_t]
+    lib.eal_flac_set_max_metadata_size.argtypes = [C.c_void_p, C.c_int32, C.c_uint32]
+    lib.eal_flac_set_crc_check.argtypes = [C.c_void_p, C.c_int32]
+    for name, restype in [
+        ("eal_flac_sample_rate", C.c_uint32), ("eal_flac_num_channels", C.c_uint32),
+        ("eal_flac_sample_depth", C.c_uint32), ("eal_flac_min_block_size", C.c_uint32),
+        ("eal_flac_max_block_size", C.c_uint32), ("eal_flac_num_samples", C.c_uint64),
+        ("eal_flac_bytes_index", C.c_size_t), ("eal_flac_num_metadata", C.c_int32),
+    ]:
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = [C.c_void_p]
+    lib.eal_flac_md5.argtypes = [C.c_void_p, u8p]
+    lib.eal_flac_metadata_info.restype = C.c_int32
+    lib.eal_flac_metadata_info.argtypes = [C.c_void_p, C.c_int32, i32p, i32p]
+    lib.eal_flac_metadata_data.restype = C.c_int32
+    lib.eal_flac_metadata_data.argtypes = [C.c_void_p, C.c_int32, u8p]
+    lib.eal_flac_parse_frame.restype = C.c_int32
+    lib.eal_flac_parse_frame.argtypes = [
+        C.c_void_p, u8p, C.c_size_t, i32p, C.c_size_t,
+        i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p]
+    lib.eal_flac_parse_stream.restype = C.c_int32
+    lib.eal_flac_parse_stream.argtypes = [
+        C.c_void_p, u8p, C.c_size_t, C.c_int32, C.c_int32,   # ctx, buf, len, max_frames, frame_cap
+        i8p, i16p, i32p,                                     # data8/16/32
+        i32p, i32p, i32p,                                    # slot8/16/32 cursors
+        i32p, i32p,                                          # wide, slot
+        i32p, i32p, i32p, i32p, i32p,                        # order, shift, wasted, use64, coeffs
+        i32p, i32p, i32p, i32p, i32p,                        # bs, ca, depth, crc_ok, consumed
+        i32p]                                                # last_rc (24 args total)
+    lib.eal_flac_state_size.restype = C.c_size_t
+    lib.eal_flac_state_size.argtypes = [C.c_void_p]
+    lib.eal_flac_state_save.restype = C.c_int
+    lib.eal_flac_state_save.argtypes = [C.c_void_p, u8p, C.c_size_t]
+    lib.eal_flac_state_load.restype = C.c_int
+    lib.eal_flac_state_load.argtypes = [C.c_void_p, u8p, C.c_size_t]
     return lib
 
 

@@ -9,23 +9,32 @@ The tests marked ``cuda`` hold each kernel against its plain PyTorch version
 at the slice's shapes and skip without a card; the others check the
 wrappers' routing on the CPU, the plain band-range function, and a CPU
 emulation of the kernels' 3xTF32 arithmetic on a chunk's real operands,
-which predicts what the card shows.
+which predicts what the card shows. The FLAC frame kernel is held to its
+plain version byte for byte on the real parsed buckets of
+tools/flac_kernel_fleet.py (numpy and the port only), the fleet that
+chip_smoke.py checks too.
 """
 
 import dataclasses
 import math
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 from esp_audio_libs_tpu_torch.ops import quantization as q
 from esp_audio_libs_tpu_torch.runtime import kernels
 from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import flac_kernel_fleet as fleet  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -244,6 +253,18 @@ def test_3xtf32_emulation_within_contract():
     assert not torch.allclose(one_pass, ref, rtol=RTOL, atol=ATOL)
 
 
+def test_flac_frame_wrapper_routes_cpu_to_plain():
+    """The shared fleet covers every case it names, and on the CPU the
+    wrapper runs the plain version without launching."""
+    buckets = fleet.fleet_buckets("cpu")
+    assert fleet.missing(fleet.coverage(buckets)) == {}
+    fk.reset_launch_counts()
+    for _, arrays, kw in buckets:
+        t, kwt = fleet.on_device(arrays, kw, "cpu")
+        assert torch.equal(fk.flac_frame_cuda(*t, **kwt), fk.flac_frame_plain(*t, **kwt))
+    assert fk.flac_frame_cuda.launches == 0
+
+
 # --------------------------------------------------------- on the card
 
 
@@ -388,3 +409,36 @@ def test_kernels_refuse_unaligned_row_pitch(cuda):
         pk.polyphase_banded_cuda(torch.zeros((8, 1027), device=cuda), W, s, T=256)
     with pytest.raises(ValueError, match="16 bytes"):
         pk.polyphase_fused16_cuda(torch.zeros((8, 1028), dtype=torch.int16, device=cuda), W, s)
+
+
+@pytest.mark.cuda
+def test_flac_frame_kernel_matches_plain(cuda):
+    """Each real bucket of the shared fleet in every specialisation it can
+    take (order class, accumulator, plane width, escape tier):
+    byte-identical to the plain version."""
+    for bkey, arrays, kw in fleet.fleet_buckets(cuda):
+        t, kwt = fleet.on_device(arrays, kw, cuda)
+        want = fk.flac_frame_plain(*t, **kwt)
+        for label, plane, esc, kwv in fleet.kernel_variants(arrays, kw):
+            extra = {} if esc is None else dict(zip(("esc_pos", "esc_val"),
+                                                    fleet.on_device(esc, {}, cuda)[0]))
+            before = fk.flac_frame_cuda.launches
+            got = fk.flac_frame_cuda(torch.as_tensor(plane, device=cuda), *t[1:], **kwv, **extra)
+            torch.cuda.synchronize()
+            assert fk.flac_frame_cuda.launches == before + 1
+            assert torch.equal(got, want), (bkey, label)
+
+
+@pytest.mark.cuda
+def test_flac_frame_kernel_refuses_bad_arguments(cuda):
+    data = torch.zeros((1, 2, 64), dtype=torch.int16, device=cuda)
+    params = [torch.zeros(s, dtype=torch.int32, device=cuda)
+              for s in ((1, 2, 32), (1, 2), (1, 2), (1, 2), (1,))]
+    with pytest.raises(ValueError, match="max_order"):
+        fk.flac_frame_cuda(data, *params, depth=16, nch=2, mode32=False, max_order=7)
+    with pytest.raises(ValueError, match="int8"):
+        fk.flac_frame_cuda(data, *params, depth=16, nch=2, mode32=False, max_order=8,
+                           esc_pos=params[-1], esc_val=params[-1])
+    with pytest.raises(ValueError, match="coeffs"):
+        fk.flac_frame_cuda(data, params[1], *params[1:], depth=16, nch=2, mode32=False,
+                           max_order=8)

@@ -231,6 +231,10 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.models.resampler\n"
             "import esp_audio_libs_tpu_torch.ops.polyphase_kernels\n"
             "import esp_audio_libs_tpu_torch.runtime.kernels\n"
+            "import esp_audio_libs_tpu_torch.models.flac\n"
+            "import esp_audio_libs_tpu_torch.models.batch\n"
+            "import esp_audio_libs_tpu_torch.ops.lpc\n"
+            "import esp_audio_libs_tpu_torch.ops.flac_kernels\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'esp_audio_libs_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
