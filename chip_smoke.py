@@ -45,10 +45,31 @@ Phases, each printing a line:
                device PCM and the resampled output against the host-roundtrip
                chain, 8 streams against a CPU run of the port; rates at the
                median of 5 calls.
-The launch counts of phases 4-5 and of phase 8's timed calls, each set to 0
-just before and read just after, show that the main paths ran through the
-kernels; phase 8 asserts its exact counts. The last three lines are the
-card line, one JSON object describing the kernels, and
+  9. exact kernels - the two kernels of exact mode against their plain
+               versions on the card, bit for bit: the DF-I biquad kernel on
+               the main pre-filter chunk ([2048, 2, 8192] from the phase-4
+               bytes) second- and first-order, with valid_len, as iir2, and
+               with a burst followed by silence whose tail decays through
+               the subnormal range; the exact polyphase kernel on the main
+               chunk's real operands with and without the second dot (its
+               last tile is ragged) and on 13 rows. Times (CUDA events) beside
+               the bound; for the biquad also one lane alone and an
+               estimated serial chain (text line only).
+ 10. exact e2e - Resampler(2048) (exact, the default) resample_stream(data,
+               8192, 8) on the phase-4 bytes, its packed bytes, counts and
+               state equal to a CPU run of the plain path on 8 streams, with
+               its launches asserted (2 biquad and 1 polyphase_exact per
+               chunk); the same for 16 kHz -> 44.1 kHz at batch 256 (the
+               post-filter runs with valid_len); BatchedResample((2048, 2),
+               exact=True).process on one 8192-sample chunk; the
+               biquad_cascade_2x_stereo configuration of bench_all.py (2048 x
+               stereo x 65536, lowpass 0.18) in the conv form and through
+               the exact kernel, held to each other at rtol 1e-4 / atol 1e-5.
+The launch counts of phases 4-5, of phase 8's timed calls and of each path of
+phase 10, each set to 0 just before and read just after, show that the main
+paths ran through the kernels; phases 8 and 10 assert their exact counts.
+The last three lines are the card line, one JSON object describing the
+kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
 lines. Imports nothing of JAX.
 """
@@ -66,6 +87,10 @@ PEAK_TF32, PEAK_BYTES = 495e12, 3.35e12   # H100 SXM: dense TF32 tensor cores; H
 TF32_PASSES = 3                            # 3xTF32: three tensor-core products per product
 FLAC_STREAMS, FLAC_FRAMES, FLAC_BLOCK = 256, 16, 4096   # bench_all.py's composed row
 CHAIN_OPS, OP_CYCLES = 3, 4   # FLAC step chain: multiply-add, shift, add; assumed cycles each
+PEAK_FP32 = 67e12             # H100 SXM FP32 outside the tensor cores (an FMA counts 2)
+BIQUAD_CHAIN_OPS = 3          # exact biquad step chain: b1*o1, two subtractions
+CASCADE_B, CASCADE_T = 2048, 65536   # bench_all.py's biquad_cascade_2x_stereo
+CASCADE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_biquad.py:65, fast vs exact
 
 
 def fail(msg: str) -> None:
@@ -79,6 +104,14 @@ def card_line() -> str:
     if res.returncode != 0 or not res.stdout.strip():
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def max_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz (nan if nvidia-smi gives none)."""
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    return float(clock[0]) if clock else float("nan")
 
 
 def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -159,9 +192,9 @@ def check_fused(s_k, c_k, s_p, c_p, label) -> int:
     return err
 
 
-def make_resampler(src, dst, batch, device):
+def make_resampler(src, dst, batch, device, exact=False):
     from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
-    r = Resampler(batch=batch, exact=False, device=device)
+    r = Resampler(batch=batch, exact=exact, device=device)
     r.initialize(ResamplerConfiguration(src, dst, 16, 16, 2, True, True, 64, 32))
     return r
 
@@ -324,9 +357,7 @@ def flac_kernel_phase(composed_blob):
     esc_bytes = sum(kw[k].nbytes for k in ("esc_pos", "esc_val") if k in kw)
     nbytes = sum(a.nbytes for a in arrays) + esc_bytes + got.numel()
     bound_ms = nbytes / PEAK_BYTES * 1e3
-    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                           capture_output=True, text=True, timeout=60).stdout.split()
-    mhz = float(clock[0]) if clock else float("nan")
+    mhz = max_clock_mhz()
     est_floor_ms = T * CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
     tier = "int8+escapes" if esc_bytes else f"{arrays[0].dtype}"
     print(f"kernel flac_frame F={F} C={C} T={T} ({tier}, W={kw['max_order']}, use64={kw['use64']}, "
@@ -461,6 +492,258 @@ def flac_phases():
     return entry
 
 
+def same_bits(a, b) -> bool:
+    """Equal f32 tensors bit for bit (NaN positions equal, any NaN payload)."""
+    import torch
+    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+        return False
+    keep = ~a.isnan()
+    return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+
+
+def exact_kernels_phase(data):
+    """Phase 9: the exact-mode kernels against their plain versions, bit for
+    bit, at the main path's shapes; timed. Returns the two kernels-line
+    entries without their launch counts."""
+    import dataclasses
+
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops import quantization as q
+    from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
+
+    r = make_resampler(44100.0, 16000.0, BATCH, "cuda", exact=True)
+    factor = q.gain_factor(16, 0.0)
+    data_dev = torch.as_tensor(data[:, : FRAMES * 4], device="cuda")
+    x = r._unpack(data_dev, factor, FRAMES).contiguous()                  # [2048, 2, 8192]
+    c = r._coeffs_dev
+    zero = tuple(torch.zeros(x.shape[:-1], device="cuda") for _ in range(4))
+    first = torch.tensor([0.3, 0.3, 0.0, -0.4, 0.0], device="cuda")
+    burst = x.clone()
+    burst[: BATCH // 2, :, 256:] = 0.0       # silence after a burst: the tail underflows
+    cases = [("second-order", x, c, {}), ("first-order", x, first, {"first_order": True}),
+             ("valid_len 5000", x, c, {"valid_len": 5000}), ("burst + silence", burst, c, {})]
+    for label, xi, ci, kw in cases:
+        y, st = bk.biquad_df1_cuda(xi, ci, zero, **kw)
+        y_p, st_p = bk.biquad_df1_plain(xi, ci, zero, **kw)
+        torch.cuda.synchronize()
+        if not (same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(st, st_p))):
+            fail(f"biquad_df1 ({label}) differs from its plain version at {tuple(x.shape)}")
+    tail = y[: BATCH // 2, :, -64:]
+    if bool((tail != 0).any()):
+        fail("the burst's tail did not flush to zero")
+    f2 = x.reshape(-1, FRAMES)
+    p1, p2 = (torch.full((f2.shape[0],), float(c[i]), device="cuda") for i in (3, 4))
+    y, st = bk.iir2_sequential_cuda(f2, p1, p2, zero[0].reshape(-1), zero[1].reshape(-1))
+    y_p, st_p = bk.iir2_sequential_plain(f2, p1, p2, zero[0].reshape(-1), zero[1].reshape(-1))
+    torch.cuda.synchronize()
+    if not (same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(st, st_p))):
+        fail("iir2_sequential differs from its plain version")
+
+    lanes = x.numel() // FRAMES
+    ms_b = cuda_time(lambda: bk.biquad_df1_cuda(x, c, zero))
+    plain_b = cuda_time(lambda: bk.biquad_df1_plain(x, c, zero), iters=2, warmup=1)
+    one = tuple(s[:1, :1] for s in zero)
+    ms_one = cuda_time(lambda: bk.biquad_df1_cuda(x[:1, :1], c, one))
+    bytes_b = 2 * x.numel() * 4 + 8 * lanes * 4 + 5 * 4       # x, y, state in/out, coeffs
+    t_bytes, t_ops = bytes_b / PEAK_BYTES * 1e3, 9 * x.numel() / PEAK_FP32 * 1e3
+    bound_b, by_b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    mhz = max_clock_mhz()
+    est_ms = FRAMES * BIQUAD_CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
+    print(f"kernel biquad_exact [{BATCH}, 2, {FRAMES}] ({lanes} lanes): bit-identical to the "
+          f"plain version second- and first-order, with valid_len, as iir2 and through a "
+          f"flushed tail; {ms_b:.4f} ms vs plain {plain_b:.4f} ms, bound {bound_b:.4f} ms "
+          f"({by_b}: {bytes_b} B at 3.35 TB/s; 9 FP32 ops per step at 67 TFLOP/s take "
+          f"{t_ops:.4f}), {bound_b / ms_b:.1%} of the bound; one lane alone {ms_one:.4f} ms "
+          f"(measured chain {ms_one / FRAMES * 1e6:.1f} ns per step); estimated serial chain "
+          f"{est_ms:.4f} ms (an estimate, not measured: T x {BIQUAD_CHAIN_OPS} dependent ops x "
+          f"an assumed {OP_CYCLES} cycles at {mhz:.0f} MHz)")
+
+    # the polyphase kernel on the main chunk's real operands
+    states = r._biquad_states()
+    for stage in range(2):
+        x, states[stage] = bk.biquad_df1_cuda(x, c, states[stage])
+    out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
+    g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
+                   r.sample_ratio, FRAMES, out_max)
+    grid = r._exact_grids([g], out_max)[0]
+    xext = torch.cat([torch.zeros((*x.shape[:-1], r.hist_len), device="cuda"), x], dim=-1)
+    half, fb = r.config.number_of_taps // 2, r._filters
+    for second, rows in ((True, BATCH), (False, BATCH), (True, 13)):
+        xe = xext.reshape(-1, xext.shape[-1])[:rows]
+        got = pk.polyphase_exact_cuda(xe, fb, *grid, half=half, compute_second=second)
+        want = pk.polyphase_exact_plain(xe, fb, *grid, half=half, compute_second=second)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            fail(f"polyphase_exact (compute_second={second}, {rows} rows) differs from its "
+                 f"plain version")
+    ms_p = cuda_time(lambda: pk.polyphase_exact_cuda(xext, fb, *grid, half=half))
+    plain_p = cuda_time(lambda: pk.polyphase_exact_plain(xext, fb, *grid, half=half))
+    M, L = xext.numel() // xext.shape[-1], xext.shape[-1]
+    modes = grid[4].cpu().numpy()
+    taps = fb.shape[1]
+    ops = M * (int((modes == 1).sum()) * 2 * taps + int((modes == 2).sum()) * (4 * taps + 4))
+    bytes_p = (xext.numel() + fb.numel() + 5 * out_max + M * out_max) * 4
+    t_bytes, t_ops = bytes_p / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    bound_p, by_p = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"kernel polyphase_exact M={M} L={L} T={out_max} taps={taps} (modes 0/1/2: "
+          f"{int((modes == 0).sum())}/{int((modes == 1).sum())}/{int((modes == 2).sum())}): "
+          f"bit-identical to the plain version with and without the second dot and on 13 rows; "
+          f"{ms_p:.4f} ms vs plain {plain_p:.4f} ms, bound {bound_p:.4f} ms ({by_p}: {bytes_p} B "
+          f"at 3.35 TB/s, {ops} FP32 ops at 67 TFLOP/s take {t_ops:.4f}), "
+          f"{bound_p / ms_p:.1%} of the bound")
+    return [{"name": "biquad_exact", "route": "cuda",
+             "source": "esp_audio_libs_tpu_torch/csrc/biquad_exact.cu",
+             "replaces": "esp_audio_libs_tpu/ops/biquad.py:197 / esp_audio_libs_tpu/ops/scan.py:41",
+             "launches": 0, "max_abs_err": 0, "bit_exact": True, "ms": ms_b, "plain_ms": plain_b,
+             "bound_ms": bound_b, "bound_by": by_b, "library_ms": None, "one_lane_ms": ms_one},
+            {"name": "polyphase_exact", "route": "cuda",
+             "source": "esp_audio_libs_tpu_torch/csrc/polyphase_exact.cu",
+             "replaces": "esp_audio_libs_tpu/ops/polyphase.py:236",
+             "launches": 0, "max_abs_err": 0, "bit_exact": True, "ms": ms_p, "plain_ms": plain_p,
+             "bound_ms": bound_p, "bound_by": by_p, "library_ms": None}]
+
+
+def exact_stream(src, dst, batch, data, label, reps=5):
+    """Phase 10's Resampler paths: exact resample_stream on the card with
+    its launches counted and asserted, bytes, counts and state against a
+    CPU run of the plain path on CMP_STREAMS streams. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+
+    r = make_resampler(src, dst, batch, "cuda", exact=True)
+    if not r.exact:
+        fail(f"{label}: Resampler's default is not exact mode")
+    data_dev = torch.as_tensor(data, device="cuda")
+    bk.reset_launch_counts()
+    pk.reset_launch_counts()
+    first = r.resample_stream(data_dev, FRAMES, CHUNKS)
+    torch.cuda.synchronize()
+    state = r.get_state()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        r.resample_stream(data_dev, FRAMES, CHUNKS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"biquad_exact": bk.biquad_df1_cuda.launches,
+                "polyphase_exact": pk.polyphase_exact_cuda.launches,
+                "polyphase_banded": pk.polyphase_banded_cuda.launches}
+    want = {"biquad_exact": 2 * CHUNKS * (reps + 1), "polyphase_exact": CHUNKS * (reps + 1),
+            "polyphase_banded": 0}
+    if launches != want:
+        fail(f"{label}: launched {launches}, expected {want}")
+    ref = make_resampler(src, dst, CMP_STREAMS, "cpu", exact=True)
+    pc, gc, cc = ref.resample_stream(data[:CMP_STREAMS], FRAMES, CHUNKS)
+    pg, gg, cg = first
+    if gg != gc or not torch.equal(pg[:, :CMP_STREAMS].cpu(), pc) or \
+            not np.array_equal(cg[:, :CMP_STREAMS], cc):
+        fail(f"{label}: bytes, counts or clip counts differ from the CPU plain path")
+    sc = ref.get_state()
+    if not np.array_equal(state["history"][:CMP_STREAMS].view(np.uint32),
+                          sc["history"].view(np.uint32)) or any(
+            not np.array_equal(a[:CMP_STREAMS].view(np.uint32), b.view(np.uint32))
+            for sa, sb in zip(state["biquad"], sc["biquad"]) for a, b in zip(sa, sb)):
+        fail(f"{label}: carried state differs from the CPU plain path")
+    med = float(np.median(times))
+    rate = CHUNKS * FRAMES * 2 * batch / med / 1e6
+    print(f"{label}: {rate:.1f} input Msamples/s at the median of {reps} calls "
+          f"({med * 1e3:.2f} ms/call, min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+          f"gens {gg[0]}..{gg[-1]}; packed bytes, counts, history and biquad state of "
+          f"{CMP_STREAMS} streams identical to the CPU plain path; launches {launches}")
+    return launches
+
+
+def exact_phase(data):
+    """Phase 10: the exact path end to end. Returns the launch counts of the
+    44.1 -> 16 kHz stream (the main path) and of the other paths."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedResample
+    from esp_audio_libs_tpu_torch.ops import biquad as tbq
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops import sinc
+
+    main = exact_stream(44100.0, 16000.0, BATCH, data, "exact e2e 44.1k->16k")
+    up = exact_stream(16000.0, 44100.0, 256, data[:256], "exact upsample 16k->44.1k B=256")
+
+    # BatchedResample on one chunk of the main path's pre-filtered-free input
+    ratio = float(np.float32(np.float32(16000.0) / np.float32(44100.0)))
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((BATCH, 2, FRAMES)),
+                        dtype=torch.float32, device="cuda")
+    n_out = math.ceil(FRAMES * ratio) + 8
+    args = (64, 32, 0.84 * ratio, sinc.SUBSAMPLE_INTERPOLATE)
+    br = BatchedResample((BATCH, 2), *args, exact=True)
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, res = br.process(x, n_out, ratio)
+    torch.cuda.synchronize()
+    br_ms = (time.perf_counter() - t0) * 1e3
+    br_launches = pk.polyphase_exact_cuda.launches
+    if br_launches != 1:
+        fail(f"BatchedResample.process launched polyphase_exact {br_launches} times")
+    cpu = BatchedResample((CMP_STREAMS, 2), *args, exact=True, device="cpu")
+    out_c, res_c = cpu.process(x[:CMP_STREAMS].cpu(), n_out, ratio)
+    if (res.input_used, res.output_generated) != (res_c.input_used, res_c.output_generated) \
+            or not same_bits(out[:CMP_STREAMS].cpu(), out_c) \
+            or not same_bits(br.history[:CMP_STREAMS].cpu(), cpu.history):
+        fail("BatchedResample on the card differs from the CPU plain path")
+    print(f"BatchedResample(({BATCH}, 2), 64, 32, exact=True).process of {FRAMES} samples: "
+          f"{res.output_generated} outputs, bit-identical to the CPU plain path on "
+          f"{CMP_STREAMS} streams, {br_ms:.2f} ms (first call), 1 polyphase_exact launch")
+
+    # bench_all.py's biquad_cascade_2x_stereo: conv form, and the exact kernel
+    coeffs = tbq.biquad_init(tbq.biquad_lowpass(0.18), 1.0)
+    fir_len = tbq.fir_len_for(coeffs)
+    c = torch.as_tensor(coeffs, device="cuda")
+    xb = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (CASCADE_B, 2, CASCADE_T), dtype=np.float32), device="cuda")
+    zero = tbq.BiquadState.zeros((CASCADE_B, 2), device="cuda")
+
+    def cascade(exact):
+        y, _ = tbq.biquad_apply(xb, c, zero, exact=exact, fir_len=None if exact else fir_len)
+        return tbq.biquad_apply(y, c, zero, exact=exact, fir_len=None if exact else fir_len)[0]
+
+    def rate_of(exact, reps=5):
+        cascade(exact)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            cascade(exact)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = float(np.median(times))
+        return CASCADE_B * 2 * CASCADE_T / med / 1e6, med * 1e3
+
+    y_conv = cascade(False)
+    bk.reset_launch_counts()
+    y_exact = cascade(True)
+    torch.cuda.synchronize()
+    casc_launches = bk.biquad_df1_cuda.launches
+    if casc_launches != 2:
+        fail(f"the exact cascade launched biquad_exact {casc_launches} times")
+    torch.testing.assert_close(y_conv, y_exact, **CASCADE_TOL)
+    err = float((y_conv - y_exact).abs().max())
+    del y_conv, y_exact
+    rate_c, ms_c = rate_of(False)
+    rate_e, ms_e = rate_of(True)
+    print(f"biquad_cascade_2x_stereo B={CASCADE_B} x 2 x {CASCADE_T}: conv form (fir_len "
+          f"{fir_len}) {rate_c:.1f} Msamples/s ({ms_c:.2f} ms), exact kernel {rate_e:.1f} "
+          f"Msamples/s ({ms_e:.2f} ms), median of 5; conv within rtol 1e-4 / atol 1e-5 of the "
+          f"exact output (max|d| {err:.3g})")
+    del xb
+    torch.cuda.empty_cache()
+    return main, {"upsample": up, "batched_resample": br_launches, "cascade": casc_launches}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -586,6 +869,19 @@ def main() -> None:
     # 6-8. FLAC
     flac = flac_phases()
 
+    # 9-10. exact mode
+    exact_entries = exact_kernels_phase(data)
+    torch.cuda.empty_cache()
+    exact_main, exact_other = exact_phase(data)
+    exact_entries[0]["launches"] = exact_main["biquad_exact"]
+    exact_entries[1]["launches"] = exact_main["polyphase_exact"]
+    exact_entries[0]["launches_other_paths"] = {
+        "upsample": exact_other["upsample"]["biquad_exact"], "cascade": exact_other["cascade"]}
+    exact_entries[1]["launches_other_paths"] = {
+        "upsample": exact_other["upsample"]["polyphase_exact"],
+        "batched_resample": exact_other["batched_resample"]}
+    print(f"launches on the exact path (6 resample_stream calls of 8 chunks): {exact_main}")
+
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",
          "source": "esp_audio_libs_tpu_torch/csrc/polyphase_banded.cu",
@@ -601,7 +897,7 @@ def main() -> None:
          "launches": launches["polyphase_fused16"], "max_abs_err": err_fused,
          "ms": ms_f, "plain_ms": ms_fp, "bound_ms": bound_f, "bound_by": by_f,
          "library_ms": lib_f},
-        flac]}
+        flac, *exact_entries]}
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,10 +8,11 @@ carries the same sub-package layout and module names:
                FLAC front-end) and the hand-written CUDA kernels
                (``csrc/*.cu``, built with nvcc at first use); dispatch
                slicing and the escape sideband
-- ``ops``      PCM quantization, host biquad design, the banded polyphase
-               contraction, FLAC LPC restoration, and their kernel wrappers
-- ``models``   the user-facing ``Resampler`` (fast mode), ``FLACDecoder`` and
-               ``BatchedFLACDecoder``
+- ``ops``      PCM quantization, biquad design and application, the
+               recurrence solvers, the banded and exact polyphase
+               contractions, FLAC LPC restoration, and their kernel wrappers
+- ``models``   the user-facing ``Resampler`` (exact and fast mode),
+               ``BatchedResample``, ``FLACDecoder`` and ``BatchedFLACDecoder``
 - ``utils``    the FLAC result and metadata enums
 
 It imports ``torch``, ``numpy`` and ``ctypes`` and never ``jax``. Kernel

@@ -1,4 +1,4 @@
-"""User-facing batched resampling pipeline, fast mode, in PyTorch.
+"""User-facing batched resampling pipeline in PyTorch: exact and fast mode.
 
 The counterpart of esp_audio_libs_tpu/models/resampler.py (reference:
 src/resample/resampler.cpp:21-160, include/resampler.h:15-82): packed PCM in,
@@ -7,17 +7,22 @@ heuristic, pre- vs post-filter selection, the ``taps/2`` latency advance, the
 required-samples throttle, pass-through when rates match and per-stream clip
 counts.
 
-Fast mode only. The pre-filter biquads are folded into the filterbank on the
+Exact mode (the default, bit-exact against the JAX package's exact mode):
+each chunk runs unpack -> two exact pre-filter biquad stages (downsampling;
+the kernel ops/biquad_kernels.py::biquad_df1_cuda) -> the ordered-dot
+polyphase kernel (ops/polyphase_kernels.py::polyphase_exact_cuda) -> two
+exact post-filter stages (upsampling) -> quantize + pack.
+
+Fast mode: the pre-filter biquads are folded into the filterbank on the
 host; each chunk then runs on the device as unpack -> banded weight build ->
 banded contraction (the CUDA kernel ops/polyphase_kernels.py::
 polyphase_banded_cuda) -> post-filter conv through the same kernel
 (upsampling) -> quantize + pack. The s16-in/s16-out fused tier
 (``EAL_RESAMPLE_FUSED16=1``) swaps the f32 contraction and quantize for the
-fused int16 kernel. The host runs only the f32 phase-grid control plane;
-all per-stream state lives in tensors on the Resampler's device.
+fused int16 kernel.
 
-Exact mode needs the sequential f32 scans (ROADMAP.md, Queue 1 item 3) and
-raises ``NotImplementedError`` until they are ported.
+The host runs only the f32 phase-grid control plane; all per-stream state
+lives in tensors on the Resampler's device.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from ..ops import biquad as bq
 from ..ops import quantization as q
 from ..ops import sinc
-from ..ops.polyphase import TILE, banded_K, banded_weights_device
+from ..ops.polyphase import TILE, banded_K, banded_weights_device, polyphase_apply
 from ..ops.polyphase_kernels import polyphase_banded_cuda, polyphase_fused16_cuda
 from ..runtime.kernels import entry_device
 from ..runtime.native import design_filterbank_native
@@ -76,25 +81,21 @@ def _clip_counts(per_stream: torch.Tensor) -> np.ndarray:
 
 
 class Resampler:
-    """Batched quantized -> float -> sinc resample -> quantized, fast mode.
+    """Batched quantized -> float -> (biquads) -> sinc resample -> quantized.
 
     Args:
       batch: number of independent streams processed per call.
-      exact: the bit-exact sequential mode of the JAX package; not ported
-        yet, so ``True`` raises ``NotImplementedError``.
+      exact: the bit-exact sequential mode (the default, as in the JAX
+        package) or the fast banded mode.
       device: where every stream's state lives and the work runs: ``"cuda"``
         (the default: the hand-written kernels) or ``"cpu"`` (their plain
         versions). ``"cuda"`` without a usable card raises; nothing falls back.
     """
 
     def __init__(self, batch: int, *, exact: bool = True, device="cuda"):
-        if exact:
-            raise NotImplementedError(
-                "exact=True needs the sequential f32 scans of ops/scan.py and the "
-                "device biquad (ROADMAP.md, Queue 1 item 3), not ported yet; "
-                "use exact=False")
         self.device = entry_device(device, "Resampler")
         self.batch = batch
+        self.exact = exact
         self._initialized = False
 
     def _zeros(self, *shape) -> torch.Tensor:
@@ -136,15 +137,14 @@ class Resampler:
                 self.lowpass_coeffs = bq.biquad_init(bq.biquad_lowpass(float(cutoff)), 1.0)
                 self.post_filter = True
 
-            fir_len = None
             if self.pre_filter or self.post_filter:
                 # DF-I states of the two biquad stages. Fast mode folds the
-                # filters away and never reads them; they are carried so that
+                # filters away and never reads them; it carries them so that
                 # get_state/set_state keep the JAX package's checkpoint keys.
+                self._coeffs_dev = torch.as_tensor(self.lowpass_coeffs, device=self.device)
                 self._biquad_state = [
-                    tuple(self._zeros(self.batch, self.channels) for _ in range(4))
+                    bq.BiquadState.zeros((self.batch, self.channels), device=self.device)
                     for _ in range(2)]
-                fir_len = bq.fir_len_for(self.lowpass_coeffs)
 
             if self.sample_ratio < 1.0:
                 bank_lowpass = f32(self.sample_ratio * self.lowpass_ratio)
@@ -160,41 +160,12 @@ class Resampler:
             self.bank_flags = bank_flags
             filters_np = np.asarray(design_filterbank_native(
                 taps, config.number_of_filters, float(bank_lowpass), bank_flags), np.float32)
-            # Compose the pre-filter cascade into the filterbank (LTI): the
-            # contraction does the lowpassing and the raw-input history
-            # reaches back by the extra IR length.
             self._fold_offset = 0
-            direct = np.zeros(taps, np.float32)
-            direct[taps // 2 - 1] = 1.0
-            if self.pre_filter and fir_len is not None:
-                filters_np, direct, self._fold_offset = bq.fold_biquad_into_filterbank(
-                    filters_np, self.lowpass_coeffs, fir_len, half=taps // 2)
+            if self.exact:
+                self._filters = torch.as_tensor(filters_np, device=self.device)
+            else:
+                self._init_fast(filters_np, taps)
             self.hist_len = taps + HISTORY_MARGIN + self._fold_offset
-            self._taps_p = filters_np.shape[1]
-            self._K = banded_K(float(self.sample_ratio), self._taps_p)
-            self._filters = torch.as_tensor(filters_np, device=self.device)
-            self._direct = torch.as_tensor(direct, device=self.device)
-            if self.post_filter:
-                # post-lowpass (upsampling) as a banded conv at OUTPUT rate:
-                # both biquad stages collapse into one truncated IR through
-                # the same contraction. Stride-1 windows make the weight tile
-                # identical for every 128-output block: one [K2, 128] block,
-                # starts 128*i.
-                post_ir = bq.fir_len_for(self.lowpass_coeffs, cap=8192)
-                if post_ir is None:
-                    raise NotImplementedError(
-                        "post-filter poles too close to the unit circle for the "
-                        "truncated-IR fast path")
-                h1 = bq.biquad_impulse(self.lowpass_coeffs, post_ir)
-                row = np.convolve(h1, h1)[::-1].astype(np.float32)
-                Lh = row.shape[0]
-                self._post_Hlen = Lh - 1
-                self._post_K = banded_K(1.0, Lh)
-                W2 = np.zeros((self._post_K, TILE), np.float32)
-                for j in range(TILE):
-                    W2[j:j + Lh, j] = row
-                self._post_W2 = torch.as_tensor(W2, device=self.device)
-                self._post_hist = self._zeros(self.batch, self.channels, self._post_Hlen)
             self.phase = PhaseState.initial(taps)
             self.phase.advance(taps / 2.0)
             self.history = self._zeros(self.batch, self.channels, self.hist_len)
@@ -206,6 +177,43 @@ class Resampler:
         self._hist_gain_zero = True
         self._initialized = True
         return True
+
+    def _init_fast(self, filters_np, taps: int) -> None:
+        """Fast mode's device constants: the folded filterbank, its direct
+        row and slab width, and the post-filter's shared weight tile."""
+        # Compose the pre-filter cascade into the filterbank (LTI): the
+        # contraction does the lowpassing and the raw-input history reaches
+        # back by the extra IR length.
+        direct = np.zeros(taps, np.float32)
+        direct[taps // 2 - 1] = 1.0
+        fir_len = bq.fir_len_for(self.lowpass_coeffs) if self.pre_filter else None
+        if fir_len is not None:
+            filters_np, direct, self._fold_offset = bq.fold_biquad_into_filterbank(
+                filters_np, self.lowpass_coeffs, fir_len, half=taps // 2)
+        self._taps_p = filters_np.shape[1]
+        self._K = banded_K(float(self.sample_ratio), self._taps_p)
+        self._filters = torch.as_tensor(filters_np, device=self.device)
+        self._direct = torch.as_tensor(direct, device=self.device)
+        if self.post_filter:
+            # post-lowpass (upsampling) as a banded conv at OUTPUT rate: both
+            # biquad stages collapse into one truncated IR through the same
+            # contraction. Stride-1 windows make the weight tile identical
+            # for every 128-output block: one [K2, 128] block, starts 128*i.
+            post_ir = bq.fir_len_for(self.lowpass_coeffs, cap=8192)
+            if post_ir is None:
+                raise NotImplementedError(
+                    "post-filter poles too close to the unit circle for the "
+                    "truncated-IR fast path; use exact=True")
+            h1 = bq.biquad_impulse(self.lowpass_coeffs, post_ir)
+            row = np.convolve(h1, h1)[::-1].astype(np.float32)
+            Lh = row.shape[0]
+            self._post_Hlen = Lh - 1
+            self._post_K = banded_K(1.0, Lh)
+            W2 = np.zeros((self._post_K, TILE), np.float32)
+            for j in range(TILE):
+                W2[j:j + Lh, j] = row
+            self._post_W2 = torch.as_tensor(W2, device=self.device)
+            self._post_hist = self._zeros(self.batch, self.channels, self._post_Hlen)
 
     # -------------------------------------------------------- checkpointing
     def get_state(self) -> dict:
@@ -288,11 +296,25 @@ class Resampler:
         grid = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
                           self.sample_ratio, frames, output_frames_free)
         gen = grid.output_generated
-        packed, per_stream, history, post_hist = self._fast_chunk(
-            data, factor, self.history, self._post_hist,
-            self._device_grids([grid], output_frames_free)[0], gen,
-            frames=frames, out_max=output_frames_free, hist_from=grid.input_used)
-        self.history, self._post_hist = history, post_hist
+        if self.exact:
+            # gen is host-known: post-filter and quantize only the generated
+            # samples, as the reference does
+            xc = self._unpack(data, factor, frames)
+            out, history, states = self._exact_chunk(
+                xc, self.history, self._biquad_states(),
+                self._exact_grids([grid], output_frames_free)[0], hist_from=grid.input_used)
+            if self.post_filter:
+                out, states = self._exact_post(out[..., :gen], states, None)
+            packed, per_stream = self._quantize(out[..., :gen], gen, gen)
+            self.history = history
+            if self.pre_filter or self.post_filter:
+                self._biquad_state = states
+        else:
+            packed, per_stream, history, post_hist = self._fast_chunk(
+                data, factor, self.history, self._post_hist,
+                self._device_grids([grid], output_frames_free)[0], gen,
+                frames=frames, out_max=output_frames_free, hist_from=grid.input_used)
+            self.history, self._post_hist = history, post_hist
         self.phase = phase
         self._hist_gain_zero = gain_db == 0.0
         bps_out = q.bytes_per_sample(self.output_bits)
@@ -302,6 +324,54 @@ class Resampler:
             predicted_frames_used=frames,
             clipped_samples=_clip_counts(per_stream),
         )
+
+    # ------------------------------------------------- exact-path pieces
+    def _exact_grids(self, grids, n: int):
+        """Per chunk, the raw grid tensors (win0 + hist_len, idx1, idx2,
+        weight, mode) of length ``n`` on the device, as the JAX package's
+        exact mode feeds them: entries past the generated count stay as the
+        phase grid leaves them (mode 0). All chunks ship in two transfers."""
+        gi = np.zeros((len(grids), 4, n), np.int32)
+        gw = np.zeros((len(grids), n), np.float32)
+        for c, g in enumerate(grids):
+            gi[c, 0] = g.win0[:n] + self.hist_len
+            gi[c, 1] = g.idx1[:n]
+            gi[c, 2] = g.idx2[:n]
+            gi[c, 3] = g.mode[:n]
+            gw[c] = g.weight[:n]
+        gi_d = torch.as_tensor(gi, device=self.device)
+        gw_d = torch.as_tensor(gw, device=self.device)
+        return [(gi_d[c, 0], gi_d[c, 1], gi_d[c, 2], gw_d[c], gi_d[c, 3])
+                for c in range(len(grids))]
+
+    def _biquad_states(self) -> list:
+        """The carried states of the two biquad stages ([] without a filter)."""
+        return list(self._biquad_state) if (self.pre_filter or self.post_filter) else []
+
+    def _exact_chunk(self, xc, hist, states, grid_t, *, hist_from: int):
+        """One chunk of exact mode up to the polyphase output: the two exact
+        pre-filter stages (downsampling), then the ordered-dot kernel over
+        history + chunk. ``hist_from`` is the number of input frames
+        consumed. Returns (out f32 [B, ch, n], new history, biquad states)."""
+        states = list(states)
+        if self.pre_filter:
+            for stage in range(2):
+                xc, states[stage] = bq.biquad_apply(xc, self._coeffs_dev, states[stage],
+                                                    exact=True)
+        xext = torch.cat([hist, xc], dim=-1)
+        new_hist = xext[..., hist_from:hist_from + self.hist_len].clone()
+        out = polyphase_apply(xext, self._filters, *grid_t, half=self.config.number_of_taps // 2,
+                              exact=True,
+                              compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
+        return out, new_hist, states
+
+    def _exact_post(self, out, states, valid_len):
+        """The two exact post-filter stages (upsampling)."""
+        states = list(states)
+        for stage in range(2):
+            out, states[stage] = bq.biquad_apply(out, self._coeffs_dev, states[stage],
+                                                 exact=True, valid_len=valid_len)
+        return out, states
 
     # -------------------------------------------------- fast-path pieces
     def _device_grids(self, grids, out_len: int):
@@ -328,8 +398,8 @@ class Resampler:
         """xext's padded time length: at least one slab, a multiple of 128."""
         return _ceil_to(max(self.hist_len + frames, self._K), TILE)
 
-    def _unpack_fast(self, data, factor, frames):
-        """Packed bytes -> f32 [B, ch, frames]."""
+    def _unpack(self, data, factor, frames):
+        """Packed bytes -> f32 [B, ch, frames] (both modes)."""
         B = data.shape[0]
         ch, in_bits = self.channels, self.input_bits
         if ch == 2 and in_bits == 16:
@@ -337,9 +407,9 @@ class Resampler:
         x = q.int_to_float(q.unpack_pcm(data, in_bits), factor)
         return x.reshape(B, frames, ch).transpose(1, 2)
 
-    def _quantize_fast(self, out, gen: int, out_max: int):
+    def _quantize(self, out, gen: int, out_max: int):
         """f32 [B, ch, out_max] -> (packed bytes, int64 per-stream clip counts
-        over the ``gen`` valid outputs)."""
+        over the ``gen`` valid outputs), both modes."""
         B = out.shape[0]
         ch, out_bits = self.channels, self.output_bits
         if ch == 2 and out_bits == 16:
@@ -373,7 +443,7 @@ class Resampler:
         Returns (packed, per-stream clip counts, new history, new post hist)."""
         hist_len = self.hist_len
         L = self._slab_len(frames)
-        xc = self._unpack_fast(chunk, factor, frames)
+        xc = self._unpack(chunk, factor, frames)
         xext = torch.cat([hist, xc], dim=-1)
         new_hist = xext[..., hist_from:hist_from + hist_len].clone()
         xext = F.pad(xext, (0, L - hist_len - frames))
@@ -382,7 +452,7 @@ class Resampler:
         out = polyphase_banded_cuda(xext, Wt, starts, T=out_max)
         if self.post_filter:
             out, oh = self._conv_post(out, oh, gen, out_max)
-        packed, per_stream = self._quantize_fast(out, gen, out_max)
+        packed, per_stream = self._quantize(out, gen, out_max)
         return packed, per_stream, new_hist, oh
 
     # ------------------------------------------------------------ streaming
@@ -420,7 +490,6 @@ class Resampler:
                 raise AssertionError((g.input_used, chunk_frames))
             host_grids.append(g)
         gens = [g.output_generated for g in host_grids]
-        grids = self._device_grids(host_grids, out_max)
 
         bps_in = q.bytes_per_sample(self.input_bits)
         factor = q.gain_factor(self.input_bits, gain_db)
@@ -431,10 +500,16 @@ class Resampler:
         # the fused int16 tier is exact only when the carried history shares
         # this call's gain factor; the flag commits only after the call
         fused_ok = gain_db == 0.0 and self._hist_gain_zero
-        if self._fused_tier_selected(fused_ok):
+        if self.exact:
+            packed, clipped, history = self._exact_stream(
+                chunks, self._exact_grids(host_grids, out_max), gens, factor, chunk_frames,
+                out_max)
+        elif self._fused_tier_selected(fused_ok):
             packed, clipped, history = self._fused_stream(
-                chunks, grids, gens, factor, chunk_frames, out_max)
+                chunks, self._device_grids(host_grids, out_max), gens, factor, chunk_frames,
+                out_max)
         else:
+            grids = self._device_grids(host_grids, out_max)
             hist, oh = self.history, self._post_hist
             packed, clipped = [], []
             for chunk, grid_t, gen in zip(chunks, grids, gens):
@@ -449,6 +524,25 @@ class Resampler:
         self.phase = phase
         self._hist_gain_zero = gain_db == 0.0
         return torch.stack(packed), gens, _clip_counts(torch.stack(clipped))
+
+    def _exact_stream(self, chunks, grids, gens, factor, frames: int, out_max: int):
+        """Exact-mode chunk loop: each chunk consumes all its frames; the post
+        stages run over the chunk's ``out_max`` outputs with ``valid_len`` =
+        its generated count. The biquad states commit here, the history and
+        phase in the caller. Returns (packed chunks, clip counts, history)."""
+        hist, states = self.history, self._biquad_states()
+        packed, clipped = [], []
+        for chunk, grid_t, gen in zip(chunks, grids, gens):
+            out, hist, states = self._exact_chunk(self._unpack(chunk, factor, frames), hist,
+                                                  states, grid_t, hist_from=frames)
+            if self.post_filter:
+                out, states = self._exact_post(out, states, gen)
+            p, c = self._quantize(out, gen, out_max)
+            packed.append(p)
+            clipped.append(c)
+        if self.pre_filter or self.post_filter:
+            self._biquad_state = states
+        return packed, clipped, hist
 
     def _fused_tier_selected(self, fused_ok: bool) -> bool:
         """The fused int16 tier serves s16 in/out without a post stage, on

@@ -11,6 +11,11 @@ grouped into tiles of 128 columns, each tile's windows span a contiguous
 gather + f32 ``bmm``); ops/polyphase_kernels.py holds the hand-written CUDA
 kernel and its wrapper. On the GPU kernel starts need no 128-alignment, so
 the port has only the unaligned geometry (the JAX ``banded_K(aligned=False)``).
+
+``polyphase_apply`` applies a chunk schedule the way exact mode and
+``BatchedResample`` do: the exact form through the ordered-dot kernel
+(ops/polyphase_kernels.py::polyphase_exact_cuda), the fast form as one dense
+f32 matmul.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["TILE", "banded_K", "banded_weights_device", "polyphase_banded"]
+__all__ = ["TILE", "banded_K", "banded_weights_device", "polyphase_apply", "polyphase_banded"]
 
 TILE = 128   # output columns per weight tile; the CUDA kernels are built for it
 
@@ -87,3 +92,50 @@ def polyphase_banded(xext, Wt, starts, *, T: int):
     out = torch.bmm(slabs, Wt)                                             # [nt, M, tile]
     out = out.permute(1, 0, 2).reshape(*lead, nt * tile)
     return out[..., :T]
+
+
+def polyphase_apply(xext, filters, win0x, idx1, idx2, weight, mode, *, half: int,
+                    exact: bool = True, compute_second: bool = True):
+    """Apply one chunk schedule to a batch of streams (the counterpart of
+    esp_audio_libs_tpu/ops/polyphase.py:200-276).
+
+    Args:
+      xext: f32 ``[..., L]``, history + new samples.
+      filters: f32 ``[F+1, taps]`` filterbank.
+      win0x: int32 ``[T]`` window starts in xext coordinates.
+      idx1, idx2: int32 ``[T]`` filterbank rows; weight: f32 ``[T]`` lerp
+        weights; mode: ``[T]`` 0 direct, 1 single, 2 lerp.
+      half: taps // 2.
+      exact: ordered per-tap accumulation, each op rounded on its own
+        (bit-exact; the kernel of csrc/polyphase_exact.cu on the card, its
+        plain version on the CPU) or the fast form: the schedule as a dense
+        ``[L, T]`` weight matrix (lerp folded, mode-0 outputs a unit tap) and
+        one f32 ``torch.matmul``, which runs in full f32 while
+        ``torch.backends.cuda.matmul.allow_tf32`` is False (its default).
+      compute_second: skip the second dot when the schedule has no mode-2
+        entries (no SUBSAMPLE_INTERPOLATE).
+
+    Returns: f32 ``[..., T]``.
+    """
+    if exact:
+        from .polyphase_kernels import polyphase_exact_cuda   # that module builds on this one
+        return polyphase_exact_cuda(xext, filters, win0x, idx1, idx2, weight, mode,
+                                    half=half, compute_second=compute_second)
+    xext = xext.to(torch.float32)
+    L, T = xext.shape[-1], win0x.shape[0]
+    taps = filters.shape[-1]
+    dev = xext.device
+    w = weight.to(torch.float32)[:, None]
+    f1 = filters[idx1.long()]
+    f2 = filters[idx2.long()]
+    feff = torch.where((mode == 2)[:, None], f2 * w + f1 * (1.0 - w), f1)   # [T, taps]
+    unit = torch.zeros((T, taps), dtype=torch.float32, device=dev)
+    unit[:, half - 1] = 1.0
+    feff = torch.where((mode == 0)[:, None], unit, feff)
+    rows = win0x.long()[None, :] + torch.arange(taps, device=dev)[:, None]   # [taps, T]
+    cols = torch.arange(T, device=dev)[None, :].expand(taps, T)
+    # a write outside xext is dropped, as in JAX: it lands in a spare row
+    rows = torch.where((rows >= 0) & (rows < L), rows, L)
+    W = torch.zeros((L + 1, T), dtype=torch.float32, device=dev)
+    W[rows, cols] = feff.T
+    return torch.matmul(xext, W[:L])

@@ -9,8 +9,14 @@ For each kernel: the wrapper, its plain PyTorch version and a launch count.
 * ``polyphase_fused16_cuda`` (csrc/polyphase_fused16.cu) replaces
   ``polyphase_fused16_pallas``; its plain version is
   :func:`polyphase_fused16_plain`.
+* ``polyphase_exact_cuda`` (csrc/polyphase_exact.cu) replaces the per-tap
+  ``lax.scan`` of ``polyphase_apply(exact=True)``
+  (esp_audio_libs_tpu/ops/polyphase.py:236-260), XLA there, not Pallas:
+  ordered dots, the lerp and the mode select, each op rounded on its own
+  with subnormals flushed (ops/scan.py). Its plain version is
+  :func:`polyphase_exact_plain`.
 
-Both kernels first launch csrc/band_ranges.cu on the same stream: for each
+Both banded kernels first launch csrc/band_ranges.cu on the same stream: for each
 weight tile and group of ``GROUP`` columns, the first and last K-row holding
 a nonzero weight (plain version: :func:`band_ranges`). The contraction then
 skips the K-rows outside those ranges. Skipping products with an exactly
@@ -29,9 +35,11 @@ import torch
 
 from ..runtime import kernels
 from .polyphase import polyphase_banded
+from .scan import ftz
 
 __all__ = ["GROUP", "band_ranges", "band_ranges_cuda", "polyphase_banded_cuda",
-           "polyphase_fused16_cuda", "polyphase_fused16_plain", "reset_launch_counts"]
+           "polyphase_exact_cuda", "polyphase_exact_plain", "polyphase_fused16_cuda",
+           "polyphase_fused16_plain", "reset_launch_counts"]
 
 GROUP = 32   # columns of one band range in the plain version (csrc/banded_tile.cuh's GROUP)
 
@@ -209,6 +217,89 @@ def polyphase_fused16_cuda(x2: torch.Tensor, Wt: torch.Tensor, starts: torch.Ten
 polyphase_fused16_cuda.launches = 0
 
 
+def polyphase_exact_plain(xext, filters, win0x, idx1, idx2, weight, mode, *, half: int,
+                          compute_second: bool = True):
+    """Plain version of the exact polyphase kernel: the per-tap loop.
+
+    For each output t: ``acc1 = sum_k x[win0x[t] + k] * filters[idx1[t], k]``
+    accumulated from +0 in k order (``acc2`` likewise with ``idx2``), each
+    product and sum rounded and flushed on its own; then mode 0 copies
+    ``x[win0x[t] + half - 1]``, mode 1 gives acc1, any other mode
+    ``acc2*w + acc1*(1 - w)`` with ``1 - w`` rounded first (acc1 without
+    ``compute_second``). Window samples outside ``[0, L)`` read NaN, as
+    ``jnp.take`` fills them (only padded mode-0 outputs past a chunk's
+    generated count reach there, and a copy does not read them).
+
+    xext: f32 ``[..., L]``; filters f32 ``[F+1, taps]``; win0x/idx1/idx2/mode
+    integer ``[T]``; weight f32 ``[T]``. Returns f32 ``[..., T]``.
+    """
+    xext = xext.to(torch.float32)
+    fb, w = ftz(filters.to(torch.float32)), ftz(weight.to(torch.float32))
+    win = win0x.long()
+    if win.numel():
+        # windows outside [0, L) read NaN (as jnp.take fills them): pad
+        lo = max(0, -int(win.min()))
+        hi = max(0, int(win.max()) + fb.shape[1] - xext.shape[-1])
+        if lo or hi:
+            xext = torch.nn.functional.pad(xext, (lo, hi), value=float("nan"))
+            win = win + lo
+    xf = ftz(xext)
+    f1 = fb[idx1.long()]                                             # [T, taps]
+    f2 = fb[idx2.long()] if compute_second else None
+    acc1 = torch.zeros(xext.shape[:-1] + win.shape, dtype=torch.float32, device=xext.device)
+    acc2 = acc1.clone()
+    for k in range(fb.shape[1]):
+        xg = xf[..., win + k]
+        acc1 = ftz(acc1 + ftz(xg * f1[:, k]))
+        if compute_second:
+            acc2 = ftz(acc2 + ftz(xg * f2[:, k]))
+    lerp = ftz(ftz(acc2 * w) + ftz(acc1 * ftz(1.0 - w))) if compute_second else acc1
+    direct = xext[..., win + (half - 1)]
+    return torch.where(mode == 0, direct, torch.where(mode == 1, acc1, lerp))
+
+
+def _check_grid(name: str, t: torch.Tensor, dtype, T: int) -> torch.Tensor:
+    if t.dim() != 1 or t.shape[0] != T or t.dtype.is_floating_point != dtype.is_floating_point:
+        raise ValueError(f"{name} must be [{T}] of {dtype}, got {t.dtype} {tuple(t.shape)}")
+    return t.to(dtype).contiguous()
+
+
+def polyphase_exact_cuda(xext, filters, win0x, idx1, idx2, weight, mode, *, half: int,
+                         compute_second: bool = True):
+    """The exact polyphase contraction. Arguments and result as
+    :func:`polyphase_exact_plain`. On the card ``xext`` and ``filters`` must
+    be f32 (made contiguous), ``xext`` may hold at most 524,280 rows (one
+    block row per 8) and ``taps`` at most 4096."""
+    if _route(xext, filters, win0x, idx1, idx2, weight, mode) == "cpu":
+        return polyphase_exact_plain(xext, filters, win0x, idx1, idx2, weight, mode,
+                                     half=half, compute_second=compute_second)
+    if xext.dtype != torch.float32 or filters.dtype != torch.float32 or filters.dim() != 2:
+        raise ValueError(f"xext must be f32 [..., L] and filters f32 [F+1, taps], got "
+                         f"{xext.dtype} {tuple(xext.shape)}, {filters.dtype} {tuple(filters.shape)}")
+    T = win0x.shape[0]
+    grid = [_check_grid(n, g, torch.int32, T)
+            for n, g in (("win0x", win0x), ("idx1", idx1), ("idx2", idx2), ("mode", mode))]
+    w = _check_grid("weight", weight, torch.float32, T)
+    *lead, L = xext.shape
+    M = xext.numel() // L if L else 0
+    out = torch.empty((*lead, T), dtype=torch.float32, device=xext.device)
+    if M == 0 or T == 0:
+        return out
+    x = xext.contiguous()
+    fb = filters.contiguous()
+    rc = kernels.library().eal_polyphase_exact(
+        x.data_ptr(), fb.data_ptr(), grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(),
+        w.data_ptr(), grid[3].data_ptr(), out.data_ptr(), M, L, T, fb.shape[0], fb.shape[1],
+        half, int(bool(compute_second)), torch.cuda.current_stream(xext.device).cuda_stream)
+    _raise_on(rc, "polyphase_exact")
+    polyphase_exact_cuda.launches += 1
+    return out
+
+
+polyphase_exact_cuda.launches = 0
+
+
 def reset_launch_counts() -> None:
     polyphase_banded_cuda.launches = 0
     polyphase_fused16_cuda.launches = 0
+    polyphase_exact_cuda.launches = 0

@@ -124,4 +124,10 @@ def bind(lib: C.CDLL) -> C.CDLL:
     lib.eal_flac_frame.restype = C.c_int
     lib.eal_flac_frame.argtypes = [p, i, p, p, i, p, p, p, p, p, p,
                                    i, i, i, i, i, i, i, i, p]
+    lib.eal_biquad_df1.restype = C.c_int
+    lib.eal_biquad_df1.argtypes = [p, p, p, i, p, p, ll, i, i, i, p]
+    lib.eal_iir2_sequential.restype = C.c_int
+    lib.eal_iir2_sequential.argtypes = [p, p, p, p, p, ll, i, p]
+    lib.eal_polyphase_exact.restype = C.c_int
+    lib.eal_polyphase_exact.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
     return lib

@@ -12,7 +12,9 @@ emulation of the kernels' 3xTF32 arithmetic on a chunk's real operands,
 which predicts what the card shows. The FLAC frame kernel is held to its
 plain version byte for byte on the real parsed buckets of
 tools/flac_kernel_fleet.py (numpy and the port only), the fleet that
-chip_smoke.py checks too.
+chip_smoke.py checks too. The exact-mode kernels (csrc/biquad_exact.cu and
+csrc/polyphase_exact.cu) are held to their plain versions bit for bit
+(NaN positions equal, every other f32 bit pattern equal).
 """
 
 import dataclasses
@@ -26,12 +28,14 @@ import pytest
 import torch
 
 from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+from esp_audio_libs_tpu_torch.ops import biquad as tbq
+from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
 from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 from esp_audio_libs_tpu_torch.ops import quantization as q
 from esp_audio_libs_tpu_torch.runtime import kernels
-from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
+from esp_audio_libs_tpu_torch.runtime.phase_grid import HISTORY_MARGIN, PhaseState, phase_grid
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import flac_kernel_fleet as fleet  # noqa: E402
@@ -265,6 +269,99 @@ def test_flac_frame_wrapper_routes_cpu_to_plain():
     assert fk.flac_frame_cuda.launches == 0
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal f32 tensors bit for bit, except that any two NaNs match (the
+    card and the CPU may give NaNs other payloads)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+        return False
+    keep = ~a.isnan()
+    return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+
+
+def exact_poly_operands(taps, nf, flags, ratio, M, n_in, n_out, lowpass=0.9, seed=0):
+    """A real exact-mode chunk: filterbank, the phase grid of n_out outputs
+    (entries past the generated count stay as the grid leaves them: mode 0,
+    window 0) and random history + chunk rows."""
+    from esp_audio_libs_tpu_torch.ops import sinc
+    from esp_audio_libs_tpu_torch.runtime.native import design_filterbank_native
+    lp, fl = sinc.normalize_lowpass(lowpass, flags)
+    filters = torch.as_tensor(np.asarray(design_filterbank_native(taps, nf, float(lp), fl),
+                                         np.float32))
+    g = phase_grid(PhaseState.initial(taps), nf, fl, ratio, n_in, n_out)
+    hist = taps + HISTORY_MARGIN
+    grid = [torch.as_tensor(a) for a in (g.win0 + hist, g.idx1, g.idx2, g.weight,
+                                          g.mode.astype(np.int32))]
+    x = torch.as_tensor(np.random.default_rng(seed).standard_normal((M, hist + n_in)),
+                        dtype=torch.float32)
+    return x, filters, grid, bool(fl & sinc.SUBSAMPLE_INTERPOLATE)
+
+
+def test_exact_wrappers_route_cpu_to_plain():
+    """On CPU tensors the exact-mode wrappers run their plain versions and
+    launch nothing."""
+    bk.reset_launch_counts()
+    pk.reset_launch_counts()
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((3, 2, 300)), dtype=torch.float32)
+    c = torch.as_tensor(tbq.biquad_init(tbq.biquad_lowpass(0.2), 1.0))
+    st = tuple(torch.as_tensor(rng.standard_normal((3, 2)), dtype=torch.float32)
+               for _ in range(4))
+    for first, vl in ((False, None), (True, 120)):
+        y, s = bk.biquad_df1_cuda(x, c, st, first_order=first, valid_len=vl)
+        y_p, s_p = bk.biquad_df1_plain(x, c, st, first_order=first, valid_len=vl)
+        assert same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(s, s_p))
+    p1, p2 = torch.full((3, 2), -1.2), torch.full((3, 2), 0.4)
+    y, s = bk.iir2_sequential_cuda(x, p1, p2, st[0], st[1])
+    assert same_bits(y, bk.iir2_sequential_plain(x, p1, p2, st[0], st[1])[0])
+    xe, fb, grid, second = exact_poly_operands(64, 16, 1, 16000 / 44100, 5, 300, 200)
+    assert same_bits(pk.polyphase_exact_cuda(xe, fb, *grid, half=32, compute_second=second),
+                     pk.polyphase_exact_plain(xe, fb, *grid, half=32, compute_second=second))
+    assert bk.biquad_df1_cuda.launches == bk.iir2_sequential_cuda.launches == 0
+    assert pk.polyphase_exact_cuda.launches == 0
+
+
+def test_exact_wrappers_refuse_other_devices():
+    x = torch.zeros((2, 64), device="meta")
+    z = torch.zeros(2, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        bk.biquad_df1_cuda(x, torch.zeros(5, device="meta"), (z, z, z, z))
+    with pytest.raises(ValueError, match="device"):
+        bk.iir2_sequential_cuda(x, z, z, z, z)
+    g = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        pk.polyphase_exact_cuda(x, torch.zeros((3, 16), device="meta"), g, g, g,
+                                torch.zeros(8, device="meta"), g, half=8)
+
+
+def test_plain_biquad_rounds_each_op():
+    """The plain DF-I rounds each product and sum on its own: on random
+    data it differs from the same recurrence with the x-side multiply-adds
+    fused (what an FMA-contracting build would give), and equals an f64
+    emulation of separately rounded f32 ops."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4, 400)).astype(np.float32)
+    c = tbq.biquad_init(tbq.biquad_lowpass(0.11), 1.0).astype(np.float64)
+    y, _ = bk.biquad_df1_plain(torch.from_numpy(x), torch.from_numpy(c.astype(np.float32)),
+                               tuple(torch.zeros(4) for _ in range(4)))
+    r = lambda v: v.astype(np.float32).astype(np.float64)          # one f32 rounding
+    sep, fused = [np.zeros(4) for _ in range(2)], [np.zeros(4) for _ in range(2)]
+    i = [np.zeros(4), np.zeros(4)]
+    want, want_fma = [], []
+    for t in range(x.shape[1]):
+        xv = x[:, t].astype(np.float64)
+        acc = r(r(r(xv * c[0]) + r(i[0] * c[1])) + r(i[1] * c[2]))
+        v = r(r(acc - r(c[3] * sep[0])) - r(c[4] * sep[1]))
+        acc_f = r(r(xv * c[0] + i[0] * c[1]) + i[1] * c[2])
+        vf = r(r(acc_f - c[3] * fused[0]) - c[4] * fused[1])
+        want.append(v)
+        want_fma.append(vf)
+        sep, fused, i = [v, sep[0]], [vf, fused[0]], [xv, i[0]]
+    want = np.stack(want, -1).astype(np.float32)
+    assert np.array_equal(y.numpy().view(np.uint32), want.view(np.uint32))
+    assert not np.array_equal(want, np.stack(want_fma, -1).astype(np.float32))
+
+
 # --------------------------------------------------------- on the card
 
 
@@ -442,3 +539,129 @@ def test_flac_frame_kernel_refuses_bad_arguments(cuda):
     with pytest.raises(ValueError, match="coeffs"):
         fk.flac_frame_cuda(data, params[1], *params[1:], depth=16, nch=2, mode32=False,
                            max_order=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_order,valid_len,per_lane", [
+    (False, None, False), (True, None, False), (False, 0, False), (False, 1, True),
+    (False, 777, False), (True, 64, True), (False, 1000, False)])
+def test_biquad_kernel_matches_plain(cuda, first_order, valid_len, per_lane):
+    """37 lanes (a ragged warp), T = 1000 (a ragged tile), random state."""
+    rng = np.random.default_rng(31 + (valid_len or 0))
+    x = torch.as_tensor(rng.standard_normal((37, 1000)), dtype=torch.float32, device=cuda)
+    if per_lane:
+        c = np.stack([tbq.biquad_init(tbq.biquad_highpass(f), 1.0)
+                      for f in rng.uniform(0.02, 0.45, 37)])
+    elif first_order:
+        c = np.array([0.3, 0.3, 0.0, -0.4, 0.0], np.float32)
+    else:
+        c = tbq.biquad_init(tbq.biquad_lowpass(0.18), 1.0)
+    c = torch.as_tensor(c, device=cuda)
+    st = tuple(torch.as_tensor(rng.standard_normal(37), dtype=torch.float32, device=cuda)
+               for _ in range(4))
+    before = bk.biquad_df1_cuda.launches
+    y, s = bk.biquad_df1_cuda(x, c, st, first_order=first_order, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert bk.biquad_df1_cuda.launches == before + 1
+    y_p, s_p = bk.biquad_df1_plain(x, c, st, first_order=first_order, valid_len=valid_len)
+    assert same_bits(y, y_p)
+    assert all(same_bits(a, b) for a, b in zip(s, s_p))
+
+
+@pytest.mark.cuda
+def test_biquad_kernel_subnormals_nan_inf(cuda):
+    """A burst then silence (the tail decays through the subnormal range
+    and flushes), subnormal inputs and state (taken as zeros by the math,
+    carried as bits), and NaN / inf inputs: the kernel equals the plain
+    version, and no output is subnormal."""
+    x = torch.zeros((64, 700), device=cuda)
+    x[:, :8] = torch.as_tensor(np.random.default_rng(2).standard_normal((64, 8)) * 1e-30,
+                               dtype=torch.float32, device=cuda)
+    x[5, 300] = 1e-39
+    x[6, 400] = -3e-45
+    x[7, 100] = float("nan")
+    x[8, 200] = float("inf")
+    x[9, 250] = -float("inf")
+    st = [torch.zeros(64, device=cuda) for _ in range(4)]
+    st[0][10] = 1e-39
+    st[2][11] = -1e-39
+    c = torch.as_tensor(tbq.biquad_init(tbq.biquad_lowpass(0.18), 1.0), device=cuda)
+    y, s = bk.biquad_df1_cuda(x, c, tuple(st))
+    y_p, s_p = bk.biquad_df1_plain(x, c, tuple(st))
+    torch.cuda.synchronize()
+    assert same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(s, s_p))
+    fin = y[y.isfinite()]
+    assert not ((fin != 0) & (fin.abs() < 2.0 ** -126)).any()
+    assert y[7, 100:].isnan().all() and (y[:12, -20:][:7] == 0).all()
+
+
+@pytest.mark.cuda
+def test_iir2_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(41)
+    f = torch.as_tensor(rng.standard_normal((45, 530)), dtype=torch.float32, device=cuda)
+    f[3, 17] = float("nan")
+    f[4, 10:] = 0.0
+    p1 = torch.as_tensor(rng.uniform(-1.5, 1.5, 45), dtype=torch.float32, device=cuda)
+    p2 = torch.as_tensor(rng.uniform(0.1, 0.7, 45), dtype=torch.float32, device=cuda)
+    y1, y2 = (torch.as_tensor(rng.standard_normal(45), dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    before = bk.iir2_sequential_cuda.launches
+    y, (a, b) = bk.iir2_sequential_cuda(f, p1, p2, y1, y2)
+    torch.cuda.synchronize()
+    assert bk.iir2_sequential_cuda.launches == before + 1
+    y_p, (a_p, b_p) = bk.iir2_sequential_plain(f, p1, p2, y1, y2)
+    assert same_bits(y, y_p) and same_bits(a, a_p) and same_bits(b, b_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main", "no_second", "ragged", "upsample", "low_ratio",
+                                  "big_bank", "past_gen"])
+def test_polyphase_exact_kernel_matches_plain(cuda, case):
+    """Real schedules: the slice's configuration (64 taps, 32 filters,
+    interpolation), without the second dot, a ragged row and output count,
+    upsampling (windows advance by 0 or 1), a ratio whose tile spans more
+    than one staged pass, a filterbank too large for shared memory, and the
+    padded mode-0 outputs past a chunk's generated count whose windows run
+    past the input."""
+    from esp_audio_libs_tpu_torch.ops import sinc
+    interp = sinc.SUBSAMPLE_INTERPOLATE | sinc.BLACKMAN_HARRIS
+    args = {"main": (64, 32, interp, 16000 / 44100, 64, 2048, 743),
+            "no_second": (64, 32, sinc.BLACKMAN_HARRIS, 16000 / 44100, 64, 2048, 743),
+            "ragged": (16, 8, interp, 0.5, 13, 1000, 501),
+            "upsample": (64, 32, interp, 44100 / 16000, 24, 512, 1411),
+            "low_ratio": (64, 32, interp, 0.05, 16, 8192, 400),
+            "big_bank": (1024, 256, interp, 0.5, 9, 3000, 1000),
+            "past_gen": (64, 32, interp, 16000 / 44100, 10, 40, 300)}[case]
+    taps = args[0]
+    x, fb, grid, second = exact_poly_operands(*args[:4], M=args[4], n_in=args[5], n_out=args[6])
+    x, fb, grid = x.to(cuda), fb.to(cuda), [g.to(cuda) for g in grid]
+    before = pk.polyphase_exact_cuda.launches
+    got = pk.polyphase_exact_cuda(x, fb, *grid, half=taps // 2, compute_second=second)
+    torch.cuda.synchronize()
+    assert pk.polyphase_exact_cuda.launches == before + 1
+    want = pk.polyphase_exact_plain(x, fb, *grid, half=taps // 2, compute_second=second)
+    assert same_bits(got, want)
+    if case == "main":
+        assert {0, 1, 2} >= set(grid[4].tolist()) and (grid[4] == 2).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [(44100.0, 16000.0), (16000.0, 44100.0)])
+def test_exact_resampler_on_card_equals_cpu(cuda, src, dst):
+    """Exact mode on the card and on the CPU: every output byte, count and
+    state bit equal."""
+    cfg = ResamplerConfiguration(src, dst, 16, 16, 2, True, True, 64, 32)
+    B, frames, n = 8, 2048, 3
+    data = np.random.default_rng(2).integers(0, 256, (B, n * frames * 4), dtype=np.uint8)
+    outs = []
+    for dev in (cuda, "cpu"):
+        r = Resampler(batch=B, device=dev)
+        r.initialize(cfg)
+        outs.append((*r.resample_stream(data, frames, n), r.get_state()))
+    (pg, gg, cg, sg), (pc, gc, cc, sc) = outs
+    assert gg == gc and np.array_equal(cg, cc)
+    assert torch.equal(pg.cpu(), pc)
+    np.testing.assert_array_equal(sg["history"].view(np.uint32), sc["history"].view(np.uint32))
+    for a_stage, b_stage in zip(sg["biquad"], sc["biquad"]):
+        for a, b in zip(a_stage, b_stage):
+            np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))

@@ -19,7 +19,7 @@ import torch
 
 from esp_audio_libs_tpu.models.resampler import Resampler as JaxResampler
 from esp_audio_libs_tpu.models.resampler import ResamplerConfiguration as JaxConfig
-from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+from esp_audio_libs_tpu_torch.models import BatchedResample, Resampler, ResamplerConfiguration
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 
 torch.set_num_threads(2)
@@ -215,14 +215,32 @@ def test_failed_call_leaves_state_uncommitted(monkeypatch):
 
 
 def test_exact_mode_and_missing_cuda_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Resampler(batch=B, device="cpu")
+    """Without a card, both modes raise on the default device; exact mode
+    itself no longer raises (test_default_resampler_is_exact_mode)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: Resampler(device='cuda') is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         Resampler(batch=B, exact=False, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
-        Resampler(batch=B, exact=False)        # the card is the default
+        Resampler(batch=B)                     # exact mode on the card: the defaults
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedResample((B,), 64, 16, 0.9, 0)
+
+
+def test_default_resampler_is_exact_mode():
+    """Resampler(batch) defaults to exact mode, as the JAX package does: no
+    folded filterbank, unfolded history, the exact stream's output bytes."""
+    j = JaxResampler(batch=B)
+    j.initialize(JaxConfig(44100.0, 16000.0, 16, 16, 2, True, False, 64, FILTERS))
+    t = Resampler(batch=B, device="cpu")
+    t.initialize(ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, False, 64, FILTERS))
+    assert j.exact and t.exact and t.hist_len == j.hist_len == 64 + 8
+    assert tuple(t._filters.shape) == tuple(j.filters.shape)
+    data = _pcm(3, FRAMES, 2)
+    pj, gj, _ = j.resample_stream(data, FRAMES, 1)
+    pt, gt, _ = t.resample_stream(data, FRAMES, 1)
+    assert list(gj) == list(gt)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
 
 
 def test_port_imports_no_jax():
@@ -235,6 +253,10 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.models.batch\n"
             "import esp_audio_libs_tpu_torch.ops.lpc\n"
             "import esp_audio_libs_tpu_torch.ops.flac_kernels\n"
+            "import esp_audio_libs_tpu_torch.ops.scan\n"
+            "import esp_audio_libs_tpu_torch.ops.biquad\n"
+            "import esp_audio_libs_tpu_torch.ops.biquad_kernels\n"
+            "import esp_audio_libs_tpu_torch.models.art_resampler\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'esp_audio_libs_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok')\n")

@@ -2,15 +2,19 @@
 """Profile steady resample_stream calls of the PyTorch + CUDA port on one GPU.
 
 Drives ``esp_audio_libs_tpu_torch`` (never JAX) at the bench configuration
-(44.1 kHz -> 16 kHz stereo s16, 64 taps, 32 filters, pre-filter folded,
-input bytes from ``numpy.random.default_rng(0)``), with the fused int16
-tier off and then on, and reports for each:
+(44.1 kHz -> 16 kHz stereo s16, 64 taps, 32 filters, input bytes from
+``numpy.random.default_rng(0)``): fast mode (pre-filter folded) with the
+fused int16 tier off and then on, or with ``--exact`` the bit-exact mode
+(two exact pre-filter biquad stages and the exact polyphase kernel per
+chunk). It reports for each:
 
   * the untraced wall time of ``--reps`` calls (median, min, max);
   * one call traced with CUDA activity only (the lightest trace): its wall
     time, the device busy time (union of kernel and copy intervals), the
-    contraction kernels' time (with the band-range kernel each launches
-    first, also shown alone) and the idle share of that traced wall;
+    hand kernels' time (fast mode: the contraction kernels with the
+    band-range kernel each launches first, also shown alone; exact mode:
+    the biquad and exact polyphase kernels) and the idle share of that
+    traced wall;
   * the idle share estimated from the untraced median wall minus the traced
     busy time (two different calls, so an estimate, printed as such);
   * one call traced with CPU + CUDA activity: the top ops by device time,
@@ -20,6 +24,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/profile_stream.py
     python3 tools/profile_stream.py --batch 256 --out chiprun_out/profile.txt
+    python3 tools/profile_stream.py --exact
 
 The last line is one JSON object with the numbers above.
 """
@@ -43,8 +48,10 @@ sys.path.insert(0, str(REPO))
 
 from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration  # noqa: E402
 
-# the contraction kernels and the band-range kernel each of them launches first
-KERNEL_NAMES = ("polyphase_banded", "polyphase_fused16", "band_ranges")
+# the hand kernels: fast mode's contraction kernels and the band-range kernel
+# each of them launches first; exact mode's biquad and polyphase kernels
+KERNEL_NAMES = ("polyphase_banded", "polyphase_fused16", "band_ranges", "recurrence_kernel",
+                "polyphase_exact")
 
 
 def _busy_us(events) -> float:
@@ -72,7 +79,7 @@ def _timed_call(r, data, frames, chunks) -> float:
 
 def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
     os.environ["EAL_RESAMPLE_FUSED16"] = "1" if fused else "0"
-    r = Resampler(batch=args.batch, exact=False, device="cuda")
+    r = Resampler(batch=args.batch, exact=args.exact, device="cuda")
     r.initialize(ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, 32))
     for _ in range(2):
         r.resample_stream(data, args.frames, args.chunks)
@@ -91,7 +98,8 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
     table = prof_ops.key_averages().table(sort_by="device_time_total", row_limit=25,
                                           max_name_column_width=70)
     median = float(np.median(walls))
-    row = {"fused": fused, "untraced_ms_median": median, "untraced_ms_min": min(walls),
+    row = {"mode": "exact" if args.exact else "fast", "fused": fused,
+           "untraced_ms_median": median, "untraced_ms_min": min(walls),
            "untraced_ms_max": max(walls), "traced_wall_ms": traced_wall,
            "device_busy_ms": busy, "kernel_ms": kernel, "band_ranges_ms": band,
            "other_device_ms": busy - kernel,
@@ -106,6 +114,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=8192)
     ap.add_argument("--chunks", type=int, default=8)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--exact", action="store_true",
+                    help="profile exact mode instead of the two fast tiers")
     ap.add_argument("--out", type=Path, default=None,
                     help="file for the per-op tables of the CPU + CUDA traces")
     args = ap.parse_args()
@@ -119,11 +129,12 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {card}")
     rows, tables = [], []
-    for fused in (False, True):
+    for fused in ((False,) if args.exact else (False, True)):
         row, table = profile_tier(fused, data, args)
         rows.append(row)
-        tables.append(f"== fused tier {'on' if fused else 'off'}\n{table}")
-        print(f"fused tier {'on' if fused else 'off'}: untraced {row['untraced_ms_median']:.3f} ms "
+        name = "exact mode" if args.exact else f"fused tier {'on' if fused else 'off'}"
+        tables.append(f"== {name}\n{table}")
+        print(f"{name}: untraced {row['untraced_ms_median']:.3f} ms "
               f"(median of {args.reps}, {row['untraced_ms_min']:.3f}-{row['untraced_ms_max']:.3f}); "
               f"traced {row['traced_wall_ms']:.3f} ms, device busy {row['device_busy_ms']:.3f} ms "
               f"(kernel {row['kernel_ms']:.3f} of which band ranges {row['band_ranges_ms']:.3f}, "
