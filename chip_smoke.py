@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 
 Phases, each printing a line:
   1. device  - the card's name and power limit (nvidia-smi); fails without CUDA.
-  2. build   - libeal_host.so (native/build_host.sh) and the CUDA kernels
+  2. build   - libeal_host.so (native/build_host.sh's compile line, built
+               atomically) and the CUDA kernels
                (csrc/*.cu, nvcc for sm_90a), timed.
   3. kernels - each kernel against its plain PyTorch version on the card at
                the slice's shapes and at a ragged one (37 rows, unaligned
@@ -50,11 +51,15 @@ Phases, each printing a line:
                the main pre-filter chunk ([2048, 2, 8192] from the phase-4
                bytes) second- and first-order, with valid_len, as iir2, and
                with a burst followed by silence whose tail decays through
-               the subnormal range; the exact polyphase kernel on the main
+               the subnormal range, and on the exact upsampling post-filter
+               chunk (16 -> 44.1 kHz at batch 256: the first chunk's
+               polyphase output [256, 2, 22588] with valid_len = its
+               generated count); the exact polyphase kernel on the main
                chunk's real operands with and without the second dot (its
                last tile is ragged) and on 13 rows. Times (CUDA events) beside
-               the bound; for the biquad also one lane alone and an
-               estimated serial chain (text line only).
+               the bound; for the biquad at both shapes, each also with one
+               lane alone (the measured step time) and an estimated serial
+               chain (text line only).
  10. exact e2e - Resampler(2048) (exact, the default) resample_stream(data,
                8192, 8) on the phase-4 bytes, its packed bytes, counts and
                state equal to a CPU run of the plain path on 8 streams, with
@@ -501,6 +506,89 @@ def same_bits(a, b) -> bool:
     return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
 
 
+def biquad_operands(data):
+    """The exact biquad's real launches: the main pre-filter chunk
+    ([2048, 2, 8192] from the phase-4 bytes, zero state) and the exact
+    upsampling post-filter chunk (16 kHz -> 44.1 kHz at batch 256: the first
+    chunk's polyphase output [256, 2, out_max] with valid_len = its
+    generated count, as ``Resampler._exact_stream`` launches it), each with
+    its resampler's coefficients. Returns the 44.1 -> 16 kHz resampler and
+    {shape: (x, coeffs, state, valid_len)}."""
+    import dataclasses
+
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import quantization as q
+    from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
+
+    factor = q.gain_factor(16, 0.0)
+    ops, main = {}, None
+    for key, src, dst, batch in (("main", 44100.0, 16000.0, BATCH),
+                                 ("upsample", 16000.0, 44100.0, 256)):
+        r = make_resampler(src, dst, batch, "cuda", exact=True)
+        x = r._unpack(torch.as_tensor(data[:batch, : FRAMES * 4], device="cuda"), factor,
+                      FRAMES).contiguous()
+        vl = None
+        if key == "main":
+            main = r
+        else:
+            out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
+            g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters,
+                           r.bank_flags, r.sample_ratio, FRAMES, out_max)
+            x = r._exact_chunk(x, r.history, r._biquad_states(), r._exact_grids([g], out_max)[0],
+                               hist_from=FRAMES)[0].contiguous()
+            vl = g.output_generated
+        zero = tuple(torch.zeros(x.shape[:-1], device="cuda") for _ in range(4))
+        ops[key] = (x, r._coeffs_dev, zero, vl)
+    return main, ops
+
+
+def biquad_launcher(x, c, state, valid_len):
+    """A function that launches biquad_exact on these operands through the
+    C entry point, its arguments prepared once: the kernel alone, without
+    the wrapper's per-call host work (broadcasts, the state stack, output
+    allocation). Used only to time the kernel; its launches are not
+    counted."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    T = x.shape[-1]
+    n = x.numel() // T
+    coef = c.contiguous()
+    st_in = torch.stack([s.reshape(n) for s in state]).contiguous()
+    y, st_out = torch.empty_like(x), torch.empty_like(st_in)
+    args = (x.data_ptr(), y.data_ptr(), coef.data_ptr(), 0 if coef.dim() == 1 else 5,
+            st_in.data_ptr(), st_out.data_ptr(), n, T, T if valid_len is None else valid_len, 0,
+            torch.cuda.current_stream().cuda_stream)
+    lib = kernels.library()
+
+    def launch():
+        if lib.eal_biquad_df1(*args) != 0:
+            fail("eal_biquad_df1 refused its arguments")
+        return x, coef, st_in, y, st_out          # keeps the operands alive
+    return launch
+
+
+def biquad_timing(x, c, state, valid_len):
+    """Mean ms of one biquad_exact launch on ``x`` (direct launches: the
+    kernel), of one wrapper call on it (host work included) and of a
+    launch on its first lane alone, beside the launch's bound: x and y once
+    plus state and coefficients at 3.35 TB/s, or 9 FP32 ops per step at 67
+    TFLOP/s. Returns (ms, wrapper ms, one-lane ms, bytes, bound ms,
+    bound_by, ops ms)."""
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    T = x.shape[-1]
+    lanes = x.numel() // T
+    ms = cuda_time(biquad_launcher(x, c, state, valid_len), iters=20)
+    ms_wrapper = cuda_time(lambda: bk.biquad_df1_cuda(x, c, state, valid_len=valid_len))
+    one = tuple(s[:1, :1] for s in state)
+    ms_one = cuda_time(biquad_launcher(x[:1, :1].contiguous(), c, one, valid_len), iters=20)
+    nbytes = 2 * x.numel() * 4 + 8 * lanes * 4 + c.numel() * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 9 * x.numel() / PEAK_FP32 * 1e3
+    bound_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ms, ms_wrapper, ms_one, nbytes, bound_ms, by, t_ops
+
+
 def exact_kernels_phase(data):
     """Phase 9: the exact-mode kernels against their plain versions, bit for
     bit, at the main path's shapes; timed. Returns the two kernels-line
@@ -511,29 +599,27 @@ def exact_kernels_phase(data):
 
     from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
     from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
-    from esp_audio_libs_tpu_torch.ops import quantization as q
     from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
-    r = make_resampler(44100.0, 16000.0, BATCH, "cuda", exact=True)
-    factor = q.gain_factor(16, 0.0)
-    data_dev = torch.as_tensor(data[:, : FRAMES * 4], device="cuda")
-    x = r._unpack(data_dev, factor, FRAMES).contiguous()                  # [2048, 2, 8192]
-    c = r._coeffs_dev
-    zero = tuple(torch.zeros(x.shape[:-1], device="cuda") for _ in range(4))
+    r, ops = biquad_operands(data)
+    x, c, zero, _ = ops["main"]                                             # [2048, 2, 8192]
     first = torch.tensor([0.3, 0.3, 0.0, -0.4, 0.0], device="cuda")
     burst = x.clone()
     burst[: BATCH // 2, :, 256:] = 0.0       # silence after a burst: the tail underflows
-    cases = [("second-order", x, c, {}), ("first-order", x, first, {"first_order": True}),
-             ("valid_len 5000", x, c, {"valid_len": 5000}), ("burst + silence", burst, c, {})]
-    for label, xi, ci, kw in cases:
-        y, st = bk.biquad_df1_cuda(xi, ci, zero, **kw)
-        y_p, st_p = bk.biquad_df1_plain(xi, ci, zero, **kw)
+    xu, cu, zu, gen = ops["upsample"]                                       # [256, 2, out_max]
+    cases = [("second-order", x, c, zero, {}),
+             ("first-order", x, first, zero, {"first_order": True}),
+             ("valid_len 5000", x, c, zero, {"valid_len": 5000}),
+             ("burst + silence", burst, c, zero, {}),
+             (f"upsampling post-filter, valid_len {gen}", xu, cu, zu, {"valid_len": gen})]
+    for label, xi, ci, si, kw in cases:
+        y, st = bk.biquad_df1_cuda(xi, ci, si, **kw)
+        y_p, st_p = bk.biquad_df1_plain(xi, ci, si, **kw)
         torch.cuda.synchronize()
         if not (same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(st, st_p))):
-            fail(f"biquad_df1 ({label}) differs from its plain version at {tuple(x.shape)}")
-    tail = y[: BATCH // 2, :, -64:]
-    if bool((tail != 0).any()):
-        fail("the burst's tail did not flush to zero")
+            fail(f"biquad_df1 ({label}) differs from its plain version at {tuple(xi.shape)}")
+        if label.startswith("burst") and bool((y[: BATCH // 2, :, -64:] != 0).any()):
+            fail("the burst's tail did not flush to zero")
     f2 = x.reshape(-1, FRAMES)
     p1, p2 = (torch.full((f2.shape[0],), float(c[i]), device="cuda") for i in (3, 4))
     y, st = bk.iir2_sequential_cuda(f2, p1, p2, zero[0].reshape(-1), zero[1].reshape(-1))
@@ -541,25 +627,29 @@ def exact_kernels_phase(data):
     torch.cuda.synchronize()
     if not (same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(st, st_p))):
         fail("iir2_sequential differs from its plain version")
+    del burst, y, y_p
 
-    lanes = x.numel() // FRAMES
-    ms_b = cuda_time(lambda: bk.biquad_df1_cuda(x, c, zero))
     plain_b = cuda_time(lambda: bk.biquad_df1_plain(x, c, zero), iters=2, warmup=1)
-    one = tuple(s[:1, :1] for s in zero)
-    ms_one = cuda_time(lambda: bk.biquad_df1_cuda(x[:1, :1], c, one))
-    bytes_b = 2 * x.numel() * 4 + 8 * lanes * 4 + 5 * 4       # x, y, state in/out, coeffs
-    t_bytes, t_ops = bytes_b / PEAK_BYTES * 1e3, 9 * x.numel() / PEAK_FP32 * 1e3
-    bound_b, by_b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     mhz = max_clock_mhz()
-    est_ms = FRAMES * BIQUAD_CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
-    print(f"kernel biquad_exact [{BATCH}, 2, {FRAMES}] ({lanes} lanes): bit-identical to the "
-          f"plain version second- and first-order, with valid_len, as iir2 and through a "
-          f"flushed tail; {ms_b:.4f} ms vs plain {plain_b:.4f} ms, bound {bound_b:.4f} ms "
-          f"({by_b}: {bytes_b} B at 3.35 TB/s; 9 FP32 ops per step at 67 TFLOP/s take "
-          f"{t_ops:.4f}), {bound_b / ms_b:.1%} of the bound; one lane alone {ms_one:.4f} ms "
-          f"(measured chain {ms_one / FRAMES * 1e6:.1f} ns per step); estimated serial chain "
-          f"{est_ms:.4f} ms (an estimate, not measured: T x {BIQUAD_CHAIN_OPS} dependent ops x "
-          f"an assumed {OP_CYCLES} cycles at {mhz:.0f} MHz)")
+    timing = {}
+    for key, (xi, ci, si, vl) in ops.items():
+        ms, ms_wrapper, ms_one, nbytes, bound_ms, by, t_ops = biquad_timing(xi, ci, si, vl)
+        T = xi.shape[-1]
+        est_ms = T * BIQUAD_CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
+        timing[key] = (ms, ms_one, bound_ms, by)
+        print(f"kernel biquad_exact {key} {list(xi.shape)} ({xi.numel() // T} lanes, valid_len "
+              f"{T if vl is None else vl}): {ms:.4f} ms per launch (one wrapper call "
+              f"{ms_wrapper:.4f} ms), bound {bound_ms:.4f} ms ({by}: "
+              f"{nbytes} B at 3.35 TB/s; 9 FP32 ops per step at 67 TFLOP/s take {t_ops:.4f}), "
+              f"{bound_ms / ms:.1%} of the bound; one lane alone {ms_one:.4f} ms (measured chain "
+              f"{ms_one / T * 1e6:.2f} ns per step); estimated serial chain {est_ms:.4f} ms (an "
+              f"estimate, not measured: T x {BIQUAD_CHAIN_OPS} dependent ops x an assumed "
+              f"{OP_CYCLES} cycles at {mhz:.0f} MHz)")
+    print(f"kernel biquad_exact: bit-identical to the plain version second- and first-order, "
+          f"with valid_len, through a flushed tail, at the upsampling post-filter shape and as "
+          f"iir2; plain version {plain_b:.4f} ms at the main shape")
+    ms_b, ms_one, bound_b, by_b = timing["main"]
+    del ops, xu
 
     # the polyphase kernel on the main chunk's real operands
     states = r._biquad_states()
@@ -598,7 +688,9 @@ def exact_kernels_phase(data):
              "source": "esp_audio_libs_tpu_torch/csrc/biquad_exact.cu",
              "replaces": "esp_audio_libs_tpu/ops/biquad.py:197 / esp_audio_libs_tpu/ops/scan.py:41",
              "launches": 0, "max_abs_err": 0, "bit_exact": True, "ms": ms_b, "plain_ms": plain_b,
-             "bound_ms": bound_b, "bound_by": by_b, "library_ms": None, "one_lane_ms": ms_one},
+             "bound_ms": bound_b, "bound_by": by_b, "library_ms": None, "one_lane_ms": ms_one,
+             "ms_upsample": timing["upsample"][0], "one_lane_ms_upsample": timing["upsample"][1],
+             "bound_ms_upsample": timing["upsample"][2]},
             {"name": "polyphase_exact", "route": "cuda",
              "source": "esp_audio_libs_tpu_torch/csrc/polyphase_exact.cu",
              "replaces": "esp_audio_libs_tpu/ops/polyphase.py:236",

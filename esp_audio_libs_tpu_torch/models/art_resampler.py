@@ -61,12 +61,14 @@ class BatchedResample:
         (art_resampler.cpp:78-103). Flags: SUBSAMPLE_INTERPOLATE,
         BLACKMAN_HARRIS, INCLUDE_LOWPASS from ops/sinc.py.
       exact: bit-exact ordered dot products, or the dense-matmul fast form.
+      dtype: the history's dtype (``torch.float32`` by default), as the JAX
+        package's ``dtype`` argument sets it.
       device: ``"cuda"`` (the default: the kernels) or ``"cpu"`` (their
         plain versions); ``"cuda"`` without a card raises.
     """
 
     def __init__(self, batch_shape, num_taps: int, num_filters: int, lowpass_ratio: float,
-                 flags: int, *, exact: bool = True, device="cuda"):
+                 flags: int, *, exact: bool = True, dtype=torch.float32, device="cuda"):
         lowpass_ratio, flags = sinc.normalize_lowpass(lowpass_ratio, flags)
         sinc.validate_params(num_taps, num_filters)
         self.device = entry_device(device, "BatchedResample")
@@ -81,7 +83,7 @@ class BatchedResample:
             num_taps, num_filters, float(lowpass_ratio), self.flags), np.float32),
             device=self.device)
         self.state = PhaseState.initial(num_taps)
-        self.history = torch.zeros(self.batch_shape + (self.hist_len,), dtype=torch.float32,
+        self.history = torch.zeros(self.batch_shape + (self.hist_len,), dtype=dtype,
                                    device=self.device)
 
     # ------------------------------------------------------------ queries

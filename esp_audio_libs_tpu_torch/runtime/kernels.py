@@ -109,25 +109,26 @@ def library() -> C.CDLL:
     return bind(C.CDLL(str(build())))
 
 
-def bind(lib: C.CDLL) -> C.CDLL:
-    """Set the C signatures of the kernel entry points on a loaded library."""
-    p = C.c_void_p
-    i, ll = C.c_int, C.c_longlong
-    lib.eal_band_parts_len.restype = C.c_longlong
-    lib.eal_band_parts_len.argtypes = [i]
-    lib.eal_band_ranges.restype = C.c_int
-    lib.eal_band_ranges.argtypes = [p, p, i, i, ll, p]
-    lib.eal_polyphase_banded.restype = C.c_int
-    lib.eal_polyphase_banded.argtypes = [p, p, p, p, p, i, i, i, i, ll, i, p]
-    lib.eal_polyphase_fused16.restype = C.c_int
-    lib.eal_polyphase_fused16.argtypes = [p, p, p, p, p, p, i, i, i, i, ll, p]
-    lib.eal_flac_frame.restype = C.c_int
-    lib.eal_flac_frame.argtypes = [p, i, p, p, i, p, p, p, p, p, p,
-                                   i, i, i, i, i, i, i, i, p]
-    lib.eal_biquad_df1.restype = C.c_int
-    lib.eal_biquad_df1.argtypes = [p, p, p, i, p, p, ll, i, i, i, p]
-    lib.eal_iir2_sequential.restype = C.c_int
-    lib.eal_iir2_sequential.argtypes = [p, p, p, p, p, ll, i, p]
-    lib.eal_polyphase_exact.restype = C.c_int
-    lib.eal_polyphase_exact.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, p]
+_P, _I, _LL = C.c_void_p, C.c_int, C.c_longlong
+# restype and argtypes of every C entry point of csrc/*.cu
+SIGNATURES = {
+    "eal_band_parts_len": (C.c_longlong, [_I]),
+    "eal_band_ranges": (C.c_int, [_P, _P, _I, _I, _LL, _P]),
+    "eal_polyphase_banded": (C.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),
+    "eal_polyphase_fused16": (C.c_int, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P]),
+    "eal_flac_frame": (C.c_int, [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "eal_biquad_df1": (C.c_int, [_P, _P, _P, _I, _P, _P, _LL, _I, _I, _I, _P]),
+    "eal_iir2_sequential": (C.c_int, [_P, _P, _P, _P, _P, _LL, _I, _P]),
+    "eal_polyphase_exact": (C.c_int, [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                                      _I, _P]),
+}
+
+
+def bind(lib: C.CDLL, names=tuple(SIGNATURES)) -> C.CDLL:
+    """Set the C signatures of the kernel entry points ``names`` (all by
+    default) on a loaded library."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = SIGNATURES[name]
     return lib

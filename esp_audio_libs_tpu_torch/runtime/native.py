@@ -7,14 +7,18 @@ bitstream front-end (sync, headers, CRC, Rice decoding into residual tables,
 and the decoder-state save/load blob) come from one C++ source for both
 packages. Bound here: the resampler's four entry points and the FLAC
 front-end; the MP3 front-end is not bound yet. The library is built at first
-use if it is missing.
+use if it is missing (:func:`build_host_library`).
 """
 
 from __future__ import annotations
 
 import ctypes as C
+import fcntl
 import functools
+import os
+import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -23,11 +27,60 @@ REPO = Path(__file__).resolve().parent.parent.parent
 LIB_PATH = REPO / "build" / "libeal_host.so"
 
 
+# native/build_host.sh's compile line (its flags, its sources)
+HOST_CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off", "-Wall", "-pthread"]
+
+
+def _mp3_headers() -> None:
+    """The MP3 front-end's generated headers in the repository's build/ (its
+    source includes them from there), made as native/build_host.sh makes
+    them from the committed copies in native/gen/ (the same generated
+    artifacts as an extraction from the reference source)."""
+    build, gen = REPO / "build", REPO / "native" / "gen"
+    build.mkdir(parents=True, exist_ok=True)
+    if not (build / "mp3_tables.h").exists():
+        for name in ("mp3_tables.h", "mp3_tables.npz"):
+            shutil.copy(gen / name, build / name)
+    tool, huff = REPO / "tools" / "gen_huffman_tables.py", build / "mp3_huff.h"
+    if not huff.exists() or tool.stat().st_mtime > huff.stat().st_mtime:
+        if (build / "mp3_tables.npz").exists():
+            subprocess.run([sys.executable, str(tool)], check=True, capture_output=True)
+        else:
+            for name in ("mp3_huff.h", "mp3_huff.npz"):
+                shutil.copy(gen / name, build / name)
+
+
+def build_host_library(lib_path: Path = LIB_PATH) -> Path:
+    """Build the host library into ``lib_path`` unless it exists; returns
+    the path. It runs native/build_host.sh's compile line itself (that
+    script writes its output in place, so a concurrent loader could map a
+    half-written file): under an exclusive ``flock`` on
+    ``.libeal_host.lock`` beside the library, into a temporary file in the
+    same directory, then ``os.replace`` onto ``lib_path``. A process that
+    finds the file sees a complete library; concurrent first builds compile
+    once."""
+    if lib_path.exists():
+        return lib_path
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib_path.parent / ".libeal_host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return lib_path
+        _mp3_headers()
+        tmp = lib_path.parent / f".libeal_host.{os.getpid()}.so"
+        try:
+            sources = sorted(str(p) for p in (REPO / "native" / "src").glob("*.cpp"))
+            subprocess.run(["g++", *HOST_CXXFLAGS, *sources, "-o", str(tmp)], check=True,
+                           capture_output=True)
+            os.replace(tmp, lib_path)
+        finally:
+            tmp.unlink(missing_ok=True)
+    return lib_path
+
+
 @functools.lru_cache(None)
 def host_lib() -> C.CDLL:
-    if not LIB_PATH.exists():
-        subprocess.run([str(REPO / "native" / "build_host.sh")], check=True, capture_output=True)
-    lib = C.CDLL(str(LIB_PATH))
+    lib = C.CDLL(str(build_host_library()))
     f32p = C.POINTER(C.c_float)
     i32p = C.POINTER(C.c_int32)
     i8p = C.POINTER(C.c_int8)

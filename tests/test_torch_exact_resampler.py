@@ -300,6 +300,31 @@ def test_batched_resample_matches_jax(cfg, exact):
         assert t.get_position() == j.get_position()
 
 
+@pytest.mark.parametrize("exact", [True, False])
+def test_batched_resample_dtype_argument_matches_jax(exact):
+    """A call written for the JAX API, ``dtype`` given: the history is made
+    in that dtype, and outputs and history match the JAX package (bit for
+    bit in exact mode: this configuration has no mode-2 lerp, which XLA
+    contracts)."""
+    taps, nf, lp, flags, ratio = CONFIGS[0]
+    j = JaxBatched((2, 2), taps, nf, lp, flags, exact=exact, dtype=jnp.float32)
+    t = BatchedResample((2, 2), taps, nf, lp, flags, exact=exact, dtype=torch.float32,
+                        device="cpu")
+    assert t.history.dtype == torch.float32 and j.history.dtype == jnp.float32
+    rng = np.random.default_rng(77)
+    for n_in, n_out in ((400, 300), (120, 64)):
+        x = rng.standard_normal((2, 2, n_in)).astype(F32)
+        oj, rj = j.process(jnp.asarray(x), n_out, ratio)
+        ot, rt = t.process(torch.from_numpy(x), n_out, ratio)
+        assert (rt.input_used, rt.output_generated) == (rj.input_used, rj.output_generated)
+        if exact:
+            np.testing.assert_array_equal(bits(ot), bits(oj))
+        else:
+            np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **FAST_TOL)
+        assert t.history.dtype == torch.float32
+        np.testing.assert_array_equal(bits(t.history), bits(j.history))
+
+
 def test_batched_resample_queries_and_reset():
     args = (64, 16, 0.9, sinc.BLACKMAN_HARRIS)
     j = JaxBatched((1,), *args)

@@ -4,6 +4,10 @@ grids and dry-run counts to the JAX package (both load the same native
 library)."""
 
 import importlib
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -101,3 +105,39 @@ def test_gain_factor_bitidentical(bits, gain_db):
     assert tq.bytes_per_sample(bits) == jq.bytes_per_sample(bits)
     assert tq.gain_factor(bits, gain_db).view(np.uint32) == \
         jq.gain_factor(bits, gain_db).view(np.uint32)
+
+
+_BUILD_AND_LOAD = """
+import ctypes, sys, time
+from pathlib import Path
+from esp_audio_libs_tpu_torch.runtime.native import build_host_library
+ready, go, lib = (Path(a) for a in sys.argv[1:4])
+ready.touch()
+while not go.exists():
+    time.sleep(0.01)
+h = ctypes.CDLL(str(build_host_library(lib)))
+assert h.eal_design_filterbank(16, 4, ctypes.c_float(0.9), 0, (ctypes.c_float * 80)()) == 0
+print("loaded")
+"""
+
+
+def test_concurrent_first_builds_load_a_complete_library(tmp_path):
+    """Two processes build the host library into one empty build/ at once
+    (the first use under pytest-xdist): both load a complete library, and
+    the directory holds the library and the lock, no temporary file."""
+    repo = Path(__file__).resolve().parent.parent
+    build = tmp_path / "build"
+    go = tmp_path / "go"
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_LOAD, str(tmp_path / f"ready{i}"),
+                               str(go), str(build / "libeal_host.so")], cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    deadline = time.monotonic() + 120
+    while not all((tmp_path / f"ready{i}").exists() for i in range(2)):
+        assert time.monotonic() < deadline and all(p.poll() is None for p in procs)
+        time.sleep(0.01)
+    go.touch()
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0 and out.strip() == "loaded", err
+    assert sorted(f.name for f in build.iterdir()) == [".libeal_host.lock", "libeal_host.so"]

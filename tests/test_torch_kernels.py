@@ -613,6 +613,91 @@ def test_iir2_kernel_matches_plain(cuda):
     assert same_bits(y, y_p) and same_bits(a, a_p) and same_bits(b, b_p)
 
 
+def _misaligned(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a contiguous f32 tensor whose data starts 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(a.size + 4, dtype=torch.float32, device=device)
+    t = buf[1:1 + a.size].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,T,valid_len,first_order,misaligned", [
+    (1, 8192, None, False, False),     # one lane: a block with 31 empty rows
+    (31, 1000, None, False, False),
+    (33, 1000, 500, True, False),      # one lane into a second block
+    (4096, 8192, None, False, False),  # the main pre-filter chunk's lanes
+    (40, 1, None, False, False), (40, 1, 0, False, False), (40, 1, 1, True, False),
+    (40, 63, None, False, False), (40, 64, None, False, False), (40, 65, None, False, False),
+    (40, 130, None, False, False),
+    (40, 130, 64, False, False), (40, 130, 128, False, False),   # valid_len at a tile edge
+    (40, 130, 63, True, False), (40, 130, 65, False, False),
+    (40, 128, None, False, False), (40, 129, 128, False, False),  # one 128-step tile, and one more
+    (40, 256, 128, True, False), (40, 260, 256, False, False),
+    (40, 1001, 1000, False, False),    # a row pitch that is not a multiple of 16 bytes
+    (40, 1000, 999, False, True)])     # 16-byte pitch, data 4 bytes off alignment
+def test_biquad_kernel_shapes_and_edges(cuda, lanes, T, valid_len, first_order, misaligned):
+    """Lane counts around a block, T around the 64- and 128-step tile sizes,
+    valid_len at and around tile edges, both copy paths (bulk copies of
+    16-byte rows, 4-byte copies otherwise): bit-identical to the plain
+    version."""
+    rng = np.random.default_rng(lanes * 7919 + T)
+    xn = rng.standard_normal((lanes, T)).astype(np.float32)
+    x = _misaligned(xn, cuda) if misaligned else torch.from_numpy(xn).to(cuda)
+    c = torch.as_tensor(np.array([0.3, 0.3, 0.0, -0.4, 0.0], np.float32) if first_order
+                        else tbq.biquad_init(tbq.biquad_lowpass(0.18), 1.0), device=cuda)
+    st = tuple(torch.as_tensor(rng.standard_normal(lanes), dtype=torch.float32, device=cuda)
+               for _ in range(4))
+    before = bk.biquad_df1_cuda.launches
+    y, s = bk.biquad_df1_cuda(x, c, st, first_order=first_order, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert bk.biquad_df1_cuda.launches == before + 1
+    y_p, s_p = bk.biquad_df1_plain(x, c, st, first_order=first_order, valid_len=valid_len)
+    assert same_bits(y, y_p)
+    assert all(same_bits(a, b) for a, b in zip(s, s_p))
+
+
+@pytest.mark.cuda
+def test_biquad_kernel_upsampling_post_filter_shape(cuda):
+    """The exact upsampling post-filter's launch: 16 kHz -> 44.1 kHz at
+    batch 256, [256, 2, out_max] with valid_len = the first chunk's
+    generated count, the resampler's own coefficients."""
+    r = Resampler(batch=256, device="cpu")
+    r.initialize(ResamplerConfiguration(16000.0, 44100.0, 16, 16, 2, True, True, 64, 32))
+    frames = 8192
+    out_max = math.ceil(frames * float(r.sample_ratio)) + 8
+    g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
+                   r.sample_ratio, frames, out_max)
+    assert r.post_filter and out_max % 4 == 0 and 0 < g.output_generated < out_max
+    rng = np.random.default_rng(22)
+    x = torch.as_tensor(rng.standard_normal((256, 2, out_max)) * 0.3, dtype=torch.float32,
+                        device=cuda)
+    st = tuple(torch.zeros((256, 2), device=cuda) for _ in range(4))
+    c = r._coeffs_dev.to(cuda)
+    y, s = bk.biquad_df1_cuda(x, c, st, valid_len=g.output_generated)
+    torch.cuda.synchronize()
+    y_p, s_p = bk.biquad_df1_plain(x, c, st, valid_len=g.output_generated)
+    assert same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(s, s_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,T", [(33, 65), (5, 1001), (1, 130), (70, 64)])
+def test_iir2_kernel_ragged(cuda, lanes, T):
+    """iir2 at ragged lane counts and lengths (1001: the 4-byte copies)."""
+    rng = np.random.default_rng(lanes + T)
+    f = torch.as_tensor(rng.standard_normal((lanes, T)), dtype=torch.float32, device=cuda)
+    p1 = torch.as_tensor(rng.uniform(-1.5, 1.5, lanes), dtype=torch.float32, device=cuda)
+    p2 = torch.as_tensor(rng.uniform(0.1, 0.7, lanes), dtype=torch.float32, device=cuda)
+    y1, y2 = (torch.as_tensor(rng.standard_normal(lanes), dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    y, (a, b) = bk.iir2_sequential_cuda(f, p1, p2, y1, y2)
+    torch.cuda.synchronize()
+    y_p, (a_p, b_p) = bk.iir2_sequential_plain(f, p1, p2, y1, y2)
+    assert same_bits(y, y_p) and same_bits(a, a_p) and same_bits(b, b_p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["main", "no_second", "ragged", "upsample", "low_ratio",
                                   "big_bank", "past_gen"])

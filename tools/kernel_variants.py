@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Probe variants of the banded kernels' shared main loop on one GPU.
+"""Probe variants of the port's hand kernels on one GPU.
 
 Each variant is the checkout's ``esp_audio_libs_tpu_torch/csrc`` with one
-text edit to ``banded_tile.cuh``, built into its own library under
-``build/variants/<name>/`` by the package's build recipe, all variants at
-once:
+text edit, built into its own library under ``build/variants/<name>/`` by
+the package's build recipe, all variants at once, and timed against the
+others in turns (first to last, then last to first) in one process.
+
+Default mode: the banded kernels' shared main loop (``banded_tile.cuh``):
 
   as_is       the sources unchanged;
   one_pass    only big*big: one mma per fragment instead of three (a speed
@@ -16,19 +18,40 @@ once:
   no_compute  the mma steps are dropped (a speed probe: the copies, barriers
               and epilogue alone).
 
-For each variant, in turns (first to last, then last to first), it times the
-banded kernel at the main shape (the bench configuration's first chunk,
-M 4096 x L 8576, 24 tiles, K 768), the fused int16 kernel at the same shape
-and the banded kernel at the post-filter shape (M 512, 177 tiles sharing one
-tile), by CUDA events over 20 launches after 2 warm-ups, and reports the
-largest error against the plain version on those operands and, at the
-random main shape of tests/test_torch_kernels.py, the largest ratio of
-|kernel - plain| and |kernel - exact f64| to the banded tolerance. It also
-counts the mma.sync the band ranges ask for at the main shape.
+It times the banded kernel at the main shape (the bench configuration's
+first chunk, M 4096 x L 8576, 24 tiles, K 768), the fused int16 kernel at
+the same shape and the banded kernel at the post-filter shape (M 512, 177
+tiles sharing one tile), by CUDA events over 20 launches after 2 warm-ups,
+and reports the largest error against the plain version on those operands
+and, at the random main shape of tests/test_torch_kernels.py, the largest
+ratio of |kernel - plain| and |kernel - exact f64| to the banded tolerance.
+It also counts the mma.sync the band ranges ask for at the main shape.
+
+``--biquad``: the exact biquad kernel (``biquad_exact.cu``, built alone):
+
+  as_is       the sources unchanged;
+  s64         tiles of 64 steps instead of 128;
+  nst4        a ring of 4 stages instead of 8;
+  rows32      32 lanes per block whatever the lane count (the first layout
+              of this design) instead of the fewest that fill the SMs;
+  no_memory   LOAD and STORE copy nothing (a speed probe: the chain and
+              its hand-offs without device memory; not exact);
+  <dir>       with ``--biquad-parent DIR/biquad_exact.cu ...``: each such
+              file as biquad_exact.cu, named by its directory (an earlier
+              design, timed in the same process).
+
+It times one launch (CUDA events, mean of 20 direct launches through the C
+entry point after 2 warm-ups, and one call through the wrapper) at the main
+pre-filter chunk ([2048, 2, 8192]) and at the exact upsampling post-filter
+chunk ([256, 2, 22588] with its valid_len), the operands of chip_smoke.py
+phase 9, each also on its first lane alone (the measured step time), and
+checks each variant's outputs and state bit for bit against the plain
+version.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
+    python3 tools/kernel_variants.py --biquad [--biquad-parent build/parent/biquad_exact.cu]
 
 The last line is one JSON object with the means.
 """
@@ -52,6 +75,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
+from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk  # noqa: E402
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk  # noqa: E402
 from esp_audio_libs_tpu_torch.ops.polyphase import polyphase_banded  # noqa: E402
 from esp_audio_libs_tpu_torch.runtime import kernels  # noqa: E402
@@ -105,34 +129,49 @@ VARIANTS = {
 }
 
 
-def make_variant(name: str) -> Path:
+_LANES = "return static_cast<int>(min(static_cast<long long>(a.rows), a.n - lane0));"
+
+BIQUAD_VARIANTS = {
+    "as_is": [],
+    "s64": [("constexpr int S = 128;", "constexpr int S = 64;")],
+    "nst4": [("constexpr int NST = 8;", "constexpr int NST = 4;")],
+    "rows32": [("  a.rows = 1;\n", "  a.rows = LANES;\n")],
+    "no_memory": [(_LANES, "return 0;")],
+}
+BIQUAD_ENTRIES = ("eal_biquad_df1", "eal_iir2_sequential")
+
+
+def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
+    """``sources`` copied into build/variants/<name>/, then ``target`` (there)
+    replaced by the file ``replace_with`` if given, and edited by ``edits``."""
     dst = OUT / name
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
-    for src in list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh")):
+    for src in sources:
         shutil.copy(src, dst / src.name)
-    tile = dst / "banded_tile.cuh"
-    text = tile.read_text()
-    for old, new in VARIANTS[name]:
+    if replace_with is not None:
+        shutil.copy(replace_with, dst / target)
+    path = dst / target
+    text = path.read_text()
+    for old, new in edits:
         if text.count(old) != 1:
-            raise RuntimeError(f"variant {name}: its edit no longer matches banded_tile.cuh")
+            raise RuntimeError(f"variant {name}: its edit no longer matches {target}")
         text = text.replace(old, new)
-    tile.write_text(text)
+    path.write_text(text)
     return dst
 
 
-def build_all(names):
-    """Build every variant with the package's own recipe
-    (``kernels.compile_library``), all at once; returns {name: (CDLL, ptxas
-    lines)}."""
-    dirs = {name: make_variant(name) for name in names}
+def build_all(dirs, entries=tuple(kernels.SIGNATURES)):
+    """Build every variant directory with the package's own recipe
+    (``kernels.compile_library``), all at once, and bind the C entry points
+    ``entries``; returns {name: (CDLL, ptxas lines)}."""
     with ThreadPoolExecutor(len(dirs)) as pool:
         outs = dict(zip(dirs, pool.map(
             lambda d: kernels.compile_library(d, d / "lib.so", ptxas_report=True), dirs.values())))
     libs = {}
     for name, out in outs.items():
         report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        libs[name] = (kernels.bind(C.CDLL(str(dirs[name] / "lib.so"))), report)
+        libs[name] = (kernels.bind(C.CDLL(str(dirs[name] / "lib.so")), entries), report)
     return libs
 
 
@@ -154,9 +193,60 @@ def mma_count(Wt: torch.Tensor, M: int) -> int:
     return steps * 4 * 3 * 8 * math.ceil(M / 128)
 
 
+def biquad_main(args, card: str) -> None:
+    """--biquad: the exact biquad's variants at its two launch shapes."""
+    names = args.variants or list(BIQUAD_VARIANTS)
+    src = kernels.CSRC / "biquad_exact.cu"
+    dirs = {name: make_variant(f"biquad_{name}", src.name, BIQUAD_VARIANTS[name], [src])
+            for name in names}
+    for path in args.biquad_parent:
+        name = path.resolve().parent.name
+        dirs[name] = make_variant(f"biquad_{name}", src.name, [], [src], path)
+    libs = build_all(dirs, BIQUAD_ENTRIES)
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+
+    data = np.random.default_rng(0).integers(0, 256, (cs.BATCH, cs.FRAMES * 4), dtype=np.uint8)
+    _, ops = cs.biquad_operands(data)
+    plains = {key: bk.biquad_df1_plain(x, c, st, valid_len=vl)
+              for key, (x, c, st, vl) in ops.items()}
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        kernels.library = lambda name=name: libs[name][0]
+        row = {}
+        for key, (x, c, st, vl) in ops.items():
+            y, s_out = bk.biquad_df1_cuda(x, c, st, valid_len=vl)
+            torch.cuda.synchronize()
+            y_p, s_p = plains[key]
+            row[f"{key}_bit_exact"] = float(cs.same_bits(y, y_p) and all(
+                cs.same_bits(a, b) for a, b in zip(s_out, s_p)))
+            ms, ms_wrapper, ms_one, _, bound_ms, _, _ = cs.biquad_timing(x, c, st, vl)
+            row[f"{key}_ms"] = ms
+            row[f"{key}_wrapper_ms"] = ms_wrapper
+            row[f"{key}_one_lane_ns_per_step"] = ms_one / x.shape[-1] * 1e6
+            row[f"{key}_bound_ms"] = bound_ms
+        results[name].append(row)
+        print(name, json.dumps(row))
+    means = {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+             for name, rows in results.items()}
+    for name, m in means.items():
+        print(f"{name}: main {m['main_ms']:.4f} ms ({m['main_one_lane_ns_per_step']:.2f} ns/step "
+              f"alone), upsample {m['upsample_ms']:.4f} ms "
+              f"({m['upsample_one_lane_ns_per_step']:.2f} ns/step alone), bit-exact "
+              f"{m['main_bit_exact'] == 1.0 and m['upsample_bit_exact'] == 1.0} "
+              f"(means of 2 turns)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    ap.add_argument("--biquad", action="store_true",
+                    help="probe the exact biquad kernel instead of the banded main loop")
+    ap.add_argument("--biquad-parent", type=Path, nargs="+", default=[],
+                    help="with --biquad: earlier biquad_exact.cu files, each timed as a "
+                         "variant named by its directory")
+    ap.add_argument("--variants", nargs="+", default=None,
+                    choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -165,7 +255,13 @@ def main() -> None:
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {card}, max SM clock {clocks}")
-    libs = build_all(args.variants)
+    if args.biquad:
+        biquad_main(args, card)
+        return
+    names = args.variants or list(VARIANTS)
+    sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
+    libs = build_all({name: make_variant(name, "banded_tile.cuh", VARIANTS[name], sources)
+                      for name in names})
     for name, (_, report) in libs.items():
         print(f"{name}: {' | '.join(report)}")
 

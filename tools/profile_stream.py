@@ -6,15 +6,18 @@ Drives ``esp_audio_libs_tpu_torch`` (never JAX) at the bench configuration
 ``numpy.random.default_rng(0)``): fast mode (pre-filter folded) with the
 fused int16 tier off and then on, or with ``--exact`` the bit-exact mode
 (two exact pre-filter biquad stages and the exact polyphase kernel per
-chunk). It reports for each:
+chunk). With ``--upsample`` it runs the other direction, 16 kHz -> 44.1 kHz
+at batch 256 (``--batch`` overrides): in exact mode the exact polyphase
+kernel, then two exact post-filter biquad stages with ``valid_len`` per
+chunk. It reports for each:
 
   * the untraced wall time of ``--reps`` calls (median, min, max);
   * one call traced with CUDA activity only (the lightest trace): its wall
     time, the device busy time (union of kernel and copy intervals), the
     hand kernels' time (fast mode: the contraction kernels with the
     band-range kernel each launches first, also shown alone; exact mode:
-    the biquad and exact polyphase kernels) and the idle share of that
-    traced wall;
+    the biquad and exact polyphase kernels, each also alone), the rest of
+    the device time (glue) and the idle share of that traced wall;
   * the idle share estimated from the untraced median wall minus the traced
     busy time (two different calls, so an estimate, printed as such);
   * one call traced with CPU + CUDA activity: the top ops by device time,
@@ -25,6 +28,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/profile_stream.py
     python3 tools/profile_stream.py --batch 256 --out chiprun_out/profile.txt
     python3 tools/profile_stream.py --exact
+    python3 tools/profile_stream.py --exact --upsample
 
 The last line is one JSON object with the numbers above.
 """
@@ -80,7 +84,8 @@ def _timed_call(r, data, frames, chunks) -> float:
 def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
     os.environ["EAL_RESAMPLE_FUSED16"] = "1" if fused else "0"
     r = Resampler(batch=args.batch, exact=args.exact, device="cuda")
-    r.initialize(ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, 32))
+    src, dst = (16000.0, 44100.0) if args.upsample else (44100.0, 16000.0)
+    r.initialize(ResamplerConfiguration(src, dst, 16, 16, 2, True, True, 64, 32))
     for _ in range(2):
         r.resample_stream(data, args.frames, args.chunks)
     torch.cuda.synchronize()
@@ -92,6 +97,8 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
     busy = _busy_us(dev) / 1e3
     kernel = _busy_us([e for e in dev if any(k in e.name for k in KERNEL_NAMES)]) / 1e3
     band = _busy_us([e for e in dev if "band_ranges" in e.name]) / 1e3
+    biquad = _busy_us([e for e in dev if "recurrence_kernel" in e.name]) / 1e3
+    poly = _busy_us([e for e in dev if "polyphase_" in e.name]) / 1e3
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_ops:
         _timed_call(r, data, args.frames, args.chunks)
@@ -99,9 +106,11 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
                                           max_name_column_width=70)
     median = float(np.median(walls))
     row = {"mode": "exact" if args.exact else "fast", "fused": fused,
+           "direction": "16k->44.1k" if args.upsample else "44.1k->16k",
            "untraced_ms_median": median, "untraced_ms_min": min(walls),
            "untraced_ms_max": max(walls), "traced_wall_ms": traced_wall,
            "device_busy_ms": busy, "kernel_ms": kernel, "band_ranges_ms": band,
+           "biquad_ms": biquad, "polyphase_ms": poly,
            "other_device_ms": busy - kernel,
            "traced_idle_share": 1.0 - busy / traced_wall,
            "estimated_idle_share_untraced": 1.0 - busy / median}
@@ -110,15 +119,20 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=2048)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="streams per call (default 2048, or 256 with --upsample)")
     ap.add_argument("--frames", type=int, default=8192)
     ap.add_argument("--chunks", type=int, default=8)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--exact", action="store_true",
                     help="profile exact mode instead of the two fast tiers")
+    ap.add_argument("--upsample", action="store_true",
+                    help="16 kHz -> 44.1 kHz (the post-filter direction) instead of 44.1 -> 16")
     ap.add_argument("--out", type=Path, default=None,
                     help="file for the per-op tables of the CPU + CUDA traces")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 256 if args.upsample else 2048
     if not torch.cuda.is_available():
         sys.exit("profile_stream: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,12 +146,14 @@ def main() -> None:
     for fused in ((False,) if args.exact else (False, True)):
         row, table = profile_tier(fused, data, args)
         rows.append(row)
-        name = "exact mode" if args.exact else f"fused tier {'on' if fused else 'off'}"
+        name = (f"{row['direction']} " +
+                ("exact mode" if args.exact else f"fused tier {'on' if fused else 'off'}"))
         tables.append(f"== {name}\n{table}")
         print(f"{name}: untraced {row['untraced_ms_median']:.3f} ms "
               f"(median of {args.reps}, {row['untraced_ms_min']:.3f}-{row['untraced_ms_max']:.3f}); "
               f"traced {row['traced_wall_ms']:.3f} ms, device busy {row['device_busy_ms']:.3f} ms "
-              f"(kernel {row['kernel_ms']:.3f} of which band ranges {row['band_ranges_ms']:.3f}, "
+              f"(kernel {row['kernel_ms']:.3f}: biquad {row['biquad_ms']:.3f}, polyphase "
+              f"{row['polyphase_ms']:.3f}, band ranges {row['band_ranges_ms']:.3f}; "
               f"other {row['other_device_ms']:.3f}), "
               f"traced idle {row['traced_idle_share']:.3f}, "
               f"estimated untraced idle {row['estimated_idle_share_untraced']:.3f}")
