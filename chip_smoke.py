@@ -55,11 +55,15 @@ Phases, each printing a line:
                chunk (16 -> 44.1 kHz at batch 256: the first chunk's
                polyphase output [256, 2, 22588] with valid_len = its
                generated count); the exact polyphase kernel on the main
-               chunk's real operands with and without the second dot (its
-               last tile is ragged) and on 13 rows. Times (CUDA events) beside
-               the bound; for the biquad at both shapes, each also with one
-               lane alone (the measured step time) and an estimated serial
-               chain (text line only).
+               chunk's real operands ([4096, 8264] -> 2981 outputs, its last
+               tile ragged) and on the exact upsampling chunk's ([512, 8264]
+               -> 22588), each with and without the second dot and on 13
+               rows. Times (CUDA events) of direct launches through the C
+               entry points, operands prepared once, beside one wrapper call
+               and the bound; for the biquad at both shapes, each also with
+               one lane alone (the measured step time) and an estimated
+               serial chain, for the polyphase the FMA-free issue floor (an
+               estimate; text lines only).
  10. exact e2e - Resampler(2048) (exact, the default) resample_stream(data,
                8192, 8) on the phase-4 bytes, its packed bytes, counts and
                state equal to a CPU run of the plain path on 8 streams, with
@@ -512,8 +516,8 @@ def biquad_operands(data):
     upsampling post-filter chunk (16 kHz -> 44.1 kHz at batch 256: the first
     chunk's polyphase output [256, 2, out_max] with valid_len = its
     generated count, as ``Resampler._exact_stream`` launches it), each with
-    its resampler's coefficients. Returns the 44.1 -> 16 kHz resampler and
-    {shape: (x, coeffs, state, valid_len)}."""
+    its resampler's coefficients. Returns {shape: (x, coeffs, state,
+    valid_len)}."""
     import dataclasses
 
     import torch
@@ -522,16 +526,14 @@ def biquad_operands(data):
     from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
     factor = q.gain_factor(16, 0.0)
-    ops, main = {}, None
+    ops = {}
     for key, src, dst, batch in (("main", 44100.0, 16000.0, BATCH),
                                  ("upsample", 16000.0, 44100.0, 256)):
         r = make_resampler(src, dst, batch, "cuda", exact=True)
         x = r._unpack(torch.as_tensor(data[:batch, : FRAMES * 4], device="cuda"), factor,
                       FRAMES).contiguous()
         vl = None
-        if key == "main":
-            main = r
-        else:
+        if key == "upsample":
             out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
             g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters,
                            r.bank_flags, r.sample_ratio, FRAMES, out_max)
@@ -540,7 +542,7 @@ def biquad_operands(data):
             vl = g.output_generated
         zero = tuple(torch.zeros(x.shape[:-1], device="cuda") for _ in range(4))
         ops[key] = (x, r._coeffs_dev, zero, vl)
-    return main, ops
+    return ops
 
 
 def biquad_launcher(x, c, state, valid_len):
@@ -589,19 +591,117 @@ def biquad_timing(x, c, state, valid_len):
     return ms, ms_wrapper, ms_one, nbytes, bound_ms, by, t_ops
 
 
-def exact_kernels_phase(data):
-    """Phase 9: the exact-mode kernels against their plain versions, bit for
-    bit, at the main path's shapes; timed. Returns the two kernels-line
-    entries without their launch counts."""
+def polyphase_operands(data, main_input=None):
+    """The exact polyphase kernel's real launches: the main chunk (44.1 ->
+    16 kHz at batch 2048: history + the chunk after the two exact
+    pre-filter stages, [4096, 8264] -> 2981 outputs; ``main_input`` is that
+    chunk before the stages, [2048, 2, 8192], unpacked from ``data`` when
+    None) and the exact upsampling chunk (16 -> 44.1 kHz at batch 256:
+    history + the unpacked chunk, [512, 8264] -> 22588 outputs), each the
+    first chunk of a fresh stream. Returns {shape: (xext [M, L], filters,
+    grid, half, compute_second)}."""
     import dataclasses
 
     import torch
 
     from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
-    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops import quantization as q
+    from esp_audio_libs_tpu_torch.ops import sinc
     from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
-    r, ops = biquad_operands(data)
+    factor = q.gain_factor(16, 0.0)
+    ops = {}
+    for key, src, dst, batch in (("main", 44100.0, 16000.0, BATCH),
+                                 ("upsample", 16000.0, 44100.0, 256)):
+        r = make_resampler(src, dst, batch, "cuda", exact=True)
+        if key == "main" and main_input is not None:
+            x = main_input
+        else:
+            x = r._unpack(torch.as_tensor(data[:batch, : FRAMES * 4], device="cuda"), factor,
+                          FRAMES).contiguous()
+        if r.pre_filter:
+            states = r._biquad_states()
+            for stage in range(2):
+                x, states[stage] = bk.biquad_df1_cuda(x, r._coeffs_dev, states[stage])
+        out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
+        g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
+                       r.sample_ratio, FRAMES, out_max)
+        xext = torch.cat([torch.zeros((*x.shape[:-1], r.hist_len), device="cuda"), x], dim=-1)
+        ops[key] = (xext.reshape(-1, xext.shape[-1]).contiguous(), r._filters,
+                    r._exact_grids([g], out_max)[0], r.config.number_of_taps // 2,
+                    bool(r.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
+    return ops
+
+
+def polyphase_launcher(xext, filters, grid, half, second, lib=None):
+    """A function that launches polyphase_exact on these operands through
+    the C entry point (of ``lib``, the package's library by default), its
+    arguments prepared once: the kernel alone, without the wrapper's checks,
+    conversions and output allocation. Used only to time the kernel; its
+    launches are not counted. The function returns the output tensor."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    M, L = xext.shape
+    T = grid[0].shape[0]
+    x, fb = xext.contiguous(), filters.contiguous()
+    g = [t.to(torch.int32).contiguous() for t in (grid[0], grid[1], grid[2], grid[4])]
+    w = grid[3].to(torch.float32).contiguous()
+    out = torch.empty((M, T), device=xext.device)
+    args = (x.data_ptr(), fb.data_ptr(), g[0].data_ptr(), g[1].data_ptr(), g[2].data_ptr(),
+            w.data_ptr(), g[3].data_ptr(), out.data_ptr(), M, L, T, fb.shape[0], fb.shape[1],
+            half, int(second), torch.cuda.current_stream().cuda_stream)
+    lib = lib or kernels.library()
+
+    def launch():
+        if lib.eal_polyphase_exact(*args) != 0:
+            fail("eal_polyphase_exact refused its arguments")
+        launch.keep = (x, fb, g, w)               # keeps the operands alive
+        return out
+    return launch
+
+
+def polyphase_work(xext, filters, grid):
+    """(bytes, FP32 ops) of one exact polyphase launch: x, the filterbank,
+    the five grid arrays and the output each moved once; per row, 2 ops per
+    tap for a mode-1 output and 4 per tap plus the 4 of the lerp for a
+    mode-2 output (mode 0 is a copy)."""
+    M, L = xext.shape
+    T = grid[0].shape[0]
+    modes = grid[4].cpu().numpy()
+    taps = filters.shape[1]
+    ops = M * (int((modes == 1).sum()) * 2 * taps + int((modes == 2).sum()) * (4 * taps + 4))
+    return (xext.numel() + filters.numel() + 5 * T + M * T) * 4, ops
+
+
+def polyphase_timing(xext, filters, grid, half, second, sms, mhz):
+    """Mean ms of one polyphase_exact launch on these operands (20 direct
+    launches: the kernel) and of one wrapper call (host work included),
+    beside the bound (bytes at 3.35 TB/s or FP32 ops at 67 TFLOP/s) and the
+    FMA-free issue floor, an estimate: the ops at one FP32 instruction per
+    lane and cycle (``sms`` x 128 lanes at ``mhz``). Returns (ms, wrapper ms,
+    bytes, ops, bound ms, bound_by, floor ms)."""
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    ms = cuda_time(polyphase_launcher(xext, filters, grid, half, second), iters=20)
+    ms_wrapper = cuda_time(lambda: pk.polyphase_exact_cuda(xext, filters, *grid, half=half,
+                                                          compute_second=second))
+    nbytes, ops = polyphase_work(xext, filters, grid)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    bound_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    floor_ms = ops / (sms * 128 * mhz * 1e6) * 1e3
+    return ms, ms_wrapper, nbytes, ops, bound_ms, by, floor_ms
+
+
+def exact_kernels_phase(data):
+    """Phase 9: the exact-mode kernels against their plain versions, bit for
+    bit, at the main path's shapes; timed. Returns the two kernels-line
+    entries without their launch counts."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+
+    ops = biquad_operands(data)
     x, c, zero, _ = ops["main"]                                             # [2048, 2, 8192]
     first = torch.tensor([0.3, 0.3, 0.0, -0.4, 0.0], device="cuda")
     burst = x.clone()
@@ -651,39 +751,38 @@ def exact_kernels_phase(data):
     ms_b, ms_one, bound_b, by_b = timing["main"]
     del ops, xu
 
-    # the polyphase kernel on the main chunk's real operands
-    states = r._biquad_states()
-    for stage in range(2):
-        x, states[stage] = bk.biquad_df1_cuda(x, c, states[stage])
-    out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
-    g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
-                   r.sample_ratio, FRAMES, out_max)
-    grid = r._exact_grids([g], out_max)[0]
-    xext = torch.cat([torch.zeros((*x.shape[:-1], r.hist_len), device="cuda"), x], dim=-1)
-    half, fb = r.config.number_of_taps // 2, r._filters
-    for second, rows in ((True, BATCH), (False, BATCH), (True, 13)):
-        xe = xext.reshape(-1, xext.shape[-1])[:rows]
-        got = pk.polyphase_exact_cuda(xe, fb, *grid, half=half, compute_second=second)
-        want = pk.polyphase_exact_plain(xe, fb, *grid, half=half, compute_second=second)
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            fail(f"polyphase_exact (compute_second={second}, {rows} rows) differs from its "
-                 f"plain version")
-    ms_p = cuda_time(lambda: pk.polyphase_exact_cuda(xext, fb, *grid, half=half))
+    # the polyphase kernel on the main and the upsampling chunk's real operands
+    pops = polyphase_operands(data, main_input=x)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptime = {}
+    for key, (xext, fb, grid, half, second) in pops.items():
+        for sec, rows in ((second, None), (False, None), (second, 13)):
+            xe = xext[:rows]
+            got = pk.polyphase_exact_cuda(xe, fb, *grid, half=half, compute_second=sec)
+            want = pk.polyphase_exact_plain(xe, fb, *grid, half=half, compute_second=sec)
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                fail(f"polyphase_exact ({key}, compute_second={sec}, {xe.shape[0]} rows) "
+                     f"differs from its plain version")
+        ms, ms_wrapper, nbytes, n_ops, bound_ms, by, floor_ms = polyphase_timing(
+            xext, fb, grid, half, second, sms, mhz)
+        ptime[key] = (ms, ms_wrapper, bound_ms, by, floor_ms)
+        M, L = xext.shape
+        modes = grid[4].cpu().numpy()
+        print(f"kernel polyphase_exact {key} M={M} L={L} T={grid[0].shape[0]} taps={fb.shape[1]} "
+              f"(modes 0/1/2: {int((modes == 0).sum())}/{int((modes == 1).sum())}/"
+              f"{int((modes == 2).sum())}): bit-identical to the plain version with and without "
+              f"the second dot and on 13 rows; {ms:.4f} ms per launch (one wrapper call "
+              f"{ms_wrapper:.4f} ms), bound {bound_ms:.4f} ms ({by}: {nbytes} B at 3.35 TB/s, "
+              f"{n_ops} FP32 ops at 67 TFLOP/s take {n_ops / PEAK_FP32 * 1e3:.4f}), "
+              f"{bound_ms / ms:.1%} of the bound; FMA-free issue floor {floor_ms:.4f} ms (an "
+              f"estimate, not measured: the ops at one FP32 instruction per lane and cycle, "
+              f"{sms} SMs x 128 lanes at {mhz:.0f} MHz), {floor_ms / ms:.1%} of it")
+    xext, fb, grid, half, second = pops["main"]
     plain_p = cuda_time(lambda: pk.polyphase_exact_plain(xext, fb, *grid, half=half))
-    M, L = xext.numel() // xext.shape[-1], xext.shape[-1]
-    modes = grid[4].cpu().numpy()
-    taps = fb.shape[1]
-    ops = M * (int((modes == 1).sum()) * 2 * taps + int((modes == 2).sum()) * (4 * taps + 4))
-    bytes_p = (xext.numel() + fb.numel() + 5 * out_max + M * out_max) * 4
-    t_bytes, t_ops = bytes_p / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    bound_p, by_p = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"kernel polyphase_exact M={M} L={L} T={out_max} taps={taps} (modes 0/1/2: "
-          f"{int((modes == 0).sum())}/{int((modes == 1).sum())}/{int((modes == 2).sum())}): "
-          f"bit-identical to the plain version with and without the second dot and on 13 rows; "
-          f"{ms_p:.4f} ms vs plain {plain_p:.4f} ms, bound {bound_p:.4f} ms ({by_p}: {bytes_p} B "
-          f"at 3.35 TB/s, {ops} FP32 ops at 67 TFLOP/s take {t_ops:.4f}), "
-          f"{bound_p / ms_p:.1%} of the bound")
+    ms_p, ms_pw, bound_p, by_p, _ = ptime["main"]
+    print(f"kernel polyphase_exact: plain version {plain_p:.4f} ms at the main shape")
+    del pops
     return [{"name": "biquad_exact", "route": "cuda",
              "source": "esp_audio_libs_tpu_torch/csrc/biquad_exact.cu",
              "replaces": "esp_audio_libs_tpu/ops/biquad.py:197 / esp_audio_libs_tpu/ops/scan.py:41",
@@ -695,7 +794,9 @@ def exact_kernels_phase(data):
              "source": "esp_audio_libs_tpu_torch/csrc/polyphase_exact.cu",
              "replaces": "esp_audio_libs_tpu/ops/polyphase.py:236",
              "launches": 0, "max_abs_err": 0, "bit_exact": True, "ms": ms_p, "plain_ms": plain_p,
-             "bound_ms": bound_p, "bound_by": by_p, "library_ms": None}]
+             "bound_ms": bound_p, "bound_by": by_p, "library_ms": None,
+             "ms_upsample": ptime["upsample"][0], "bound_ms_upsample": ptime["upsample"][2],
+             "ms_wrapper": ms_pw}]
 
 
 def exact_stream(src, dst, batch, data, label, reps=5):

@@ -95,6 +95,8 @@
 
 #include <cstdint>
 
+#include "exact_async.cuh"
+
 namespace {
 
 constexpr int LANES = 32;             // lanes per block: one per chain thread
@@ -109,82 +111,6 @@ constexpr int CHUNKS = S / 4;         // 16-byte chunks per tile row
 enum Mode { DF1_SECOND = 0, DF1_FIRST = 1, IIR2 = 2 };
 enum Warp { CHAIN = 0, LOAD = 1, INPUT = 2, STORE = 3 };
 enum Edge { X_FULL = 0, ACC_FULL = 1, Y_FULL = 2, EMPTY = 3 };
-
-__device__ __forceinline__ float mul_ftz(float a, float b) {
-  float r;
-  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float add_ftz(float a, float b) {
-  float r;
-  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float sub_ftz(float a, float b) {
-  float r;
-  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// Hopper bulk copies (the TMA engine) of `bytes` (a multiple of 16, both
-// addresses 16-byte aligned): global -> shared, completing `bytes` of the
-// transaction count of `bar`; shared -> global in a bulk group.
-__device__ __forceinline__ void bulk_load(const float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void bulk_store(float* dst, const float* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes) : "memory");
-}
-// A 4-byte copy, zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async4(const float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// Arrives on bar once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// Arrives on bar and expects `bytes` more of bulk copies in its phase.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n"
-      "}\n" ::"r"(smem_u32(bar)), "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
-      "}\n" ::"r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-}
 
 struct RecArgs {
   const float* x;          // [n, T] input (f for iir2)
@@ -457,15 +383,6 @@ cudaError_t launch_as(const RecArgs& a, unsigned blocks, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   recurrence_kernel<MODE, BULK><<<blocks, THREADS, SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();
-}
-
-// The SM count of the current device (0 if it cannot be read).
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
 }
 
 template <int MODE>

@@ -227,8 +227,10 @@ def polyphase_exact_plain(xext, filters, win0x, idx1, idx2, weight, mode, *, hal
     ``x[win0x[t] + half - 1]``, mode 1 gives acc1, any other mode
     ``acc2*w + acc1*(1 - w)`` with ``1 - w`` rounded first (acc1 without
     ``compute_second``). Window samples outside ``[0, L)`` read NaN, as
-    ``jnp.take`` fills them (only padded mode-0 outputs past a chunk's
-    generated count reach there, and a copy does not read them).
+    ``jnp.take`` fills them past the end and before ``-L`` (it wraps an
+    index in ``[-L, -1]``; no schedule starts a window before 0, and only
+    padded mode-0 outputs past a chunk's generated count reach past the
+    end, where a copy does not read them).
 
     xext: f32 ``[..., L]``; filters f32 ``[F+1, taps]``; win0x/idx1/idx2/mode
     integer ``[T]``; weight f32 ``[T]``. Returns f32 ``[..., T]``.
@@ -268,8 +270,7 @@ def polyphase_exact_cuda(xext, filters, win0x, idx1, idx2, weight, mode, *, half
                          compute_second: bool = True):
     """The exact polyphase contraction. Arguments and result as
     :func:`polyphase_exact_plain`. On the card ``xext`` and ``filters`` must
-    be f32 (made contiguous), ``xext`` may hold at most 524,280 rows (one
-    block row per 8) and ``taps`` at most 4096."""
+    be f32 (made contiguous) and ``taps`` at most 4096."""
     if _route(xext, filters, win0x, idx1, idx2, weight, mode) == "cpu":
         return polyphase_exact_plain(xext, filters, win0x, idx1, idx2, weight, mode,
                                      half=half, compute_second=compute_second)

@@ -133,6 +133,97 @@ def test_polyphase_exact_modes_and_second_dot_off():
     assert {0, 1, 2} <= set(mode.tolist())
 
 
+def numpy_exact_nan_padded(xext, filters, grid, half, second):
+    """numpy_exact with window samples outside [0, L) read as NaN."""
+    win = grid[0]
+    lo = max(0, -int(win.min()))
+    hi = max(0, int(win.max()) + max(filters.shape[1], half) - xext.shape[-1])
+    pad = [(0, 0)] * (xext.ndim - 1) + [(lo, hi)]
+    return numpy_exact(np.pad(xext, pad, constant_values=np.nan), filters,
+                       (win + lo, *grid[1:]), half, second)
+
+
+def assert_same_bits(a, b):
+    """NaN at the same positions, every other f32 bit pattern equal."""
+    a, b = np.asarray(a, F32), np.asarray(b, F32)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    keep = ~np.isnan(a)
+    np.testing.assert_array_equal(bits(a[keep]), bits(b[keep]))
+
+
+# The exact kernel's edges (tests/test_torch_kernels.py::
+# test_polyphase_exact_kernel_matches_plain) at a CPU size:
+# (taps, filters, flags, ratio, rows, n_in, n_out)
+_INTERP = sinc.SUBSAMPLE_INTERPOLATE | sinc.BLACKMAN_HARRIS
+EDGE_CASES = {
+    "rows_1": (64, 32, _INTERP, 16000 / 44100, 1, 600, 200),
+    "rows_13": (64, 32, _INTERP, 16000 / 44100, 13, 600, 200),
+    "T_1": (64, 32, _INTERP, 16000 / 44100, 4, 600, 1),
+    "T_129": (64, 32, _INTERP, 16000 / 44100, 4, 600, 129),
+    "odd_pitch": (64, 32, _INTERP, 16000 / 44100, 4, 601, 200),
+    "nan_both_ends": (64, 32, _INTERP, 16000 / 44100, 4, 600, 200),
+    "low_ratio": (64, 32, _INTERP, 0.05, 3, 4000, 190),
+    "upsample": (64, 32, _INTERP, 44100 / 16000, 4, 300, 800),
+    "no_second": (64, 32, sinc.BLACKMAN_HARRIS, 16000 / 44100, 4, 600, 200),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_polyphase_exact_plain_matches_jax_at_kernel_edges(case):
+    """The exact kernel's reference, polyphase_exact_plain, on the operands
+    of the kernel's edge cases, built with numpy from a seed: bit-exact
+    against numpy_exact (NaN outside [0, L)), against JAX bit-exact outside
+    mode 2 and within 1 ulp on mode-2 outputs (XLA on the CPU contracts the
+    lerp). Entries past the generated count stay as the grid leaves them
+    (mode 0). In ``nan_both_ends`` the first windows lie wholly before
+    x[-L] and the last ones cross x[L-1]: jnp.take fills both with NaN (it
+    would wrap an index in [-L, -1], which the port reads as NaN)."""
+    taps, nf, flags, ratio, rows, n_in, n_out = EDGE_CASES[case]
+    lpn, fl = sinc.normalize_lowpass(0.9, flags)
+    filters = np.asarray(design_filterbank_native(taps, nf, float(lpn), fl), F32)
+    g = phase_grid(PhaseState.initial(taps), nf, fl, ratio, n_in, n_out)
+    L = taps + HISTORY_MARGIN + n_in
+    win, i1, i2 = g.win0[:n_out] + taps + HISTORY_MARGIN, g.idx1[:n_out], g.idx2[:n_out]
+    w, mode = g.weight[:n_out], g.mode[:n_out].astype(np.int32)
+    win, mode = win.astype(np.int32), mode.copy()
+    if case == "nan_both_ends":
+        win[:20] = -L - 300 + 3 * np.arange(20)
+        win[-20:] = L - 30 + np.arange(20)
+        mode[:20] = mode[-20:] = 2
+        mode[:10:3] = mode[-10::3] = 1
+    grid = (win, i1.astype(np.int32), i2.astype(np.int32), w.astype(F32), mode)
+    second = bool(fl & sinc.SUBSAMPLE_INTERPOLATE)
+    xext = np.random.default_rng(len(case) * 101 + rows).standard_normal((rows, L)).astype(F32)
+    got = pk.polyphase_exact_plain(torch.from_numpy(xext), torch.from_numpy(filters),
+                                   *map(torch.from_numpy, grid), half=taps // 2,
+                                   compute_second=second).numpy()
+    assert got.shape == (rows, n_out)
+    assert_same_bits(got, numpy_exact_nan_padded(xext, filters, grid, taps // 2, second))
+    want = np.asarray(jax_polyphase_apply(jnp.asarray(xext), jnp.asarray(filters),
+                                          *map(jnp.asarray, grid), half=taps // 2, exact=True,
+                                          compute_second=second))
+    assert_same_bits(got[..., mode != 2], want[..., mode != 2])
+    lerp = mode == 2
+    np.testing.assert_array_equal(np.isnan(got[..., lerp]), np.isnan(want[..., lerp]))
+    finite = ~np.isnan(got[..., lerp])
+    g_l, w_l = got[..., lerp][finite], want[..., lerp][finite]
+    # Where the lerp's two terms nearly cancel, the FMA's one skipped
+    # product rounding is many ulps of the result: hold JAX to 1 ulp, or to
+    # that rounding (half a spacing of the larger term) and the result's own.
+    ones = np.ones_like(mode)             # mode 1: the first dot with idx1, then with idx2
+    acc1 = numpy_exact_nan_padded(xext, filters, (win, grid[1], grid[2], grid[3], ones),
+                                  taps // 2, second)
+    acc2 = numpy_exact_nan_padded(xext, filters, (win, grid[2], grid[2], grid[3], ones),
+                                  taps // 2, second)
+    wl = grid[3][lerp]
+    big = np.maximum(np.abs(acc2[..., lerp] * wl), np.abs(acc1[..., lerp] * (F32(1) - wl)))
+    bound = 0.5 * np.spacing(big[finite]) + np.spacing(np.abs(g_l))
+    assert ((ulps(g_l, w_l) <= 1) | (np.abs(g_l.astype(np.float64) - w_l) <= bound)).all()
+    if case == "nan_both_ends":
+        assert np.isnan(got[:, :20]).all() and np.isnan(got[:, -20:]).all()
+        assert not np.isnan(got[:, 20:-20]).any()
+
+
 @pytest.mark.parametrize("cfg", CONFIGS)
 def test_polyphase_fast_matches_jax(cfg):
     taps = cfg[0]

@@ -20,6 +20,7 @@ csrc/polyphase_exact.cu) are held to their plain versions bit for bit
 import dataclasses
 import math
 import os
+import shutil
 import sys
 from pathlib import Path
 
@@ -111,6 +112,25 @@ def test_build_skips_nvcc_when_library_is_current(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "LIB_PATH", lib)
     monkeypatch.setattr(kernels, "_nvcc", lambda: pytest.fail("nvcc invoked"))
     assert kernels.build() == lib
+
+
+@pytest.mark.parametrize("newer", ["polyphase_exact.cu", "exact_async.cuh"])
+def test_build_reruns_nvcc_when_a_source_or_header_is_newer(tmp_path, monkeypatch, newer):
+    """A library older than one csrc file, a shared header included, is
+    rebuilt: the build reaches for nvcc."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    lib = tmp_path / "libeal_kernels.so"
+    lib.write_bytes(b"")
+    os.utime(lib, (1000, 1000))
+    for p in csrc.iterdir():
+        os.utime(p, (500, 500))
+    os.utime(csrc / newer, (2000, 2000))
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    monkeypatch.setattr(kernels, "LIB_PATH", lib)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: pytest.fail(f"rebuilt for {newer}"))
+    with pytest.raises(pytest.fail.Exception, match=f"rebuilt for {newer}"):
+        kernels.build()
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -698,28 +718,65 @@ def test_iir2_kernel_ragged(cuda, lanes, T):
     assert same_bits(y, y_p) and same_bits(a, a_p) and same_bits(b, b_p)
 
 
+def _windows_off_both_ends(x, grid):
+    """The schedule with the first outputs' windows moved before x[0] and
+    the last ones' past x[L-1] (all as one-dot or lerp outputs), so that
+    they read NaN at both ends."""
+    win, i1, i2, w, mode = (g.clone() for g in grid)
+    L, n = x.shape[-1], win.shape[0]
+    win[:40] -= win[0] + 200                 # windows from -200 on, some wholly before x
+    win[n - 40:] = L - 30 + torch.arange(40, dtype=win.dtype)
+    mode[:40] = mode[n - 40:] = 2
+    mode[:20:3] = mode[n - 20::3] = 1
+    return [win, i1, i2, w, mode]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["main", "no_second", "ragged", "upsample", "low_ratio",
-                                  "big_bank", "past_gen"])
+                                  "big_bank", "past_gen", "rows_1", "rows_13", "rows_4097",
+                                  "T_1", "T_129", "odd_pitch", "misaligned", "nan_both_ends",
+                                  "low_ratio_rows_35", "upsample_full"])
 def test_polyphase_exact_kernel_matches_plain(cuda, case):
     """Real schedules: the slice's configuration (64 taps, 32 filters,
     interpolation), without the second dot, a ragged row and output count,
     upsampling (windows advance by 0 or 1), a ratio whose tile spans more
-    than one staged pass, a filterbank too large for shared memory, and the
+    than one staged fill, a filterbank too large for shared memory, and the
     padded mode-0 outputs past a chunk's generated count whose windows run
-    past the input."""
+    past the input. Then the redesign's edges: row counts that leave a
+    partial work item (1, 13, 4097: more work items than resident blocks),
+    output counts around the 128-output tile (1, 129), rows whose pitch
+    (odd) or base (4 bytes off) is not 16-byte aligned (the 4-byte copy
+    path), windows off both ends of the input (NaN), the multi-fill low
+    ratio over rows that fill two items of 16 and part of a third, and the
+    exact upsampling chunk at full width (16 -> 44.1 kHz at batch 256)."""
     from esp_audio_libs_tpu_torch.ops import sinc
     interp = sinc.SUBSAMPLE_INTERPOLATE | sinc.BLACKMAN_HARRIS
-    args = {"main": (64, 32, interp, 16000 / 44100, 64, 2048, 743),
-            "no_second": (64, 32, sinc.BLACKMAN_HARRIS, 16000 / 44100, 64, 2048, 743),
+    down = 16000 / 44100
+    args = {"main": (64, 32, interp, down, 64, 2048, 743),
+            "no_second": (64, 32, sinc.BLACKMAN_HARRIS, down, 64, 2048, 743),
             "ragged": (16, 8, interp, 0.5, 13, 1000, 501),
             "upsample": (64, 32, interp, 44100 / 16000, 24, 512, 1411),
             "low_ratio": (64, 32, interp, 0.05, 16, 8192, 400),
             "big_bank": (1024, 256, interp, 0.5, 9, 3000, 1000),
-            "past_gen": (64, 32, interp, 16000 / 44100, 10, 40, 300)}[case]
+            "past_gen": (64, 32, interp, down, 10, 40, 300),
+            "rows_1": (64, 32, interp, down, 1, 2048, 743),
+            "rows_13": (64, 32, interp, down, 13, 2048, 743),
+            "rows_4097": (64, 32, interp, down, 4097, 512, 129),
+            "T_1": (64, 32, interp, down, 20, 512, 1),
+            "T_129": (64, 32, interp, down, 20, 512, 129),
+            "odd_pitch": (64, 32, interp, down, 20, 1001, 300),
+            "misaligned": (64, 32, interp, down, 20, 1000, 300),
+            "nan_both_ends": (64, 32, interp, down, 20, 2048, 743),
+            "low_ratio_rows_35": (64, 32, interp, 0.05, 35, 8192, 400),
+            "upsample_full": (64, 32, interp, 44100 / 16000, 512, 8192, 22588)}[case]
     taps = args[0]
     x, fb, grid, second = exact_poly_operands(*args[:4], M=args[4], n_in=args[5], n_out=args[6])
-    x, fb, grid = x.to(cuda), fb.to(cuda), [g.to(cuda) for g in grid]
+    if case == "odd_pitch":
+        assert x.shape[-1] % 2 == 1
+    if case == "nan_both_ends":
+        grid = _windows_off_both_ends(x, grid)
+    x = _misaligned(x.numpy(), cuda) if case == "misaligned" else x.to(cuda)
+    fb, grid = fb.to(cuda), [g.to(cuda) for g in grid]
     before = pk.polyphase_exact_cuda.launches
     got = pk.polyphase_exact_cuda(x, fb, *grid, half=taps // 2, compute_second=second)
     torch.cuda.synchronize()
@@ -728,6 +785,9 @@ def test_polyphase_exact_kernel_matches_plain(cuda, case):
     assert same_bits(got, want)
     if case == "main":
         assert {0, 1, 2} >= set(grid[4].tolist()) and (grid[4] == 2).any()
+    if case == "nan_both_ends":
+        assert got[:, :40].isnan().all() and got[:, -40:].isnan().all()
+        assert not got[:, 40:-40].isnan().any()
 
 
 @pytest.mark.cuda

@@ -48,10 +48,40 @@ phase 9, each also on its first lane alone (the measured step time), and
 checks each variant's outputs and state bit for bit against the plain
 version.
 
+``--polyphase-exact``: the exact polyphase kernel (``polyphase_exact.cu``
+with ``exact_async.cuh``, built alone):
+
+  as_is       the sources unchanged;
+  r8          8 rows per work item on the fast path instead of 16;
+  nst3        a ring of 3 stages instead of 2;
+  spread1     consumer lanes on neighbouring outputs, whatever the windows
+              (no spread picked per item);
+  no_stage    the producer copies no window (a speed probe: the dots on
+              stale stages; not exact);
+  no_dot      one 4-tap step of the dots instead of taps / 4 (a speed
+              probe: the copies, hand-offs and stores; not exact);
+  <dir>       with ``--polyphase-exact-parent DIR/polyphase_exact.cu ...``:
+              each such file as polyphase_exact.cu, named by its directory;
+              with ``--parent-probes`` also that file's probes ``no_stage``
+              (windows not staged), ``no_bank`` (the filterbank read from
+              global memory) and ``no_dot`` (one tap), edits of the first
+              design (``git show 54d10d9:esp_audio_libs_tpu_torch/csrc/
+              polyphase_exact.cu``), named ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 20 direct launches through the C
+entry point after 2 warm-ups) at the main chunk ([4096, 8264] -> 2981
+outputs) and the exact upsampling chunk ([512, 8264] -> 22588), the
+operands of chip_smoke.py phase 9, checks each variant bit for bit against
+the plain version there (with and without the second dot, and on 13 rows),
+and prints each library's ptxas report and SASS opcode counts (cuobjdump).
+``--variants`` with no names times only the parents.
+
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
     python3 tools/kernel_variants.py --biquad [--biquad-parent build/parent/biquad_exact.cu]
+    python3 tools/kernel_variants.py --polyphase-exact \
+        [--polyphase-exact-parent build/pr4/polyphase_exact.cu --parent-probes no_dot]
 
 The last line is one JSON object with the means.
 """
@@ -62,6 +92,7 @@ import argparse
 import ctypes as C
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -140,6 +171,23 @@ BIQUAD_VARIANTS = {
 }
 BIQUAD_ENTRIES = ("eal_biquad_df1", "eal_iir2_sequential")
 
+# probes of the first exact polyphase kernel (the parent of its redesign:
+# `git show 54d10d9:esp_audio_libs_tpu_torch/csrc/polyphase_exact.cu`)
+PR4_PROBES = {
+    "no_stage": [("for (int c = tid; c < span; c += TT)", "for (int c = tid; c < 0; c += TT)")],
+    "no_bank": [("a.bank_smem = static_cast<long long>(nf) * (taps + 1) * 4 <= BANK_SMEM_MAX;",
+                 "a.bank_smem = false;")],
+    "no_dot": [("for (int k = 0; k < a.taps; ++k) {", "for (int k = a.taps - 1; k < a.taps; ++k) {")],
+}
+EXACT_VARIANTS = {
+    "as_is": [],
+    "r8": [("constexpr int R = 16;", "constexpr int R = 8;")],
+    "nst3": [("constexpr int NST = 2;", "constexpr int NST = 3;")],
+    "spread1": [("const int spread = pick_spread(w, pend);", "const int spread = 1;")],
+    "no_stage": [("bytes = static_cast<uint32_t>(rows) * (hc - lo) * 4u;", "bytes = 0;")],
+    "no_dot": [("for (int k = 0; k < taps; k += 4) {", "for (int k = taps - 4; k < taps; k += 4) {")],
+}
+
 
 def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
     """``sources`` copied into build/variants/<name>/, then ``target`` (there)
@@ -197,17 +245,18 @@ def biquad_main(args, card: str) -> None:
     """--biquad: the exact biquad's variants at its two launch shapes."""
     names = args.variants or list(BIQUAD_VARIANTS)
     src = kernels.CSRC / "biquad_exact.cu"
-    dirs = {name: make_variant(f"biquad_{name}", src.name, BIQUAD_VARIANTS[name], [src])
+    sources = [src, kernels.CSRC / "exact_async.cuh"]
+    dirs = {name: make_variant(f"biquad_{name}", src.name, BIQUAD_VARIANTS[name], sources)
             for name in names}
     for path in args.biquad_parent:
         name = path.resolve().parent.name
-        dirs[name] = make_variant(f"biquad_{name}", src.name, [], [src], path)
+        dirs[name] = make_variant(f"biquad_{name}", src.name, [], sources, path)
     libs = build_all(dirs, BIQUAD_ENTRIES)
     for name, (_, report) in libs.items():
         print(f"{name}: {' | '.join(report)}")
 
     data = np.random.default_rng(0).integers(0, 256, (cs.BATCH, cs.FRAMES * 4), dtype=np.uint8)
-    _, ops = cs.biquad_operands(data)
+    ops = cs.biquad_operands(data)
     plains = {key: bk.biquad_df1_plain(x, c, st, valid_len=vl)
               for key, (x, c, st, vl) in ops.items()}
     results = {name: [] for name in libs}
@@ -238,6 +287,83 @@ def biquad_main(args, card: str) -> None:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
+def sass_histogram(lib: Path, kernel: str) -> str:
+    """The most frequent SASS opcodes of the functions of ``lib`` whose
+    mangled name holds ``kernel`` (cuobjdump), as one text line."""
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True)
+    counts, inside = {}, False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            op = m.group(1)
+            counts[op] = counts.get(op, 0) + 1
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:24]
+    return ", ".join(f"{op} {n}" for op, n in top) or f"no SASS ({res.stderr.strip()[:200]})"
+
+
+def polyphase_exact_main(args, card: str) -> None:
+    """--polyphase-exact: the exact polyphase kernel's variants, earlier
+    sources and their probes at its two launch shapes."""
+    names = list(EXACT_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "polyphase_exact.cu"
+    sources = [src, kernels.CSRC / "exact_async.cuh"]
+    dirs = {name: make_variant(f"exact_{name}", src.name, EXACT_VARIANTS[name], sources)
+            for name in names}
+    for path in args.polyphase_exact_parent:
+        parent = path.resolve().parent.name
+        dirs[parent] = make_variant(f"exact_{parent}", src.name, [], sources, path)
+        for probe in args.parent_probes:
+            dirs[f"{parent}_{probe}"] = make_variant(f"exact_{parent}_{probe}", src.name,
+                                                     PR4_PROBES[probe], sources, path)
+    libs = build_all(dirs, ("eal_polyphase_exact",))
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+        print(f"{name} SASS: {sass_histogram(dirs[name] / 'lib.so', 'polyphase_exact')}")
+
+    data = np.random.default_rng(0).integers(0, 256, (cs.BATCH, cs.FRAMES * 4), dtype=np.uint8)
+    ops = cs.polyphase_operands(data)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = cs.max_clock_mhz()
+    checks = {}          # (shape, compute_second, rows) -> (operands, plain output)
+    for key, (xext, fb, grid, half, second) in ops.items():
+        for sec, rows in ((second, None), (False, None), (second, 13)):
+            xe = xext[:rows].contiguous()
+            checks[(key, sec, xe.shape[0])] = ((xe, fb, grid, half, sec), pk.polyphase_exact_plain(
+                xe, fb, *grid, half=half, compute_second=sec))
+    work = {key: cs.polyphase_work(xext, fb, grid) for key, (xext, fb, grid, _, _) in ops.items()}
+    for key, (nbytes, n_ops) in work.items():
+        print(f"{key}: {nbytes} B, {n_ops} FP32 ops: bound {nbytes / cs.PEAK_BYTES * 1e3:.4f} ms "
+              f"(bytes), FMA-free issue floor {n_ops / (sms * 128 * mhz * 1e6) * 1e3:.4f} ms (an "
+              f"estimate: {sms} SMs x 128 lanes at {mhz:.0f} MHz)")
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        lib = libs[name][0]
+        row = {}
+        for key, (xext, fb, grid, half, second) in ops.items():
+            exact = True
+            for (k, _, _), (operands, want) in checks.items():
+                if k == key:
+                    got = cs.polyphase_launcher(*operands, lib=lib)()
+                    torch.cuda.synchronize()
+                    exact = exact and cs.same_bits(got, want)
+            row[f"{key}_bit_exact"] = float(exact)
+            row[f"{key}_ms"] = cs.cuda_time(cs.polyphase_launcher(xext, fb, grid, half, second,
+                                                                  lib=lib), iters=20)
+        results[name].append(row)
+        print(name, json.dumps(row))
+    means = {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+             for name, rows in results.items()}
+    for name, m in means.items():
+        print(f"{name}: main {m['main_ms']:.4f} ms, upsample {m['upsample_ms']:.4f} ms, "
+              f"bit-exact {m['main_bit_exact'] == 1.0 and m['upsample_bit_exact'] == 1.0} "
+              f"(means of 2 turns, 20 direct launches each)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--biquad", action="store_true",
@@ -245,8 +371,15 @@ def main() -> None:
     ap.add_argument("--biquad-parent", type=Path, nargs="+", default=[],
                     help="with --biquad: earlier biquad_exact.cu files, each timed as a "
                          "variant named by its directory")
-    ap.add_argument("--variants", nargs="+", default=None,
-                    choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS)))
+    ap.add_argument("--polyphase-exact", action="store_true",
+                    help="probe the exact polyphase kernel instead of the banded main loop")
+    ap.add_argument("--polyphase-exact-parent", type=Path, nargs="+", default=[],
+                    help="with --polyphase-exact: earlier polyphase_exact.cu files, each timed "
+                         "as a variant named by its directory")
+    ap.add_argument("--parent-probes", nargs="+", default=[], choices=sorted(PR4_PROBES),
+                    help="with --polyphase-exact-parent: these probes of each parent too")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -257,6 +390,9 @@ def main() -> None:
     print(f"card: {card}, max SM clock {clocks}")
     if args.biquad:
         biquad_main(args, card)
+        return
+    if args.polyphase_exact:
+        polyphase_exact_main(args, card)
         return
     names = args.variants or list(VARIANTS)
     sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
