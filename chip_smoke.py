@@ -33,10 +33,17 @@ Phases, each printing a line:
                escape tier, rows of 16-byte multiples and not), each bucket
                run at every order class that covers it, with both
                accumulators where the 32-bit one is valid and with its plane
-               widened; then the composed shape's bucket (4096 frames x 2
-               channels x 4096), kernel and plain version timed with CUDA
-               events beside the bound (an estimated serial floor is
-               printed beside it, in the text line only).
+               widened; then at the main path's launches: one dispatch of
+               decode_streams_to_device (a transport slice of 32 composed
+               streams: 512 frames x 2 channels x 4096, int8 + escapes,
+               order 8; the headline), the whole 256-stream bucket (4096
+               frames), one lane alone, and dispatches of order-12 and
+               order-32 streams. Each is held to the plain version byte for
+               byte and timed by direct launches through the C entry point
+               (CUDA events, 20 launches, operands prepared once) beside one
+               wrapper call, its bytes bound and two estimates printed in the
+               text line only (the serial chain, and W multiply-adds a step
+               at 2 issue cycles).
   7. flac corpus - every corpus/independent/*.flac decoded by
                FLACDecoder(device="cuda"): all frames SUCCESS and md5_ok (the
                STREAMINFO MD5 pins the reference decoder's PCM).
@@ -312,15 +319,106 @@ def flac_headers(blobs, device):
     return decs, bodies
 
 
-def flac_kernel_phase(composed_blob):
-    """Phase 6: the frame kernel byte for byte against its plain version on
-    real parsed buckets (tools/flac_kernel_fleet.py); timed at the composed
-    shape. Returns the kernels-line entry without its launch count."""
+def flac_stream(order):
+    """The composed chain's stream shape (tools/flacgen.py, seed 1, 16-bit
+    stereo, FLAC_FRAMES x FLAC_BLOCK samples), every subframe fitted LPC of
+    ``order``: 8 is the composed stream itself."""
+    fg = tools_import("flacgen")
+    P = fg.SubframePlan
+    return fg.make_flac(rng_seed=1, depth=16, channels=2, block_size=FLAC_BLOCK,
+                        n_frames=FLAC_FRAMES,
+                        plans=[[P("lpc", order=order, fit=True)] * 2] * FLAC_FRAMES)[0]
+
+
+def flac_bucket(blob, n_streams):
+    """The one shape bucket of ``n_streams`` copies of ``blob`` as the host
+    parse leaves it (escape sideband included), on the card: (tensors, kw)."""
+    from esp_audio_libs_tpu_torch.models.flac import parsed_buckets
+    decs, bodies = flac_headers([blob] * n_streams, "cuda")
+    (_, arrays, kw), = parsed_buckets(decs, bodies)
+    return tools_import("flac_kernel_fleet").on_device(arrays, kw, "cuda")
+
+
+def flac_shapes(composed_blob):
+    """The frame kernel's timed launches: {name: (tensors, kw)}.
+    - dispatch: one launch of decode_streams_to_device, a transport slice of
+      32 composed streams (512 frames, 1024 lanes, int8 + escapes, W = 8);
+    - bucket: the whole 256-stream bucket (4096 frames) in one launch;
+    - one_lane: the dispatch's first frame, first channel, alone, escapes
+      left out (the measured step time);
+    - dispatch_w12, dispatch_w32: a dispatch of streams of the same shape
+      whose subframes are order-12 and order-32 LPC."""
+    from esp_audio_libs_tpu_torch.runtime.transport import SLICE_OUT_BYTES
+    per = SLICE_OUT_BYTES // (FLAC_FRAMES * FLAC_BLOCK * 2 * 2)
+    shapes = {"dispatch": flac_bucket(composed_blob, per),
+              "bucket": flac_bucket(composed_blob, FLAC_STREAMS)}
+    t, kw = shapes["dispatch"]
+    lean = {k: v for k, v in kw.items() if not k.startswith("esc")}
+    shapes["one_lane"] = ([a[:1, :1].contiguous() for a in t[:5]] + [t[5][:1].contiguous()],
+                          dict(lean, nch=1))
+    for order in (12, 32):
+        shapes[f"dispatch_w{order}"] = flac_bucket(flac_stream(order), per)
+    return shapes
+
+
+def flac_launcher(tensors, kw, lib=None):
+    """A function that launches flac_frame on a bucket's operands through
+    the C entry point eal_flac_frame (of ``lib``, the package's library by
+    default), its arguments and output prepared once: the kernel alone,
+    without the wrapper's checks and output allocation. Used only to time
+    the kernel; its launches are not counted. The function returns the
+    output tensor."""
     import torch
 
-    from esp_audio_libs_tpu_torch.models.flac import parsed_buckets
     from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
-    from esp_audio_libs_tpu_torch.runtime.transport import SLICE_OUT_BYTES
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    data, coeffs, order, shift, wasted, ca = tensors
+    F, C, T = data.shape
+    nbytes, lshift, bias = fk.pack_params(kw["depth"], kw["mode32"])
+    out = torch.empty((F, T * C * nbytes), dtype=torch.uint8, device=data.device)
+    pos, val = kw.get("esc_pos"), kw.get("esc_val")
+    n_esc = 0 if pos is None else pos.numel()
+    args = (data.data_ptr(), fk._RES_DTYPES.index(data.dtype),
+            pos.data_ptr() if n_esc else None, val.data_ptr() if n_esc else None, n_esc,
+            coeffs.data_ptr(), order.data_ptr(), shift.data_ptr(), wasted.data_ptr(),
+            ca.data_ptr(), out.data_ptr(), F, C, T, nbytes, lshift, bias, int(kw["use64"]),
+            int(kw["max_order"]), torch.cuda.current_stream().cuda_stream)
+    lib = lib or kernels.library()
+
+    def launch():
+        if lib.eal_flac_frame(*args) != 0:
+            fail("eal_flac_frame refused its arguments")
+        launch.keep = (tensors, pos, val)         # keeps the operands alive
+        return out
+    return launch
+
+
+def flac_work(tensors, kw):
+    """(bytes, bound ms, serial-chain estimate ms, issue estimate ms) of one
+    frame-kernel launch: every operand read once and the packed PCM written
+    once at 3.35 TB/s; the estimates (not measured) are T steps of the
+    dependent multiply-add, shift and add at an assumed OP_CYCLES each, and
+    T steps of W multiply-adds at 2 issue cycles each, at the card's
+    maximum SM clock."""
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    F, C, T = tensors[0].shape
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += sum(kw[k].numel() * 4 for k in ("esc_pos", "esc_val") if k in kw)
+    nbytes += F * T * C * fk.pack_params(kw["depth"], kw["mode32"])[0]
+    mhz = max_clock_mhz()
+    chain_ms = T * CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
+    issue_ms = T * 2 * kw["max_order"] / (mhz * 1e6) * 1e3
+    return nbytes, nbytes / PEAK_BYTES * 1e3, chain_ms, issue_ms
+
+
+def flac_kernel_phase(composed_blob):
+    """Phase 6: the frame kernel byte for byte against its plain version on
+    real parsed buckets (tools/flac_kernel_fleet.py) and at the main path's
+    shapes; timed by direct launches at those shapes. Returns the
+    kernels-line entry without its launch count."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
 
     fleet = tools_import("flac_kernel_fleet")
     buckets = fleet.fleet_buckets("cuda")
@@ -345,44 +443,44 @@ def flac_kernel_phase(composed_blob):
     print(f"flac kernel: {n_runs} launches on {len(buckets)} real buckets byte-identical to the "
           f"plain version; covered " + ", ".join(f"{k} {sorted(v)}" for k, v in cover.items()))
 
-    # the composed shape: the whole fleet's largest bucket
-    decs, bodies = flac_headers([composed_blob] * FLAC_STREAMS, "cuda")
-    bkey, arrays, kw = max(parsed_buckets(decs, bodies), key=lambda b: b[1][0].shape[0])
-    tensors, kw_dev = fleet.on_device(arrays, kw, "cuda")
-    got = fk.flac_frame_cuda(*tensors, **kw_dev)
-    plain = fk.flac_frame_plain(*tensors, **kw_dev)
-    torch.cuda.synchronize()
-    if not torch.equal(got, plain):
-        fail(f"flac_frame differs from its plain version at the composed shape {bkey}")
-    F, C, T = arrays[0].shape
-    ms = cuda_time(lambda: fk.flac_frame_cuda(*tensors, **kw_dev))
-    plain_ms = cuda_time(lambda: fk.flac_frame_plain(*tensors, **kw_dev), iters=2, warmup=1)
-    # one dispatch of the main path (a transport slice of streams) and one
-    # frame, escapes left out: times only
-    per = SLICE_OUT_BYTES // (FLAC_FRAMES * FLAC_BLOCK * 2 * 2) * (F // FLAC_STREAMS)
-    lean = {k: v for k, v in kw_dev.items() if not k.startswith("esc")}
-    ms_dispatch = cuda_time(lambda: fk.flac_frame_cuda(*[t[:per] for t in tensors], **lean))
-    ms_one = cuda_time(lambda: fk.flac_frame_cuda(*[t[:1] for t in tensors], **lean))
-    esc_bytes = sum(kw[k].nbytes for k in ("esc_pos", "esc_val") if k in kw)
-    nbytes = sum(a.nbytes for a in arrays) + esc_bytes + got.numel()
-    bound_ms = nbytes / PEAK_BYTES * 1e3
-    mhz = max_clock_mhz()
-    est_floor_ms = T * CHAIN_OPS * OP_CYCLES / (mhz * 1e6) * 1e3
-    tier = "int8+escapes" if esc_bytes else f"{arrays[0].dtype}"
-    print(f"kernel flac_frame F={F} C={C} T={T} ({tier}, W={kw['max_order']}, use64={kw['use64']}, "
-          f"{F * C} lanes): byte-identical, {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms (bytes: {nbytes} B at 3.35 TB/s; no integer multiply-add peak "
-          f"is published), {bound_ms / ms:.1%} of the bound; "
-          f"one dispatch of the main path ({per} frames) {ms_dispatch:.4f} ms, "
-          f"one frame {ms_one:.4f} ms (measured serial chain: {ms_one / T * 1e6:.1f} ns per step); "
-          f"estimated serial floor {est_floor_ms:.4f} ms (an estimate, not measured: T x "
-          f"{CHAIN_OPS} dependent ops x an assumed {OP_CYCLES} cycles at {mhz:.0f} MHz)")
+    # the main path's launches: held to the plain version, then timed
+    shapes = flac_shapes(composed_blob)
+    res = {}
+    for name, (tensors, kw) in shapes.items():
+        got = fk.flac_frame_cuda(*tensors, **kw)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = fk.flac_frame_plain(*tensors, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not torch.equal(got, plain):
+            fail(f"flac_frame differs from its plain version at the {name} shape")
+        ms = cuda_time(flac_launcher(tensors, kw), iters=20)
+        ms_wrapper = cuda_time(lambda: fk.flac_frame_cuda(*tensors, **kw))
+        nbytes, bound_ms, chain_ms, issue_ms = flac_work(tensors, kw)
+        F, C, T = tensors[0].shape
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        tier = "int8+escapes" if "esc_pos" in kw else str(tensors[0].dtype).split(".")[-1]
+        print(f"kernel flac_frame {name} F={F} C={C} T={T} ({F * C} lanes, {tier}, "
+              f"W={kw['max_order']}, use64={kw['use64']}): byte-identical; {ms:.4f} ms per direct "
+              f"launch (one wrapper call {ms_wrapper:.4f} ms; plain version {plain_ms:.1f} ms), "
+              f"{ms / T * 1e6:.2f} ns per step; bound {bound_ms:.4f} ms (bytes: {nbytes} B at "
+              f"3.35 TB/s; no integer multiply-add peak is published), {bound_ms / ms:.1%} of "
+              f"it; estimates, not measured: serial chain {chain_ms:.4f} ms (T x {CHAIN_OPS} "
+              f"dependent ops x an assumed {OP_CYCLES} cycles), issue {issue_ms:.4f} ms (T x "
+              f"{kw['max_order']} multiply-adds x 2 issue cycles), at the maximum SM clock")
+    b, d = res["bucket"], res["dispatch"]
     return {"name": "flac_frame", "route": "cuda",
             "source": "esp_audio_libs_tpu_torch/csrc/flac_frame.cu",
             "replaces": "esp_audio_libs_tpu/models/flac.py:40 / esp_audio_libs_tpu/ops/lpc.py:43",
             "launches": 0, "max_abs_err": 0, "byte_exact": True,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None, "dispatch_ms": ms_dispatch, "one_frame_ms": ms_one}
+            "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "ms_dispatch": d["ms"], "bound_ms_dispatch": d["bound_ms"],
+            "plain_ms_dispatch": d["plain_ms"], "one_lane_ms": res["one_lane"]["ms"],
+            "ms_by_order": {"8": d["ms"], "12": res["dispatch_w12"]["ms"],
+                            "32": res["dispatch_w32"]["ms"]}}
 
 
 def flac_corpus_phase():
@@ -490,11 +588,7 @@ def flac_composed_phase(composed_blob, reps=5):
 
 def flac_phases():
     """Phases 6-8; returns the kernels-line entry of flac_frame."""
-    fg = tools_import("flacgen")
-    P = fg.SubframePlan
-    composed_blob, _ = fg.make_flac(rng_seed=1, depth=16, channels=2, block_size=FLAC_BLOCK,
-                                    n_frames=FLAC_FRAMES,
-                                    plans=[[P("lpc", order=8, fit=True)] * 2] * FLAC_FRAMES)
+    composed_blob = flac_stream(8)
     entry = flac_kernel_phase(composed_blob)
     flac_corpus_phase()
     entry["launches"] = flac_composed_phase(composed_blob)["flac_frame"]

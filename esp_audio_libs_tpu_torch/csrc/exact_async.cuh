@@ -1,6 +1,7 @@
-// Helpers of the exact-mode kernels (biquad_exact.cu, polyphase_exact.cu):
-// separately rounded f32 ops, Hopper bulk copies (the TMA engine), 4-byte
-// cp.async and mbarrier hand-offs, as inline PTX.
+// Helpers of the hand kernels (biquad_exact.cu, polyphase_exact.cu; the
+// mbarrier hand-offs also flac_frame.cu): separately rounded f32 ops, Hopper
+// bulk copies (the TMA engine), 4-byte cp.async and mbarrier hand-offs, as
+// inline PTX.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -148,6 +148,115 @@ def test_flac_frame_escape_tier_matches_jax():
     np.testing.assert_array_equal(got.numpy(), wide.numpy())
 
 
+# the (order class, T) edges of the frame kernel's tiles and recurrence: one
+# step, one short of a window, a window, and around the 64-step tiles (48
+# for the 12 class, 96 there too)
+EDGES = [(W, T) for W in fk.ORDER_CLASSES
+         for T in sorted({1, W - 1, W, 63, 64, 65, 95, 96, 97, 129})]
+
+
+def _edge_frames(seed, W, T, overflow):
+    """Stereo frames whose lanes take every order 0..W (so order == T where
+    T <= W), random coefficients, shifts including -1, 33 and 70 (filled
+    with the sign), wasted bits including 33, every stereo channel
+    assignment; ``overflow``: residuals of up to 2^24 and coefficients of up
+    to 2^14, whose dots overflow int32."""
+    rng = np.random.default_rng(seed)
+    F = W // 2 + 2
+    amp, cmax = (1 << 24, 1 << 14) if overflow else (1 << 12, 1 << 8)
+    data = rng.integers(-amp, amp, (F, 2, T)).astype(np.int32)
+    order = np.resize(np.arange(W + 1, dtype=np.int32), 2 * F).reshape(F, 2)
+    coeffs = np.zeros((F, 2, 32), np.int32)
+    for f in range(F):
+        for c in range(2):
+            coeffs[f, c, :order[f, c]] = rng.integers(-cmax, cmax, order[f, c])
+    shift = rng.integers(0, 16, (F, 2)).astype(np.int32)
+    shift.reshape(-1)[-3:] = (-1, 33, 70)
+    wasted = rng.integers(0, 3, (F, 2)).astype(np.int32)
+    wasted[-1, 0] = 33
+    ca = np.resize(np.array([1, 8, 9, 10], np.int32), F)
+    return data, coeffs, order, shift, wasted, ca
+
+
+@pytest.mark.parametrize("W,T", EDGES, ids=[f"W{W}-T{T}" for W, T in EDGES])
+def test_flac_frame_plain_edges_match_jax(W, T):
+    """flac_frame_plain against _frame_kernel_body at the edges the kernel's
+    tiles and ring touch, with both accumulators on ordinary and on
+    int32-overflow magnitudes (one batch), and against _frame_kernel_esc with escapes at position 0, at
+    the tile boundaries and at the plane's last sample."""
+    arrays = [np.concatenate(parts) for parts in zip(
+        _edge_frames(W * 1000 + T, W, T, False), _edge_frames(W * 1000 + T + 1, W, T, True))]
+    for use64 in (True, False):
+        kw = dict(depth=24, nch=2, mode32=False, use64=use64, max_order=W)
+        want = np.asarray(jax_flac._frame_kernel_body(*map(jnp.asarray, arrays), **kw))
+        got = fk.flac_frame_plain(*map(torch.from_numpy, arrays), **kw)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{use64=}")
+
+    data, *params = _edge_frames(W + T, W, T, False)
+    data = np.clip(data, -100, 100)
+    edges = [t for t in (0, 47, 48, 63, 64, 65, 95, 96, 97, 128, T - 1) if t < T]
+    data[..., edges] = (np.arange(len(edges)) * 257 - 1000)[None, None, :]
+    flat = np.flatnonzero(data.astype(np.int8) != data)
+    pos, val = transport.escape_sideband(flat, data.reshape(-1)[flat], oob_index=data.size,
+                                         val_dtype=np.int32)
+    assert flat.size
+    kw = dict(depth=16, nch=2, mode32=False, use64=False, max_order=W)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    want = np.asarray(jax_flac._frame_kernel_esc(
+        *map(jnp.asarray, (data.astype(np.int8), pos, val, *params)), **kw))
+    got = fk.flac_frame_plain(t(data.astype(np.int8)), *map(t, params), **kw,
+                              esc_pos=t(pos), esc_val=t(val))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _transposed_restore(data, coeffs, order, shift, use64, W):
+    """lpc_restore in the frame kernel's transposed form, in numpy: each
+    lane keeps W running sums, one per coming step; once y[t] is known,
+    c[W-1] y[t] goes into step t + 1's sum, c[k] y[t] into step t + W - k's,
+    and the sum step t used starts again as step t + W's. Sums wrap modulo
+    2^32 (use64 False) or 2^64."""
+    lanes, T = data.shape
+    bits = 64 if use64 else 32
+    mod = np.uint64 if use64 else np.uint32
+    c = np.zeros((lanes, W), np.int64)
+    for n in range(lanes):
+        o = int(order[n])
+        c[n, W - o:] = coeffs[n, :o]                 # c[k] multiplies lag W - k
+    cw = c.astype(mod)                               # two's complement, mod 2^bits
+    sh = np.where((shift < 0) | (shift >= bits), bits - 1, shift).astype(np.int64)
+    acc = np.zeros((lanes, W), mod)                  # acc[:, t % W]: step t's sum
+    out = np.zeros((lanes, T), np.int32)
+    with np.errstate(over="ignore"):
+        for t in range(T):
+            u = t % W
+            s = acc[:, u].view(np.int64 if use64 else np.int32).astype(np.int64)
+            pred = (s >> sh).astype(np.int64)
+            y = ((data[:, t].astype(np.int64) + pred + (1 << 31)) % (1 << 32) - (1 << 31))
+            y = np.where(t < order, data[:, t], y).astype(np.int32)
+            yw = y.astype(np.int64).astype(mod)
+            for j in range(1, W):
+                acc[:, (u + j) % W] += cw[:, W - j] * yw
+            acc[:, u] = cw[:, 0] * yw
+            out[:, t] = y
+    return out
+
+
+@pytest.mark.parametrize("use64", [True, False])
+@pytest.mark.parametrize("W", fk.ORDER_CLASSES)
+def test_transposed_recurrence_is_lpc_restore(W, use64):
+    """The reordered sums the frame kernel runs (csrc/flac_frame.cu) equal
+    lpc_restore bit for bit on int32-overflow inputs: addition modulo 2^32
+    or 2^64 does not depend on the order of the products."""
+    data, coeffs, order, shift = _lpc_inputs(W * 7 + use64 + 31, W, overflow=True)
+    got = _transposed_restore(data, coeffs, order, shift, use64, W)
+    want = port_lpc.lpc_restore(*map(torch.from_numpy, (data, coeffs, order, shift)),
+                                use64=use64, max_order=W)
+    np.testing.assert_array_equal(got, want.numpy())
+    jax_want = np.asarray(jax_lpc.lpc_restore(*map(jnp.asarray, (data, coeffs, order, shift)),
+                                              use64=use64, max_order=W))
+    np.testing.assert_array_equal(got, jax_want)
+
+
 def _decode_file(cls, blob, **kw):
     dec = cls(**kw)
     assert dec.read_header(blob) == FLACDecoderResult.SUCCESS

@@ -35,7 +35,7 @@ from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 from esp_audio_libs_tpu_torch.ops import quantization as q
-from esp_audio_libs_tpu_torch.runtime import kernels
+from esp_audio_libs_tpu_torch.runtime import kernels, transport
 from esp_audio_libs_tpu_torch.runtime.phase_grid import HISTORY_MARGIN, PhaseState, phase_grid
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
@@ -544,6 +544,106 @@ def test_flac_frame_kernel_matches_plain(cuda):
             torch.cuda.synchronize()
             assert fk.flac_frame_cuda.launches == before + 1
             assert torch.equal(got, want), (bkey, label)
+
+
+def synthetic_frames(seed, F, C, T, W, big=False):
+    """Frame-kernel operands [F, C, T] with orders 0..W (order T where T <=
+    W), shifts including -1, 33 and 70, wasted bits including 33 (all
+    shifted out), every stereo channel assignment, and residuals that fit
+    int8 except at the first and last sample of each row, at tile edges
+    (63, 64, 65, 95, 96, 97, 127, 128) and at random places: the escapes of
+    the int8 tier. ``big``: int32 residuals of up to 2^24 and coefficients of
+    up to 2^14, whose dots overflow int32."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(-100, 100, (F, C, T)).astype(np.int32)
+    edges = [t for t in (0, 63, 64, 65, 95, 96, 97, 127, 128, T - 1) if t < T]
+    data[..., edges] = rng.integers(-30000, 30000, (F, C, len(edges)))
+    data[rng.random((F, C, T)) < 0.01] = 1000
+    if big:
+        data = rng.integers(-(1 << 24), 1 << 24, (F, C, T)).astype(np.int32)
+    order = rng.integers(0, W + 1, (F, C)).astype(np.int32)
+    order.reshape(-1)[:3] = (W, 0, min(W, T))
+    cmax = 1 << 14 if big else 1 << 9
+    coeffs = np.zeros((F, C, 32), np.int32)
+    for f in range(F):
+        for c in range(C):
+            coeffs[f, c, :order[f, c]] = rng.integers(-cmax, cmax, order[f, c])
+    shift = rng.integers(0, 14, (F, C)).astype(np.int32)
+    shift.reshape(-1)[-3:] = (-1, 33, 70)
+    wasted = rng.integers(0, 3, (F, C)).astype(np.int32)
+    wasted.reshape(-1)[-1] = 33
+    ca = (rng.choice([0, 1, 8, 9, 10], F) if C == 2 else np.full(F, C - 1)).astype(np.int32)
+    return data, coeffs, order, shift, wasted, ca
+
+
+def _frame_planes(data, device):
+    """The residual plane as int8 + escape sideband, int16 and int32 (the
+    first two only where the values fit int16)."""
+    out = [("int32", torch.as_tensor(data, device=device), {})]
+    if np.abs(data).max() < 32768:
+        narrow = data.astype(np.int8)
+        flat = np.flatnonzero(narrow != data)
+        pos, val = transport.escape_sideband(flat, data.reshape(-1)[flat], oob_index=data.size,
+                                             val_dtype=np.int32)
+        esc = {"esc_pos": torch.as_tensor(pos, device=device),
+               "esc_val": torch.as_tensor(val, device=device)}
+        out += [("int8+esc", torch.as_tensor(narrow, device=device), esc),
+                ("int16", torch.as_tensor(data.astype(np.int16), device=device), {})]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 8])
+@pytest.mark.parametrize("W", fk.ORDER_CLASSES)
+def test_flac_frame_kernel_synthetic(cuda, W, C):
+    """Every order class and accumulator, 1/2/3/8 channels, frames not a
+    multiple of a group's (3 groups and one frame), rows of 16-byte
+    multiples and not (T = 1024, 1000), int8 + escapes, int16 and int32
+    planes, and int32 overflow: byte-identical to the plain version."""
+    F = 3 * (32 // C) + 1
+    for T, big in ((1024, False), (1000, False), (1000, True)):
+        arrays = synthetic_frames(W * 10 + C + T + big, F, C, T, W, big=big)
+        params = [torch.as_tensor(a, device=cuda) for a in arrays[1:]]
+        for use64 in (False, True):
+            kw = dict(depth=16, nch=C, mode32=C == 3, use64=use64, max_order=W)
+            want = fk.flac_frame_plain(torch.as_tensor(arrays[0], device=cuda), *params, **kw)
+            for label, plane, esc in _frame_planes(arrays[0], cuda):
+                before = fk.flac_frame_cuda.launches
+                got = fk.flac_frame_cuda(plane, *params, **kw, **esc)
+                torch.cuda.synchronize()
+                assert fk.flac_frame_cuda.launches == before + 1
+                assert torch.equal(got, want), (T, big, use64, label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [512, 4096])
+def test_flac_frame_kernel_dispatch_shape(cuda, F):
+    """The composed chain's launches: a dispatch of 512 frames and the whole
+    4096-frame bucket, stereo 16-bit, 4096 steps, int8 + escapes (and the
+    int16 and int32 planes they stand for), order class 8, the 32-bit
+    accumulator."""
+    arrays = synthetic_frames(F, F, 2, 4096, 8)
+    params = [torch.as_tensor(a, device=cuda) for a in arrays[1:]]
+    kw = dict(depth=16, nch=2, mode32=False, use64=False, max_order=8)
+    want = fk.flac_frame_plain(torch.as_tensor(arrays[0], device=cuda), *params, **kw)
+    for label, plane, esc in _frame_planes(arrays[0], cuda):
+        got = fk.flac_frame_cuda(plane, *params, **kw, **esc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+
+
+@pytest.mark.parametrize("table", ["VARIANTS", "BIQUAD_VARIANTS", "EXACT_VARIANTS",
+                                   "FLAC_VARIANTS"])
+def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
+    """Every text edit of tools/kernel_variants.py still matches the
+    sources it edits exactly once (the tool stops on the card otherwise)."""
+    import kernel_variants as kv
+    monkeypatch.setattr(kv, "OUT", tmp_path)
+    target = {"VARIANTS": "banded_tile.cuh", "BIQUAD_VARIANTS": "biquad_exact.cu",
+              "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu"}[table]
+    sources = sorted(kernels.CSRC.glob("*.cu*"))
+    for name, edits in getattr(kv, table).items():
+        assert (kv.make_variant(name, target, edits, sources) / target).exists()
 
 
 @pytest.mark.cuda

@@ -76,12 +76,45 @@ the plain version there (with and without the second dot, and on 13 rows),
 and prints each library's ptxas report and SASS opcode counts (cuobjdump).
 ``--variants`` with no names times only the parents.
 
+``--flac``: the FLAC frame kernel (``flac_frame.cu`` with ``exact_async.cuh``,
+built alone):
+
+  as_is       the sources unchanged;
+  nst8        a ring of 8 stages instead of 4;
+  s128        tiles of 128 steps (96 at W = 12) instead of 64 (48);
+  one_tap     each step adds only c[W-1] and c[0]'s products (a speed
+              probe: the multiply-adds off the chain dropped; not exact);
+  no_load     LOAD reads no memory (a speed probe, not exact);
+  no_pack     PACK writes nothing (a speed probe, not exact);
+  <dir>       with ``--flac-parent DIR/flac_frame.cu ...``: each such file as
+              flac_frame.cu, named by its directory; with ``--parent-probes``
+              also that file's probes, edits of the design before the
+              transposed one (``git show
+              7302bf5:esp_audio_libs_tpu_torch/csrc/flac_frame.cu``):
+              ``one_tap`` (the dot cut to its newest term), ``no_pack``,
+              ``no_load`` (the helpers pack / load nothing; not exact) and
+              ``transposed`` (the transposed-form recurrence in that kernel,
+              exact), named ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 20 direct launches through
+``eal_flac_frame`` after 2 warm-ups, in turns) at the main path's launches
+(``chip_smoke.flac_shapes``: one dispatch of 512 frames x 2 x 4096, the
+4096-frame bucket, one lane alone, and order-12 and order-32 dispatches)
+and two more (the dispatch's first block alone, and the dispatch on the
+int16 plane its escapes stand for), checks all but the lone lane byte for
+byte against ``flac_frame_plain``, prints each library's ptxas report and
+the SASS opcode counts of ``flac_frame_kernel<8, false, int8_t>`` (its full
+listing goes to ``build/variants/flac_<variant>/sass.txt``), and samples
+the SM clock (nvidia-smi) while dispatch launches run.
+
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
     python3 tools/kernel_variants.py --biquad [--biquad-parent build/parent/biquad_exact.cu]
     python3 tools/kernel_variants.py --polyphase-exact \
         [--polyphase-exact-parent build/pr4/polyphase_exact.cu --parent-probes no_dot]
+    python3 tools/kernel_variants.py --flac \
+        [--flac-parent build/pr7/flac_frame.cu --parent-probes one_tap no_pack no_load]
 
 The last line is one JSON object with the means.
 """
@@ -96,6 +129,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -189,6 +223,79 @@ EXACT_VARIANTS = {
 }
 
 
+# probes of the earlier frame kernel (`git show 7302bf5:esp_audio_libs_tpu_torch/csrc/flac_frame.cu`)
+FLAC_PARENT_PROBES = {
+    "one_tap": [("for (int k = 0; k < W; ++k)\n          acc += static_cast<unsigned long long>",
+                 "for (int k = W - 1; k < W; ++k)\n          acc += static_cast<unsigned long long>"),
+                ("for (int k = 0; k < W; ++k)\n          acc += static_cast<uint32_t>",
+                 "for (int k = W - 1; k < W; ++k)\n          acc += static_cast<uint32_t>")],
+    "no_pack": [("for (int idx = h; idx < b.fpb * S; idx += HELP) {",
+                 "for (int idx = h; idx < 0; idx += HELP) {")],
+    "no_load": [("      load_tile<W, R>(tile, data, vec, h, b.lanes_b, b.lane0, b.nlanes, t0, T);\n",
+                 "")],
+}
+# the transposed-form recurrence alone: that kernel with its win[] turned
+# into the W running sums, its barriers and helpers as they were
+_FLAC_OLD_DOT = """      int32_t pred;
+      if constexpr (USE64) {
+        unsigned long long acc = 0;
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          acc += static_cast<unsigned long long>(static_cast<long long>(win[(u + k) % W]) * c[k]);
+        pred = static_cast<int32_t>(static_cast<uint32_t>(static_cast<long long>(acc) >> sh));
+      } else {
+        uint32_t acc = 0;
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          acc += static_cast<uint32_t>(win[(u + k) % W]) * static_cast<uint32_t>(c[k]);
+        pred = static_cast<int32_t>(acc) >> sh;
+      }
+      int32_t y = static_cast<int32_t>(static_cast<uint32_t>(x) + static_cast<uint32_t>(pred));
+      if (WARM && t0 + b + u < order) y = x;
+      win[u] = y;
+"""
+_FLAC_TRANSPOSED = """      int32_t pred;
+      if constexpr (USE64)
+        pred = static_cast<int32_t>(static_cast<uint32_t>(static_cast<long long>(win[u]) >> sh));
+      else
+        pred = static_cast<int32_t>(win[u]) >> sh;
+      int32_t y = static_cast<int32_t>(static_cast<uint32_t>(x) + static_cast<uint32_t>(pred));
+      if (WARM && t0 + b + u < order) y = x;
+#pragma unroll
+      for (int j = 1; j < W; ++j) {
+        if constexpr (USE64)
+          win[(u + j) % W] += static_cast<unsigned long long>(static_cast<long long>(y) * c[W - j]);
+        else
+          win[(u + j) % W] += static_cast<uint32_t>(y) * static_cast<uint32_t>(c[W - j]);
+      }
+      if constexpr (USE64)
+        win[u] = static_cast<unsigned long long>(static_cast<long long>(y) * c[0]);
+      else
+        win[u] = static_cast<uint32_t>(y) * static_cast<uint32_t>(c[0]);
+"""
+FLAC_PARENT_PROBES["transposed"] = [
+    ("template <int W, bool USE64, bool WARM>\n__device__ __forceinline__ void restore_tile("
+     "int32_t* row, int32_t (&win)[W],",
+     "template <bool USE64>\nstruct Acc { using T = uint32_t; };\ntemplate <>\n"
+     "struct Acc<true> { using T = unsigned long long; };\n\n"
+     "template <int W, bool USE64, bool WARM>\n__device__ __forceinline__ void restore_tile("
+     "int32_t* row, typename Acc<USE64>::T (&win)[W],"),
+    (_FLAC_OLD_DOT, _FLAC_TRANSPOSED),
+    ("int32_t c[W], win[W];", "int32_t c[W];\n  typename Acc<USE64>::T win[W];"),
+]
+FLAC_VARIANTS = {
+    "as_is": [],
+    "nst8": [("constexpr int NST = 4;", "constexpr int NST = 8;")],
+    "s128": [("static constexpr int S = W == 12 ? 48 : 64;",
+              "static constexpr int S = W == 12 ? 96 : 128;")],
+    "one_tap": [("for (int j = 2; j < W; ++j)\n      acc[(u + j) % W] += static_cast<uint32_t>(y)",
+                 "for (int j = 2; j < 2; ++j)\n      acc[(u + j) % W] += static_cast<uint32_t>(y)")],
+    "no_load": [("if (r < g.lanes && t < a.T)\n      v[i] = __ldg(", "if (r < 0)\n      v[i] = __ldg("),
+                ("v[i] = (r < g.lanes && t < a.T) ?", "v[i] = (r < 0) ?")],
+    "no_pack": [("const int nf = min(g.fpb, a.F - g.f0);", "const int nf = 0;")],
+}
+FLAC_SASS_KERNEL = "flac_frame_kernelILi8ELb0EaE"   # flac_frame_kernel<8, false, int8_t>
+
 def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
     """``sources`` copied into build/variants/<name>/, then ``target`` (there)
     replaced by the file ``replace_with`` if given, and edited by ``edits``."""
@@ -218,7 +325,8 @@ def build_all(dirs, entries=tuple(kernels.SIGNATURES)):
             lambda d: kernels.compile_library(d, d / "lib.so", ptxas_report=True), dirs.values())))
     libs = {}
     for name, out in outs.items():
-        report = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
+        report = [ln.strip() for ln in out.splitlines()
+                  if "registers" in ln or "spill" in ln or "Function properties" in ln]
         libs[name] = (kernels.bind(C.CDLL(str(dirs[name] / "lib.so")), entries), report)
     return libs
 
@@ -287,22 +395,31 @@ def biquad_main(args, card: str) -> None:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
-def sass_histogram(lib: Path, kernel: str) -> str:
-    """The most frequent SASS opcodes of the functions of ``lib`` whose
-    mangled name holds ``kernel`` (cuobjdump), as one text line."""
+def sass_listing(lib: Path, kernel: str) -> str:
+    """The SASS (cuobjdump -sass) of the functions of ``lib`` whose mangled
+    name holds ``kernel``, or cuobjdump's error when it gave none."""
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     res = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True)
-    counts, inside = {}, False
+    keep, inside = [], False
     for line in res.stdout.splitlines():
         if "Function :" in line:
             inside = kernel in line
-            continue
+        if inside:
+            keep.append(line)
+    return "\n".join(keep) + "\n" if keep else f"no SASS ({res.stderr.strip()[:200]})"
+
+
+def sass_histogram(lib: Path, kernel: str) -> str:
+    """The most frequent SASS opcodes of the functions of ``lib`` whose
+    mangled name holds ``kernel`` (cuobjdump), as one text line."""
+    listing = sass_listing(lib, kernel)
+    counts = {}
+    for line in listing.splitlines():
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if inside and m:
-            op = m.group(1)
-            counts[op] = counts.get(op, 0) + 1
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     top = sorted(counts.items(), key=lambda kv: -kv[1])[:24]
-    return ", ".join(f"{op} {n}" for op, n in top) or f"no SASS ({res.stderr.strip()[:200]})"
+    return ", ".join(f"{op} {n}" for op, n in top) or listing
 
 
 def polyphase_exact_main(args, card: str) -> None:
@@ -364,6 +481,100 @@ def polyphase_exact_main(args, card: str) -> None:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
+def flac_main(args, card: str) -> None:
+    """--flac: the frame kernel's variants, earlier sources and their probes
+    at the main path's launches (chip_smoke.flac_shapes)."""
+    names = list(FLAC_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "flac_frame.cu"
+    sources = [src, kernels.CSRC / "exact_async.cuh"]
+    dirs = {name: make_variant(f"flac_{name}", src.name, FLAC_VARIANTS[name], sources)
+            for name in names}
+    for path in args.flac_parent:
+        parent = path.resolve().parent.name
+        dirs[parent] = make_variant(f"flac_{parent}", src.name, [], sources, path)
+        for probe in args.parent_probes:
+            dirs[f"{parent}_{probe}"] = make_variant(f"flac_{parent}_{probe}", src.name,
+                                                     FLAC_PARENT_PROBES[probe], sources, path)
+    libs = build_all(dirs, ("eal_flac_frame",))
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+        print(f"{name} SASS of flac_frame_kernel<8, false, int8_t>: "
+              f"{sass_histogram(dirs[name] / 'lib.so', FLAC_SASS_KERNEL)}")
+        (dirs[name] / "sass.txt").write_text(sass_listing(dirs[name] / "lib.so", FLAC_SASS_KERNEL))
+
+    sys.path.insert(0, str(REPO / "tools"))
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    shapes = cs.flac_shapes(cs.flac_stream(8))
+    # beside the main path's: the dispatch's first block alone (16 frames,
+    # 32 lanes, escapes), and the dispatch on the int16 plane the escape
+    # tier stands for (no escapes)
+    tensors, kw = shapes["dispatch"]
+    shapes["one_block"] = ([a[:16].contiguous() for a in tensors], kw)
+    lean = {k: v for k, v in kw.items() if not k.startswith("esc")}
+    plane = tensors[0].to(torch.int32).reshape(-1)
+    live = kw["esc_pos"] < plane.numel()
+    plane[kw["esc_pos"][live].long()] = kw["esc_val"][live]
+    shapes["dispatch_int16"] = ([plane.reshape(tensors[0].shape).to(torch.int16)] +
+                                list(tensors[1:]), lean)
+    checked = ("dispatch", "bucket", "dispatch_w12", "dispatch_w32", "one_block",
+               "dispatch_int16")
+    plains = {key: fk.flac_frame_plain(*shapes[key][0], **shapes[key][1]) for key in checked}
+    for key, (tensors, kw) in shapes.items():
+        nbytes, bound_ms, chain_ms, issue_ms = cs.flac_work(tensors, kw)
+        F, C, T = tensors[0].shape
+        print(f"{key}: F={F} C={C} T={T} W={kw['max_order']} use64={kw['use64']} "
+              f"{tensors[0].dtype}{' + escapes' if 'esc_pos' in kw else ''}: {nbytes} B, bound "
+              f"{bound_ms:.4f} ms (bytes); estimates: serial chain {chain_ms:.4f} ms, issue "
+              f"{issue_ms:.4f} ms")
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        lib = libs[name][0]
+        row = {}
+        for key, (tensors, kw) in shapes.items():
+            if key in plains:
+                got = cs.flac_launcher(tensors, kw, lib=lib)()
+                torch.cuda.synchronize()
+                row[f"{key}_byte_exact"] = float(torch.equal(got, plains[key]))
+            ms = cs.cuda_time(cs.flac_launcher(tensors, kw, lib=lib), iters=20)
+            row[f"{key}_ms"] = ms
+            row[f"{key}_ns_per_step"] = ms / tensors[0].shape[-1] * 1e6
+        results[name].append(row)
+        print(name, json.dumps(row))
+    means = {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+             for name, rows in results.items()}
+    for name, m in means.items():
+        exact = all(m[f"{key}_byte_exact"] == 1.0 for key in checked)
+        print(f"{name}: dispatch {m['dispatch_ms']:.4f} ms, bucket {m['bucket_ms']:.4f} ms, one "
+              f"lane {m['one_lane_ms']:.4f} ms ({m['one_lane_ns_per_step']:.2f} ns/step), W=12 "
+              f"{m['dispatch_w12_ms']:.4f} ms, W=32 {m['dispatch_w32_ms']:.4f} ms, byte-exact "
+              f"{exact} (means of 2 turns, 20 direct launches each)")
+    print(f"SM clock while the first variant's dispatch launches run: {sm_clock(shapes, libs)}")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
+def sm_clock(shapes, libs, seconds: float = 1.5) -> str:
+    """The SM clock (nvidia-smi, sampled every 50 ms) while the first
+    library's dispatch-shape launches run back to back for ``seconds``:
+    median and range in MHz, to turn a step time into cycles."""
+    lib = next(iter(libs.values()))[0]
+    launch = cs.flac_launcher(*shapes["dispatch"], lib=lib)
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(100):
+                launch()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    mhz = sorted(float(v) for v in out.split() if v.strip().isdigit())
+    if len(mhz) < 3:
+        return "not measured (nvidia-smi gave no samples)"
+    return f"median {mhz[len(mhz) // 2]:.0f} MHz ({mhz[1]:.0f}..{mhz[-2]:.0f}, {len(mhz)} samples)"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--biquad", action="store_true",
@@ -376,10 +587,18 @@ def main() -> None:
     ap.add_argument("--polyphase-exact-parent", type=Path, nargs="+", default=[],
                     help="with --polyphase-exact: earlier polyphase_exact.cu files, each timed "
                          "as a variant named by its directory")
-    ap.add_argument("--parent-probes", nargs="+", default=[], choices=sorted(PR4_PROBES),
-                    help="with --polyphase-exact-parent: these probes of each parent too")
+    ap.add_argument("--flac", action="store_true",
+                    help="probe the FLAC frame kernel instead of the banded main loop")
+    ap.add_argument("--flac-parent", type=Path, nargs="+", default=[],
+                    help="with --flac: earlier flac_frame.cu files, each timed as a variant "
+                         "named by its directory")
+    ap.add_argument("--parent-probes", nargs="+", default=[],
+                    choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)),
+                    help="with --polyphase-exact-parent or --flac-parent: these probes of each "
+                         "parent too")
     ap.add_argument("--variants", nargs="*", default=None,
-                    choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)))
+                    choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)
+                                   | set(FLAC_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -393,6 +612,9 @@ def main() -> None:
         return
     if args.polyphase_exact:
         polyphase_exact_main(args, card)
+        return
+    if args.flac:
+        flac_main(args, card)
         return
     names = args.variants or list(VARIANTS)
     sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
