@@ -81,9 +81,29 @@ Phases, each printing a line:
                biquad_cascade_2x_stereo configuration of bench_all.py (2048 x
                stereo x 65536, lowpass 0.18) in the conv form and through
                the exact kernel, held to each other at rtol 1e-4 / atol 1e-5.
-The launch counts of phases 4-5, of phase 8's timed calls and of each path of
-phase 10, each set to 0 just before and read just after, show that the main
-paths ran through the kernels; phases 8 and 10 assert their exact counts.
+ 11. mp3 kernel - the MP3 granule kernel (csrc/mp3_granules.cu) against its
+               plain version on the card, byte for byte (PCM, carried state,
+               UB flag), on real parsed runs of tools/mp3frames.py streams:
+               the four formats of the JAX package's batched-decoder tests
+               plus MPEG-1 and MPEG-2 intensity stereo, tonal and window-type
+               frames and fuzz frames, two runs in a row, and the escape
+               tier; then timed by direct launches through eal_mp3_granules
+               beside one wrapper call, the plain version and the bytes bound
+               at B = 256 and 2048 x G = 16 (8 frames of MPEG-1 44.1 kHz
+               stereo).
+ 12. mp3 corpus - every corpus/independent_mp3 file decoded frame by frame by
+               MP3Decoder(device="cuda"): error ladder, consumed bytes and PCM
+               SHA256 equal to its signatures.json (pinned by the reference).
+ 13. mp3 -> 16k composed - 256 streams x 8 frames of 44.1 kHz stereo tonal
+               frames: BatchedMP3Decoder.decode_run(to_device=True), then the
+               fast Resampler 44.1 -> 16 kHz on the device PCM; the device PCM
+               against decode_run(to_device=False) and a CPU run of the plain
+               path on 8 streams, the chain against the host-roundtrip chain
+               (bytes) and a CPU run (1 LSB); rates at the median of 5 calls.
+The launch counts of phases 4-5, of phase 8's and 13's timed calls and of
+each path of phase 10, each set to 0 just before and read just after, show
+that the main paths ran through the kernels; phases 8, 10 and 13 assert
+their exact counts.
 The last three lines are the card line, one JSON object describing the
 kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -1031,6 +1051,333 @@ def exact_phase(data):
     return main, {"upsample": up, "batched_resample": br_launches, "cascade": casc_launches}
 
 
+# ------------------------------------------------------------------ MP3
+
+MP3_STREAMS, MP3_FRAMES = 256, 8   # bench_all.py's composed MP3 row (bench_mp3_resample_composed)
+MP3_COMPOSED = dict(ver_bits=3, bitrate_idx=11, sr_idx=0, mode=0)   # 44.1 kHz stereo, 320 kbit/s
+
+
+def mp3_zero_state(B, device):
+    import torch
+    return tuple(torch.zeros(s, dtype=torch.int32, device=device)
+                 for s in ((B, 2, 288), (B, 2), (B, 2), (B, 2), (B, 2176)))
+
+
+def mp3_check(fmt, vindex, huff, side, state, label, esc=None):
+    """One mp3_granules launch (through the escape form when ``esc`` holds
+    the int8 plane and its sideband) against the plain version on the same
+    CUDA tensors, byte for byte, state included; returns the new state."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import mp3_pipeline
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    ver, sr_idx, nch, cutoff = fmt
+    if esc is None:
+        got = mk.mp3_granules_cuda(huff, side, *state, vindex, ver=ver, sr_idx=sr_idx, nch=nch,
+                                   cutoff=cutoff)
+    else:
+        got = mp3_pipeline._granules_scan_esc_for(*fmt)(*esc, side, *state, vindex)
+    want = mk.mp3_granules_plain(huff, side, *state, vindex, ver=ver, sr_idx=sr_idx, nch=nch,
+                                 cutoff=cutoff)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("pcm", "over", "prev_type", "prev_win_switch", "num_prev", "vbuf",
+                           "ref_undef"), (got[0], *got[1], got[2]), (want[0], *want[1], want[2])):
+        if not torch.equal(a, b):
+            fail(f"mp3_granules differs from its plain version in {name}: {label}")
+    return got[1]
+
+
+def mp3_launcher(huff, side, state, fmt, vindex):
+    """A function that launches mp3_granules through the C entry point
+    eal_mp3_granules, its arguments and buffers prepared once (the state
+    buffers are updated in place launch after launch): the kernel alone.
+    Used only to time the kernel; its launches are not counted."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    ver, sr_idx, nch, cutoff = fmt
+    G, B = huff.shape[:2]
+    st = tuple(t.clone() for t in state)
+    pcm = torch.empty((B, G, 576 * nch), dtype=torch.int16, device=huff.device)
+    undef = torch.zeros(B, dtype=torch.int32, device=huff.device)
+    consts = mk.format_consts(ver, sr_idx, huff.device)
+    args = (huff.data_ptr(), side.data_ptr(), consts.data_ptr(), *(t.data_ptr() for t in st),
+            pcm.data_ptr(), undef.data_ptr(), G, B, nch, vindex, cutoff,
+            torch.cuda.current_stream().cuda_stream)
+    lib = kernels.library()
+
+    def launch():
+        if lib.eal_mp3_granules(*args) != 0:
+            fail("eal_mp3_granules refused its arguments")
+        launch.keep = (huff, side, consts, st, pcm, undef)     # keeps the operands alive
+        return pcm
+    return launch
+
+
+def mp3_work(huff, side, fmt):
+    """(bytes, bound ms) of one mp3_granules launch: the int16 spectra, the
+    side rows, the constants, the carried state read and written, the PCM
+    and the flags, each once, at 3.35 TB/s. Its integer operations are not
+    counted: the peak rates this script uses (PEAK_*) have no INT32 rate
+    outside the tensor cores."""
+    G, B, nch = huff.shape[:3]
+    nbytes = (huff.numel() * 2 + side.numel() * 4 + 3069 * 4 + 2 * B * (576 + 6 + 2176) * 4
+              + B * G * 576 * nch * 2 + B * 4)
+    return nbytes, nbytes / PEAK_BYTES * 1e3
+
+
+def mp3_streams(kind, B, n_frames, seed, cfg=None):
+    mf = tools_import("mp3frames")
+    cfg = cfg or MP3_COMPOSED
+    if kind == "tonal":
+        return [mf.tonal_stream(cfg, seed + i, n_frames) for i in range(B)]
+    return [mf.mixed_stream(cfg, seed + i, n_frames, fuzz=kind == "fuzz") for i in range(B)]
+
+
+def mp3_run_operands(streams, n_frames, device="cuda"):
+    """The kernel operands of one decode_run of ``streams`` on a fresh fleet,
+    per format group: [(fmt, vindex, huff_gs, side_gs)] on ``device``."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.models.batch import BatchedMP3Decoder, parsed_runs
+    bat = BatchedMP3Decoder(len(streams), device="cpu")
+    return [(fmt, vindex, torch.as_tensor(h, device=device), torch.as_tensor(sd, device=device))
+            for fmt, vindex, _, h, sd in parsed_runs(bat, streams, n_frames)]
+
+
+def mp3_kernel_phase():
+    """Phase 11: mp3_granules byte for byte against its plain version on real
+    parsed runs (tools/mp3frames.py): the four formats of the JAX package's
+    batched-decoder tests plus MPEG-1 and MPEG-2 intensity stereo, tonal and
+    window-type frames (every block type over nonzero overlap) and fuzz
+    frames (runs cut short by errors), two runs in a row (the second from
+    the first's state, at another FIFO phase), and the escape tier; then
+    timed by direct launches at B = 256 and 2048 x G = 16 (8 frames of
+    MPEG-1 44.1 kHz stereo). Returns the kernels-line entry without its
+    launch count."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import mp3_pipeline
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+
+    mf = tools_import("mp3frames")
+    cfgs = mf.BATCH_CFGS + [dict(ver_bits=3, bitrate_idx=9, sr_idx=1, mode=1, mode_ext=3),
+                            dict(ver_bits=2, bitrate_idx=7, sr_idx=1, mode=1, mode_ext=1)]
+    n_runs, shapes = 0, set()
+    for ci, cfg in enumerate(cfgs):
+        for kind, B, nf in (("mixed", 5, 8), ("fuzz", 7, 4)):
+            streams = mp3_streams(kind, B, 2 * nf, 100 * ci, cfg)
+            first = mp3_run_operands([s[: len(s) // 2] for s in streams], nf)
+            for fmt, vindex, huff, side in first:
+                st = mp3_check(fmt, vindex, huff, side, mp3_zero_state(huff.shape[1], "cuda"),
+                               f"{cfg} {kind} run 0")
+                if huff.shape[1] == B:     # the whole fleet: the next run continues its state
+                    G = huff.shape[0]
+                    for fmt2, _, huff2, side2 in mp3_run_operands(
+                            [s[len(s) // 2:] for s in streams], nf):
+                        if huff2.shape[1] == B:
+                            mp3_check(fmt2, mp3_pipeline._advance_vindex(vindex, G), huff2,
+                                      side2, st, f"{cfg} {kind} run 1")
+                            n_runs += 1
+                n_runs += 1
+                shapes.add((fmt[2], huff.shape[0], huff.shape[1]))
+    # the escape tier, forced on: fuzz spectra carry escapes
+    esc_runs = 0
+    for fmt, vindex, huff, side in mp3_run_operands(mp3_streams("fuzz", 6, 4, 700), 4):
+        old = mp3_pipeline.ESC_MAX_DENSITY
+        mp3_pipeline.ESC_MAX_DENSITY = 1.0
+        try:
+            plane8, pos, val = mp3_pipeline._pack_huff8(huff.cpu().numpy())
+        finally:
+            mp3_pipeline.ESC_MAX_DENSITY = old
+        esc = tuple(torch.as_tensor(a, device="cuda") for a in (plane8, pos, val))
+        mp3_check(fmt, vindex, huff, side, mp3_zero_state(huff.shape[1], "cuda"),
+                  f"escape tier, {int((pos < huff.numel()).sum())} escapes", esc=esc)
+        esc_runs += 1
+    print(f"mp3 kernel: {n_runs} runs of {len(cfgs)} formats and {esc_runs} escape-tier runs "
+          f"byte-identical to the plain version (PCM, state, UB flag); (channels, G, B) "
+          f"{sorted(shapes)}")
+
+    # the run shapes of the composed chain: B x G = 16, MPEG-1 44.1 kHz stereo tonal frames
+    (fmt, vindex, huff, side), = mp3_run_operands(mp3_streams("tonal", MP3_STREAMS, MP3_FRAMES,
+                                                              5000), MP3_FRAMES)
+    res = {}
+    for B in (MP3_STREAMS, 8 * MP3_STREAMS):
+        h = huff.repeat(1, B // MP3_STREAMS, 1, 1).contiguous()
+        sd = side.repeat(1, B // MP3_STREAMS, 1).contiguous()
+        state = mp3_zero_state(B, "cuda")
+        got = mk.mp3_granules_cuda(h, sd, *state, vindex, ver=fmt[0], sr_idx=fmt[1], nch=fmt[2],
+                                   cutoff=fmt[3])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mk.mp3_granules_plain(h, sd, *state, vindex, ver=fmt[0], sr_idx=fmt[1],
+                                     nch=fmt[2], cutoff=fmt[3])
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not all(torch.equal(a, b) for a, b in zip((got[0], *got[1], got[2]),
+                                                     (want[0], *want[1], want[2]))):
+            fail(f"mp3_granules differs from its plain version at B={B} G={h.shape[0]}")
+        if not int(got[0].abs().max()):
+            fail("the tonal run decoded to silence")
+        ms = cuda_time(mp3_launcher(h, sd, state, fmt, vindex), iters=20)
+        ms_wrapper = cuda_time(lambda: mk.mp3_granules_cuda(h, sd, *state, vindex, ver=fmt[0],
+                                                            sr_idx=fmt[1], nch=fmt[2],
+                                                            cutoff=fmt[3]))
+        nbytes, bound_ms = mp3_work(h, sd, fmt)
+        G = h.shape[0]
+        res[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        print(f"kernel mp3_granules B={B} G={G} stereo (MPEG-1 44.1 kHz, {B * G} granules, "
+              f"{B * G * 1152 / 1e6:.3f} Msamples): byte-identical; {ms:.4f} ms per direct "
+              f"launch (one wrapper call {ms_wrapper:.4f} ms; plain version {plain_ms:.1f} ms), "
+              f"{B * G * 1152 / ms / 1e3:.1f} decoded Msamples/s; bound {bound_ms:.4f} ms "
+              f"(bytes: {nbytes} B at 3.35 TB/s; integer operations not counted: no INT32 peak "
+              f"among PEAK_*), {bound_ms / ms:.1%} of it")
+    r = res[MP3_STREAMS]
+    return {"name": "mp3_granules", "route": "cuda",
+            "source": "esp_audio_libs_tpu_torch/csrc/mp3_granules.cu",
+            "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:215",
+            "launches": 0, "max_abs_err": 0, "byte_exact": True,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "ms_b2048": res[8 * MP3_STREAMS]["ms"],
+            "plain_ms_b2048": res[8 * MP3_STREAMS]["plain_ms"],
+            "bound_ms_b2048": res[8 * MP3_STREAMS]["bound_ms"]}
+
+
+def mp3_corpus_phase():
+    """Phase 12: every corpus/independent_mp3 file decoded frame by frame by
+    MP3Decoder(device="cuda"): the per-frame error and consumed ladder and
+    the PCM SHA256 of signatures.json, which the reference decoder pinned."""
+    import hashlib
+    from pathlib import Path
+
+    import numpy as np
+
+    from esp_audio_libs_tpu_torch.models import MP3Decoder
+    corpus = Path(__file__).resolve().parent / "corpus" / "independent_mp3"
+    sigs = json.loads((corpus / "signatures.json").read_text())
+    files = sorted(corpus.glob("*.mp3"))
+    if len(files) < 10:
+        fail(f"corpus/independent_mp3 holds {len(files)} files")
+    n_frames = 0
+    for path in files:
+        data, dec = path.read_bytes(), MP3Decoder(device="cuda")
+        h, errs, consumed, n_pcm, pos = hashlib.sha256(), [], [], 0, 0
+        for _ in range(64):
+            err, pcm, c = dec.decode(data[pos:])
+            errs.append(int(err))
+            consumed.append(int(c))
+            if err == 0 and pcm is not None:
+                h.update(np.asarray(pcm, dtype="<i2").tobytes())
+                n_pcm += len(pcm)
+            pos += c
+            if pos >= len(data):
+                break
+        sig = sigs[path.name]
+        if (errs != sig["frame_errs"] or consumed != sig["frame_consumed"]
+                or n_pcm != sig["pcm_samples"] or h.hexdigest() != sig["pcm_sha256"]):
+            fail(f"{path.name}: the card's decode does not match signatures.json")
+        n_frames += len(errs)
+    print(f"mp3 corpus: {len(files)} corpus/independent_mp3 files ({n_frames} frames) decoded "
+          f"on the card, error ladders, consumed bytes and PCM SHA256 equal to signatures.json")
+
+
+def mp3_composed_phase(reps=5):
+    """Phase 13: 256 streams x 8 frames of MPEG-1 44.1 kHz stereo tonal frames:
+    BatchedMP3Decoder.decode_run(to_device=True) -> fast Resampler -> 16 kHz,
+    checked and timed; returns the launch counts of the timed calls."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedMP3Decoder
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.runtime.transport import MP3_SLICE_PCM_BYTES
+
+    B, F = MP3_STREAMS, MP3_FRAMES
+    streams = mp3_streams("tonal", B, F, 9000)
+    samples = F * 1152                                # stereo frames per stream
+    host = BatchedMP3Decoder(B).decode_run(streams, F)
+    pcm_host = np.stack([np.concatenate([p for _, p, _ in r]) for r in host])
+    n_slices = -(-B * samples * 2 * 2 // MP3_SLICE_PCM_BYTES)
+    bat = BatchedMP3Decoder(B)
+    mk.reset_launch_counts()
+    pcm_dev, consumed = bat.decode_run(streams, F, to_device=True)
+    torch.cuda.synchronize()
+    if mk.mp3_granules_cuda.launches != 1:
+        fail(f"decode_run(to_device=True) launched mp3_granules {mk.mp3_granules_cuda.launches} "
+             f"times, expected 1")
+    if not pcm_dev.is_cuda or not np.array_equal(pcm_dev.cpu().numpy(), pcm_host):
+        fail("composed mp3 fleet: device PCM differs from the host-roundtrip PCM")
+    if not int(np.abs(pcm_host).max()):
+        fail("composed mp3 fleet decoded to silence")
+    cpu = BatchedMP3Decoder(CMP_STREAMS, device="cpu")
+    pcm_cpu, _ = cpu.decode_run(streams[:CMP_STREAMS], F, to_device=True)
+    if not np.array_equal(pcm_cpu.numpy(), pcm_host[:CMP_STREAMS]):
+        fail("composed mp3 fleet: the CPU plain path's PCM differs from the card's")
+    out_dev = make_resampler(44100.0, 16000.0, B, "cuda").resample_stream(
+        pcm_dev.view(torch.uint8), samples, 1)
+    out_host = make_resampler(44100.0, 16000.0, B, "cuda").resample_stream(
+        torch.as_tensor(pcm_host, device="cuda").view(torch.uint8), samples, 1)
+    torch.cuda.synchronize()
+    if (out_dev[1] != out_host[1] or not torch.equal(out_dev[0], out_host[0])
+            or not np.array_equal(out_dev[2], out_host[2])):
+        fail("composed mp3 chain: resampled device PCM differs from the host-roundtrip chain")
+
+    r = make_resampler(44100.0, 16000.0, B, "cuda")
+    dec_times, chain_times = [], []
+    mk.reset_launch_counts()
+    pk.reset_launch_counts()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        bat.decode_run(streams, F, to_device=True)
+        torch.cuda.synchronize()
+        dec_times.append(time.perf_counter() - t0)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pcm, _ = bat.decode_run(streams, F, to_device=True)
+        r.resample_stream(pcm.view(torch.uint8), samples, 1)
+        torch.cuda.synchronize()
+        chain_times.append(time.perf_counter() - t0)
+    launches = {"mp3_granules": mk.mp3_granules_cuda.launches,
+                "polyphase_banded": pk.polyphase_banded_cuda.launches}
+    want = {"mp3_granules": 2 * reps, "polyphase_banded": reps}
+    if launches != want:
+        fail(f"the composed mp3 chain launched {launches}, expected {want}")
+    t0 = time.perf_counter()
+    BatchedMP3Decoder(B)._parse_run([np.frombuffer(s, np.uint8) for s in streams], F)
+    parse_s = time.perf_counter() - t0
+    ndiff, clips = compare_stream(out_dev, make_resampler(44100.0, 16000.0, CMP_STREAMS, "cpu")
+                                  .resample_stream(pcm_cpu.view(torch.uint8), samples, 1),
+                                  "composed mp3 chain")
+    n_in = B * samples * 2
+    med_d, med_c = float(np.median(dec_times)), float(np.median(chain_times))
+    print(f"mp3->16k composed {B} streams x {F} frames (MPEG-1 44.1 kHz stereo, tonal): device "
+          f"PCM = host PCM ({n_slices} dispatch slices there, 1 launch to the device) = CPU "
+          f"plain path on {CMP_STREAMS} streams, device chain = host-roundtrip chain byte for "
+          f"byte, {ndiff} samples of {CMP_STREAMS} streams differ by 1 LSB from the CPU port, "
+          f"{clips} clipped; decode_run(to_device) {n_in / med_d / 1e6:.1f} decoded Msamples/s "
+          f"({med_d * 1e3:.2f} ms/call, min {min(dec_times) * 1e3:.2f}, max "
+          f"{max(dec_times) * 1e3:.2f}), whole chain {n_in / med_c / 1e6:.1f} Msamples/s "
+          f"({med_c * 1e3:.2f} ms/call, min {min(chain_times) * 1e3:.2f}, max "
+          f"{max(chain_times) * 1e3:.2f}) at the median of {reps} calls; host parse of one run "
+          f"{parse_s * 1e3:.2f} ms; gens {out_dev[1]}")
+    print(f"launches on the composed mp3 path ({reps} decode calls, then {reps} chain calls): "
+          f"{launches}")
+    return launches
+
+
+def mp3_phases():
+    """Phases 11-13; returns the kernels-line entry of mp3_granules."""
+    entry = mp3_kernel_phase()
+    mp3_corpus_phase()
+    entry["launches"] = mp3_composed_phase()["mp3_granules"]
+    return entry
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1169,6 +1516,10 @@ def main() -> None:
         "batched_resample": exact_other["batched_resample"]}
     print(f"launches on the exact path (6 resample_stream calls of 8 chunks): {exact_main}")
 
+    # 11-13. MP3
+    torch.cuda.empty_cache()
+    mp3 = mp3_phases()
+
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",
          "source": "esp_audio_libs_tpu_torch/csrc/polyphase_banded.cu",
@@ -1184,7 +1535,7 @@ def main() -> None:
          "launches": launches["polyphase_fused16"], "max_abs_err": err_fused,
          "ms": ms_f, "plain_ms": ms_fp, "bound_ms": bound_f, "bound_by": by_f,
          "library_ms": lib_f},
-        flac, *exact_entries]}
+        flac, *exact_entries, mp3]}
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,15 +5,17 @@ carries the same sub-package layout and module names:
 
 - ``runtime``  ctypes loaders: the shared native host library
                (``build/libeal_host.so``: filter design, phase grids, the
-               FLAC front-end) and the hand-written CUDA kernels
-               (``csrc/*.cu``, built with nvcc at first use); dispatch
-               slicing and the escape sideband
+               FLAC and MP3 front-ends), the MP3 tables and the hand-written
+               CUDA kernels (``csrc/*.cu``, built with nvcc at first use);
+               dispatch slicing and the escape sideband
 - ``ops``      PCM quantization, biquad design and application, the
                recurrence solvers, the banded and exact polyphase
-               contractions, FLAC LPC restoration, and their kernel wrappers
+               contractions, FLAC LPC restoration, the MP3 dequantizer,
+               IMDCT and subband synthesis, and their kernel wrappers
 - ``models``   the user-facing ``Resampler`` (exact and fast mode),
-               ``BatchedResample``, ``FLACDecoder`` and ``BatchedFLACDecoder``
-- ``utils``    the FLAC result and metadata enums
+               ``BatchedResample``, ``FLACDecoder``, ``BatchedFLACDecoder``,
+               ``MP3Decoder``, ``BatchedMP3Decoder`` and the WAV parser
+- ``utils``    the WAV, FLAC and MP3 result enums
 
 It imports ``torch``, ``numpy`` and ``ctypes`` and never ``jax``. Kernel
 wrappers run their plain PyTorch version for CPU tensors only; a CUDA tensor

@@ -1,20 +1,65 @@
-"""Batched multi-stream FLAC decoding: the port's data-parallel serving
-layer, the counterpart of ``BatchedFLACDecoder`` in
-esp_audio_libs_tpu/models/batch.py.
+"""Batched multi-stream FLAC and MP3 decoding: the port's data-parallel
+serving layer, the counterpart of esp_audio_libs_tpu/models/batch.py.
 
 The reference is one decoder instance per stream and leaves parallelism to
 the caller. Here each stream keeps its own native bitstream front-end on the
-host, and every stream's frames fold into the lane axis of the shared frame
-kernel, so one launch decodes a bucket of frames from the whole fleet.
+host, and every stream's numeric work folds into the lane axis of the shared
+kernels, so one launch decodes a whole group of streams: FLAC frames are
+bucketed by block size x depth x channels, MP3 streams grouped by version x
+samplerate x channels x FIFO phase.
 """
 
 from __future__ import annotations
 
-from ..runtime.kernels import entry_device
-from .flac import (FLACDecoder, _decode_streams, decode_streams_to_device,
-                   decode_streams_to_device_grouped)
+import ctypes as C
 
-__all__ = ["BatchedFLACDecoder"]
+import numpy as np
+import torch
+
+from ..runtime import transport
+from ..runtime.kernels import entry_device
+from ..runtime.native import host_lib
+from ..utils.errors import MP3Error
+from . import mp3_pipeline
+from .flac import (FLACDecoder, _decode_streams, _to_host, decode_streams_to_device,
+                   decode_streams_to_device_grouped)
+from .mp3 import MP3Decoder
+
+__all__ = ["BatchedFLACDecoder", "BatchedMP3Decoder", "MP3DeviceRunResult", "MP3RunResult",
+           "parsed_runs"]
+
+_i32p = C.POINTER(C.c_int32)
+_u8p = C.POINTER(C.c_uint8)
+_SKIP = np.iinfo(np.int32).min     # the batch parse's code for a skipped stream
+
+
+class MP3RunResult(list):
+    """``decode_run`` host result: a list over streams of per-frame
+    ``(err, pcm | None, consumed)`` tuples, plus ``next_pos``.
+
+    ``next_pos[s]`` is the offset into the buffer passed for stream s where
+    the next run starts. It is not ``sum(consumed)``: after each successful
+    frame the run plays the reference caller protocol and skips reservoir
+    slack to the next sync word (MP3FindSyncWord, reference
+    mp3_decoder.cpp:8533), bytes that appear in no frame's ``consumed``.
+    After an error frame (which ends that stream's run) ``next_pos`` points
+    just past the consumed bytes, where the reference caller would resync.
+    """
+
+    def __init__(self, items, next_pos):
+        super().__init__(items)
+        self.next_pos = list(next_pos)
+
+
+class MP3DeviceRunResult(tuple):
+    """``decode_run(to_device=True)`` result: unpacks as ``(pcm_dev,
+    consumed_list)``, with the ``next_pos`` attribute of
+    :class:`MP3RunResult`."""
+
+    def __new__(cls, pcm, consumed, next_pos):
+        self = super().__new__(cls, (pcm, consumed))
+        self.next_pos = list(next_pos)
+        return self
 
 
 class BatchedFLACDecoder:
@@ -84,3 +129,374 @@ class BatchedFLACDecoder:
                 f"{len(self.decoders)}")
         for d, s in zip(self.decoders, state["streams"]):
             d.set_state(s)
+
+
+class BatchedMP3Decoder:
+    """Decode many independent MP3 streams in lockstep.
+
+    Each stream keeps its own Helix-equivalent front-end (sync, side info,
+    Huffman and the bit reservoir are serial per stream); granule synthesis
+    runs with streams folded into the lanes of the granule kernel. Streams
+    are grouped by (version, samplerate index, channels, FIFO phase,
+    granules to run), each group one launch per dispatch slice; outputs are
+    bit-identical to decoding each stream alone.
+
+    The carried synthesis state lives on the device, batch-stacked, in the
+    JAX package's layout: over ``[N, 2, 288]``, block type, window switch
+    and IMDCT block count ``[N, 2]``, vbuf ``[N, 2176]``, and a host-side
+    FIFO phase per stream.
+
+    Args:
+      n_streams: number of stream slots.
+      device: ``"cuda"`` (the default) or ``"cpu"``; ``"cuda"`` without a
+        usable card raises. There is no mesh: one device decodes the fleet.
+    """
+
+    def __init__(self, n_streams: int, *, device="cuda"):
+        self.device = entry_device(device, "BatchedMP3Decoder")
+        self.decoders = [MP3Decoder(device=self.device) for _ in range(n_streams)]
+        self.last_frame_reference_defined = [True] * n_streams
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        N = n_streams
+        self._over = zeros(N, 2, 288)
+        self._pt = zeros(N, 2)
+        self._pws = zeros(N, 2)
+        self._npv = zeros(N, 2)
+        self._vbuf = zeros(N, 2176)
+        self._vindex = [0] * N
+
+    def _state(self):
+        return (self._over, self._pt, self._pws, self._npv, self._vbuf)
+
+    def _gather_state(self, streams):
+        if streams == list(range(len(self.decoders))):
+            return self._state()              # the whole fleet: no gather
+        idx = torch.as_tensor(streams, device=self.device)
+        return tuple(a.index_select(0, idx) for a in self._state())
+
+    def _scatter_state(self, streams, new_state):
+        if streams == list(range(len(self.decoders))):
+            self._over, self._pt, self._pws, self._npv, self._vbuf = new_state
+            return
+        idx = torch.as_tensor(streams, device=self.device)
+        for a, new in zip(self._state(), new_state):
+            a.index_copy_(0, idx, new)
+
+    def reset_stream(self, s: int) -> None:
+        """Recycle slot ``s`` for a new stream: a fresh native front-end (bit
+        reservoir, sync state), a zeroed device state row and FIFO phase 0;
+        the other slots are untouched."""
+        self.decoders[s] = MP3Decoder(device=self.device)
+        self.last_frame_reference_defined[s] = True
+        self._vindex[s] = 0
+        for a in self._state():
+            a[s] = 0
+
+    def _parse_batch(self, views, use_size=False):
+        """The fleet's serial front-ends in one native call
+        (``eal_mp3_parse_frame_batch``); outputs land batch-stacked.
+
+        views: per-stream uint8 numpy views, or None to skip a stream.
+        Returns a dict of batch arrays; ``rc`` is ``_SKIP`` for skipped rows.
+        """
+        n = len(self.decoders)
+        out = {
+            "huff": np.zeros((n, 2, 2, 576), np.int32),
+            "params": np.zeros((n, 2, 2, 24), np.int32),
+            "sf": np.zeros((n, 2, 2, 62), np.int32),
+            "frame": np.zeros((n, 16), np.int32),
+            "sfjs": np.zeros((n, 8), np.int32),
+            "consumed": np.zeros(n, np.int32),
+            "clear": np.zeros(n, np.int32),
+            "err_gr": np.zeros(n, np.int32),
+            "rc": np.full(n, _SKIP, np.int32),
+        }
+        ctxs = (C.c_void_p * n)()
+        bufp = (_u8p * n)()
+        lens = np.zeros(n, np.int32)
+        for s, (dec, b) in enumerate(zip(self.decoders, views)):
+            if b is None:
+                continue
+            ctxs[s] = dec._ctx
+            bufp[s] = b.ctypes.data_as(_u8p)
+            lens[s] = b.size
+        host_lib().eal_mp3_parse_frame_batch(
+            n, ctxs, bufp, lens.ctypes.data_as(_i32p), int(use_size),
+            *(out[k].ctypes.data_as(_i32p) for k in ("huff", "params", "sf", "frame", "sfjs",
+                                                      "consumed", "clear", "err_gr", "rc")))
+        return out
+
+    @staticmethod
+    def _as_view(buf):
+        if buf is None:
+            return None
+        return (np.frombuffer(buf, np.uint8) if isinstance(buf, (bytes, bytearray))
+                else np.ascontiguousarray(buf))
+
+    @staticmethod
+    def _sync_ahead(view, pos: int) -> int:
+        """Advance ``pos`` to the next frame sync word (the reference caller
+        protocol, mp3_decoder.cpp:8533-8568); ``view.size`` when there is
+        none."""
+        if pos >= view.size:
+            return view.size
+        sub = view[pos:]
+        off = host_lib().eal_mp3_find_sync_word(sub.ctypes.data_as(_u8p), sub.size)
+        return pos + off if off >= 0 else view.size
+
+    def _run_group(self, streams, arrays, vindex):
+        """Synthesize one group's granules (``arrays`` as
+        ``mp3_pipeline.decode_granules_run`` takes them) on the fleet's
+        device state; commits the state and the FIFO phase. Returns (pcm,
+        ref_undef) on the device."""
+        pcm, new_state, ref_undef = mp3_pipeline.decode_granules_run(
+            *arrays, self._gather_state(streams), vindex)
+        self._scatter_state(streams, new_state)
+        new_vindex = mp3_pipeline._advance_vindex(vindex, arrays[0].shape[1])
+        for s in streams:
+            self._vindex[s] = new_vindex
+        return pcm, ref_undef
+
+    def decode(self, buffers, use_size=False):
+        """One frame per stream: returns a list of (err, pcm | None, consumed).
+
+        Pass None for a stream to skip it this step (its state is kept).
+        Semantics per stream match ``MP3Decoder.decode``, including the
+        MP3ClearBadFrame zero-fill and the partial-granule state update of a
+        mid-frame error (reference mp3_decoder.cpp:8677-8685, 8807-8854).
+        """
+        n = len(self.decoders)
+        assert len(buffers) == n
+        pa = self._parse_batch([self._as_view(b) for b in buffers], use_size)
+        results = [None] * n
+        work = {}   # group key -> streams
+        for s, dec in enumerate(self.decoders):
+            if pa["rc"][s] == _SKIP:
+                continue
+            err = MP3Error(int(pa["rc"][s]))
+            frame = pa["frame"][s]
+            dec._last_frame = frame
+            ngr, nch, ngs = int(frame[6]), int(frame[5]), int(frame[7])
+            self.last_frame_reference_defined[s] = True
+            if err != MP3Error.NONE:
+                results[s] = (err, np.zeros(ngr * ngs * nch, np.int16) if pa["clear"][s]
+                              else None, int(pa["consumed"][s]))
+                ngr = max(int(pa["err_gr"][s]), 0)
+            if ngr > 0:
+                key = (int(frame[0]), int(frame[4]), nch, self._vindex[s], ngr)
+                work.setdefault(key, []).append(s)
+
+        for (_, _, _, vindex, ngr), streams in work.items():
+            frame = pa["frame"][streams]
+            arrays = (pa["huff"][streams, :ngr], pa["params"][streams, :ngr],
+                      pa["sf"][streams, :ngr], np.repeat(frame[:, None], ngr, 1),
+                      np.repeat(pa["sfjs"][streams][:, None], ngr, 1))
+            pcm, ref_undef = self._run_group(streams, arrays, vindex)
+            pcm_np, undef = _to_host(pcm), _to_host(ref_undef)
+            for k, s in enumerate(streams):
+                self.last_frame_reference_defined[s] = not bool(undef[k])
+                if results[s] is None:   # success: emit the PCM
+                    results[s] = (MP3Error.NONE, pcm_np[k], int(pa["consumed"][s]))
+        return results
+
+    @staticmethod
+    def _peek_format(view, pos):
+        """(ver, sr_idx, nch) from the 4 header bytes at pos, or None when
+        they cannot be a Layer III header (the parse then reports the
+        error). Field layout per ISO/IEC 11172-3 §2.4.1.3."""
+        if pos + 4 > view.size:
+            return None
+        b1, b2, b3 = int(view[pos + 1]), int(view[pos + 2]), int(view[pos + 3])
+        if int(view[pos]) != 0xFF or (b1 & 0xF0) != 0xF0:
+            return None
+        ver_idx = (b1 >> 3) & 0x03
+        ver = 2 if ver_idx == 0 else (0 if (ver_idx & 1) else 1)
+        return (ver, (b2 >> 2) & 0x03, 1 if ((b3 >> 6) & 0x03) == 3 else 2)
+
+    def decode_run(self, buffers, n_frames, use_size=False, to_device=False):
+        """Serving-rate API: decode up to ``n_frames`` sequential frames per
+        stream, synthesizing each format group's whole run of granules in one
+        kernel launch per dispatch slice.
+
+        Per-frame semantics are those of repeated :meth:`decode` calls with
+        the reference caller protocol between frames (skip reservoir slack to
+        the next sync word after each successful frame). A stream's run ends
+        at its first error frame (included, with the partial-granule state
+        update), at the end of its buffer, or before a format change.
+        ``last_frame_reference_defined`` aggregates over the run.
+
+        Returns :class:`MP3RunResult`. With ``to_device=True`` (a uniform,
+        error-free fleet: one format group holding every stream) returns
+        :class:`MP3DeviceRunResult`, ``(pcm_dev, consumed_list)`` with
+        ``pcm_dev`` int16 ``[n_streams, run_samples]`` left on the device
+        for composition (``pcm_dev.view(torch.uint8)`` is the packed PCM).
+        A fleet that breaks those conditions raises ``ValueError`` and is
+        left as it was before the call.
+        """
+        views = [self._as_view(b) for b in buffers]
+        if not to_device:
+            return self._dispatch_run(self._parse_run(views, n_frames, use_size))
+        # the parse advances every native bit reservoir before the
+        # conditions can be checked: snapshot, and roll back on failure
+        snaps = [(d._native_snapshot(), d._last_frame) for d in self.decoders]
+        try:
+            return self._dispatch_run(self._parse_run(views, n_frames, use_size), True)
+        except ValueError:
+            for d, (blob, lf) in zip(self.decoders, snaps):
+                d._native_restore(blob)
+                d._last_frame = lf
+            raise
+
+    def _parse_run(self, views, n_frames, use_size=False):
+        """Host phase of a run: parse up to n_frames per stream. Changes
+        only the native front-ends (reservoirs), never device state.
+        Returns the parses, per-stream frame plans and end positions."""
+        n = len(self.decoders)
+        pos = [0] * n
+        active = [v is not None and v.size > 0 for v in views]
+        fmt0 = [None] * n
+        perstream = [[] for _ in range(n)]   # (parse index, err, clear, consumed, granules)
+        parses = []
+        for _ in range(n_frames):
+            ins = [None] * n
+            for s in range(n):
+                if not active[s]:
+                    continue
+                fmt = self._peek_format(views[s], pos[s])
+                if fmt is not None and fmt0[s] is not None and fmt != fmt0[s]:
+                    active[s] = False   # a format change: the next call takes it
+                    continue
+                ins[s] = views[s][pos[s]:]
+            if all(v is None for v in ins):
+                break
+            pa = self._parse_batch(ins, use_size)
+            parses.append(pa)
+            for s in range(n):
+                if ins[s] is None or pa["rc"][s] == _SKIP:
+                    continue
+                err = MP3Error(int(pa["rc"][s]))
+                consumed = int(pa["consumed"][s])
+                frame = pa["frame"][s]
+                pos[s] += consumed
+                self.decoders[s]._last_frame = frame
+                if err == MP3Error.NONE:
+                    pos[s] = self._sync_ahead(views[s], pos[s])
+                    ngr = int(frame[6])
+                    fmt0[s] = (int(frame[0]), int(frame[4]), int(frame[5]))
+                else:
+                    ngr = max(int(pa["err_gr"][s]), 0)
+                    active[s] = False
+                perstream[s].append((len(parses) - 1, err, bool(pa["clear"][s]), consumed, ngr))
+                if active[s] and pos[s] >= views[s].size:
+                    active[s] = False
+        return {"parses": parses, "perstream": perstream, "pos": pos}
+
+    def _run_groups(self, parsed):
+        """Group a parsed run's streams by (format, FIFO phase, granules):
+        {key: streams}, key = (ver, sr_idx, nch, vindex, G)."""
+        work = {}
+        for s, plan in enumerate(parsed["perstream"]):
+            if not plan:
+                continue
+            G = sum(k for *_, k in plan)
+            first = parsed["parses"][plan[0][0]]["frame"][s]
+            key = (int(first[0]), int(first[4]), int(first[5]), self._vindex[s], G)
+            work.setdefault(key, []).append(s)
+        return work
+
+    @staticmethod
+    def _group_arrays(parsed, streams, G):
+        """The run arrays of a group: huff [B, G, 2, 576], params, sf,
+        frame [B, G, 16], sfjs [B, G, 8], each stream's granules in order."""
+        B = len(streams)
+        huff_g = np.empty((B, G, 2, 576), np.int32)
+        params_g = np.empty((B, G, 2, 24), np.int32)
+        sf_g = np.empty((B, G, 2, 62), np.int32)
+        frame_g = np.empty((B, G, 16), np.int32)
+        sfjs_g = np.empty((B, G, 8), np.int32)
+        for bi, s in enumerate(streams):
+            g = 0
+            for (fi, _err, _clear, _con, k) in parsed["perstream"][s]:
+                pa = parsed["parses"][fi]
+                huff_g[bi, g:g + k] = pa["huff"][s][:k]
+                params_g[bi, g:g + k] = pa["params"][s][:k]
+                sf_g[bi, g:g + k] = pa["sf"][s][:k]
+                frame_g[bi, g:g + k] = pa["frame"][s]
+                sfjs_g[bi, g:g + k] = pa["sfjs"][s]
+                g += k
+        return huff_g, params_g, sf_g, frame_g, sfjs_g
+
+    def _dispatch_run(self, parsed, to_device=False):
+        """Device phase of a run: group, synthesize, assemble the results.
+        Changes the device state and the FIFO phases; call in run order."""
+        n = len(self.decoders)
+        parses, perstream = parsed["parses"], parsed["perstream"]
+        work = self._run_groups(parsed)
+        if to_device:
+            if len(work) != 1:
+                raise ValueError("to_device requires a uniform fleet (one format group)")
+            (key, streams), = work.items()
+            if len(streams) != n:
+                raise ValueError("to_device requires every stream in the group")
+            if any(e != MP3Error.NONE for plan in perstream for _, e, *_ in plan):
+                raise ValueError("to_device requires an error-free run")
+            pcm, ref_undef = self._run_group(streams, self._group_arrays(parsed, streams, key[4]),
+                                             key[3])
+            for s, u in zip(streams, _to_host(ref_undef)):
+                self.last_frame_reference_defined[s] = not bool(u)
+            return MP3DeviceRunResult(pcm, [sum(c for *_, c, _k in perstream[s])
+                                            for s in streams], parsed["pos"])
+
+        results = [[] for _ in range(n)]
+        pending = []   # (pcm, ref_undef, streams, nch) per dispatch slice, in order
+        for (ver, sr_idx, nch, vindex, G), streams in work.items():
+            if G == 0:
+                pending.append((None, None, streams, nch))
+                continue
+            arrays = self._group_arrays(parsed, streams, G)
+            # stream-axis slices of about MP3_SLICE_PCM_BYTES of PCM each:
+            # the host packs and uploads a slice while the card runs the last
+            B = len(streams)
+            n_sl = max(1, -(-B * G * 576 * nch * 2 // transport.MP3_SLICE_PCM_BYTES))
+            per = -(-B // n_sl)
+            for c0 in range(0, B, per):
+                chunk = streams[c0:c0 + per]
+                pcm, ref_undef = self._run_group(chunk, tuple(a[c0:c0 + per] for a in arrays),
+                                                 vindex)
+                pending.append((pcm, ref_undef, chunk, nch))
+        for pcm, ref_undef, chunk, nch in pending:
+            pcm_np = None if pcm is None else _to_host(pcm)
+            undef = None if ref_undef is None else _to_host(ref_undef)
+            for bi, s in enumerate(chunk):
+                if undef is not None:
+                    self.last_frame_reference_defined[s] = not bool(undef[bi])
+                off = 0
+                for (fi, err, clear, consumed, k) in perstream[s]:
+                    if err == MP3Error.NONE:
+                        results[s].append((err, pcm_np[bi, off:off + k * 576 * nch].copy(),
+                                           consumed))
+                    else:
+                        frame = parses[fi]["frame"][s]
+                        ntot = int(frame[6]) * int(frame[7]) * int(frame[5])
+                        results[s].append((err, np.zeros(ntot, np.int16) if clear else None,
+                                           consumed))
+                    off += k * 576 * nch
+        return MP3RunResult(results, parsed["pos"])
+
+
+def parsed_runs(bat: BatchedMP3Decoder, buffers, n_frames: int):
+    """Parse one run of ``bat``'s fleet (advancing its native front-ends,
+    not its device state) and yield, per format group, ``(fmt, vindex,
+    streams, huff_gs, side_gs)`` with ``fmt = (ver, sr_idx, nch, cutoff)``
+    and the host operands of the group's kernel launch
+    (``mp3_pipeline.run_operands``): real parsed runs for holding
+    ``mp3_granules_cuda`` to its plain version."""
+    parsed = bat._parse_run([bat._as_view(b) for b in buffers], n_frames)
+    for (_, _, _, vindex, G), streams in bat._run_groups(parsed).items():
+        if G:
+            fmt, huff_gs, side_gs = mp3_pipeline.run_operands(
+                *bat._group_arrays(parsed, streams, G))
+            yield fmt, vindex, streams, huff_gs, side_gs

@@ -1,0 +1,285 @@
+"""MP3 device pipeline of the port: dequant -> IMDCT -> subband per granule,
+the counterpart of the exact tier of esp_audio_libs_tpu/models/mp3_pipeline.py.
+
+``MP3Decoder.decode`` (the Helix ``MP3Decode`` equivalent, reference
+src/decode/mp3_decoder.cpp:8807-8854) and ``BatchedMP3Decoder`` land here:
+streams ride as lanes, every stage is int32/int64 fixed point, byte-exact
+against the JAX package. A run of G granules for B streams of one format is
+one upload of the stacked spectra and side parameters and one launch of the
+hand-written kernel ``ops.mp3_kernels.mp3_granules_cuda``
+(csrc/mp3_granules.cu), which carries the overlap, block-type and FIFO state
+from granule to granule on the card. On CPU tensors the same call runs its
+plain version, a loop of :func:`_granule_body` over the granules.
+
+The JAX package's relaxed-precision tiers (``fast``, ``mxu``) are not
+ported: they are within 1 LSB only and were slower than this tier.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import mp3dsp, mp3imdct, mp3subband
+from ..ops.mp3_kernels import mp3_granules_cuda
+from ..runtime import transport
+from ..runtime.tables import mp3_tables
+from .flac import _put, _to_host
+from .mp3 import expand_hp_device, granule_params_compact_blob
+
+__all__ = ["decode_granules", "decode_granules_batch", "decode_granules_batch_dev",
+           "decode_granules_run", "run_operands"]
+
+INT_MIN = -(2 ** 31)
+
+# escape-density ceiling for the int8 + sideband spectral transport tier
+# (runtime/transport.py); tests force it to 0.0 / 1.0
+ESC_MAX_DENSITY = transport.ESC_MAX_DENSITY
+
+
+def _pack_huff16(huff_np: np.ndarray) -> np.ndarray:
+    """Pack sign-in-MSB int32 spectral magnitudes to int16 for transport.
+
+    Lossless: a Layer III magnitude is at most 15 + (2^13 - 1) = 8206 (the
+    largest linbits field is 13, ISO/IEC 11172-3 Table B.7), so it fits 15
+    bits and the sign moves from bit 31 to bit 15. The granule body widens
+    it back.
+    """
+    h = huff_np.astype(np.int32, copy=False)
+    return (((h & 0x7FFF) | ((h >> 16) & 0x8000)).astype(np.uint16)).view(np.int16)
+
+
+def _pack_huff8(huff16: np.ndarray):
+    """Narrow an int16-packed spectral plane (see ``_pack_huff16``) to int8
+    plus a sparse escape sideband, if the escapes are rare enough.
+
+    The sign moves from bit 15 to bit 7; magnitudes above 127 ship as
+    (flat position, packed int16 value) pairs that :func:`_esc_fixup_flat`
+    puts back on the device. Returns ``(plane8, esc_pos, esc_val)``, or
+    ``None`` when the escape density exceeds ``ESC_MAX_DENSITY``.
+    """
+    u = huff16.view(np.uint16)
+    mag = u & 0x7FFF
+    esc = mag > 127
+    if int(np.count_nonzero(esc)) > ESC_MAX_DENSITY * huff16.size:
+        return None
+    plane8 = ((mag & 0x7F) | ((u >> 8) & 0x80)).astype(np.uint8).view(np.int8)
+    flat = np.flatnonzero(esc.reshape(-1))
+    pos, val = transport.escape_sideband(flat, huff16.reshape(-1)[flat],
+                                         oob_index=huff16.size, val_dtype=np.int16)
+    return plane8, pos, val
+
+
+def _granule_body(huff_g, nzb_in, compact, maps, over, prev_type, prev_win_switch, num_prev,
+                  vbuf, block_type, mixed, vindex, ref_undef, *, nch, cutoff):
+    """One granule for B streams, plain PyTorch: the body of the whole-run
+    scan that csrc/mp3_granules.cu runs on the card.
+
+    Args (B streams): huff_g int16 ``[B, nch, 576]`` packed as
+    ``_pack_huff16``; nzb_in ``[B, nch]``; compact ``[B, _GPC_SIZE]``; maps
+    the format's ``format_maps``; the carried state over ``[B, 2, 288]``,
+    prev_type/prev_win_switch/num_prev ``[B, 2]``, vbuf ``[B, 2176]``;
+    block_type/mixed ``[B * nch]``; vindex the FIFO phase (an int);
+    ref_undef bool ``[B]``.
+
+    ``ref_undef`` accumulates the reference's undefined case: gb == 31
+    means the guard-bit mask was zero and the reference computes CLZ(0),
+    whose garbage rescales new samples and the carried overlap unless all of
+    them are zero. Returns (pcm int16 ``[B, 576 * nch]``, over, prev_type,
+    prev_win_switch, num_prev, vbuf, vindex, ref_undef).
+    """
+    B = huff_g.shape[0]
+    v = huff_g.to(torch.int32)            # sign-extends the bit-15 flag
+    mag = v & 0x7FFF
+    huff = torch.where(v < 0, mag | INT_MIN, mag)
+    hp = expand_hp_device(compact, maps, nch)
+    dq = mp3dsp.dequantize_granule(huff, nzb_in, hp, nch=nch)
+    x = dq["x"].reshape(B * nch, 576)
+    gb_in = dq["gb"][:, :nch]
+    undef = (gb_in == 31) & ((dq["x"][:, :nch] != 0).any(-1) | (over[:, :nch] != 0).any(-1))
+    ref_undef = ref_undef | undef.any(-1)
+
+    out, new_over, _, gb_out, n_out, cws = mp3imdct.imdct_granule(
+        x, over[:, :nch].reshape(B * nch, 32, 9), dq["nzb"][:, :nch].reshape(-1),
+        gb_in.reshape(-1), block_type, mixed, prev_type[:, :nch].reshape(-1),
+        prev_win_switch[:, :nch].reshape(-1), torch.full_like(block_type, cutoff),
+        num_prev[:, :nch].reshape(-1))
+
+    over, prev_type = over.clone(), prev_type.clone()
+    prev_win_switch, num_prev = prev_win_switch.clone(), num_prev.clone()
+    over[:, :nch] = new_over.reshape(B, nch, 288)
+    prev_type[:, :nch] = block_type.reshape(B, nch)
+    prev_win_switch[:, :nch] = cws.reshape(B, nch)
+    num_prev[:, :nch] = n_out.reshape(B, nch)
+
+    pcm, vbuf = mp3subband.subband_granule(out.reshape(B, nch, 18, 32), gb_out.reshape(B, nch),
+                                           vbuf, vindex, nch=nch)
+    vindex = (vindex - 9) & 7   # 9 odd steps per granule advance the phase
+    return pcm, over, prev_type, prev_win_switch, num_prev, vbuf, vindex, ref_undef
+
+
+def _granules_scan_for(ver: int, sr_idx: int, nch: int, cutoff: int):
+    """The whole-run scan of one format: ``scan_fn(huff_gs, side_gs, over,
+    prev_type, prev_win_switch, num_prev, vbuf, vindex0)``.
+
+    ``huff_gs`` int16 ``[G, B, nch, 576]`` (``_pack_huff16``); ``side_gs``
+    int32 ``[G, B, 3 * nch + _GPC_SIZE]`` packs nzb | block_type | mixed |
+    compact blob per granule. Returns (pcm int16 ``[G, B, 576 * nch]``,
+    new state, ref_undef bool ``[B]``). On the card: one launch of
+    ``mp3_granules_cuda``; on the CPU: its plain version.
+    """
+    def scan_fn(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev, vbuf, vindex0):
+        return mp3_granules_cuda(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev,
+                                 vbuf, int(vindex0), ver=ver, sr_idx=sr_idx, nch=nch,
+                                 cutoff=cutoff)
+    return scan_fn
+
+
+def _widen_esc16(huff8_gs):
+    """int8 spectral plane (sign in bit 7) -> the int16-packed form the scan
+    consumes (sign in bit 15, 7-bit magnitude)."""
+    v8 = huff8_gs.to(torch.int16)          # sign-extends bit 7
+    mag = v8 & 0x7F
+    return torch.where(v8 < 0, mag | -(2 ** 15), mag)
+
+
+def _esc_fixup_flat(h16, esc_pos, esc_val):
+    """Flat-index escape scatter; positions past the plane (the sideband's
+    padding) land in one spare slot that is dropped, so nothing syncs."""
+    n = h16.numel()
+    flat = torch.cat([h16.reshape(-1), h16.new_zeros(1)])
+    flat[esc_pos.to(torch.int64).clamp(0, n)] = esc_val.to(flat.dtype)
+    return flat[:n].reshape(h16.shape)
+
+
+def _granules_scan_esc_for(ver: int, sr_idx: int, nch: int, cutoff: int):
+    """Escape-sideband form of :func:`_granules_scan_for`:
+    ``esc_fn(huff8_gs, esc_pos, esc_val, side_gs, *state, vindex0)``. The
+    int8 plane widens and the escapes scatter back on the device (torch
+    ops), then the same scan runs, so only the transport narrows."""
+    scan_fn = _granules_scan_for(ver, sr_idx, nch, cutoff)
+
+    def esc_fn(huff8_gs, esc_pos, esc_val, *rest):
+        return scan_fn(_esc_fixup_flat(_widen_esc16(huff8_gs), esc_pos, esc_val), *rest)
+    return esc_fn
+
+
+def _advance_vindex(vindex: int, ngr: int) -> int:
+    """FIFO phase after ngr granules: 9 odd steps per granule each decrement
+    the phase mod 8."""
+    return (vindex - 9 * ngr) & 7
+
+
+def decode_granules(huff, params, sf, frame, sfjs, state, n_granules=None, device="cuda"):
+    """Decode all granules of one parsed frame (one stream) on ``device``.
+
+    Args:
+      huff: int32 [2, 2, 576]; params: [2, 2, 24]; sf: [2, 2, 62];
+      frame: [16]; sfjs: [8] (the native front-end's layout).
+      state: (over [2, 288], prev_type [2], prev_win_switch [2],
+              num_prev [2], vbuf [2176], vindex int), numpy.
+
+    Returns (pcm int16 [nGrans * 576 * nChans], new state tuple,
+    reference_defined).
+    """
+    over, prev_type, prev_win_switch, num_prev, vbuf, vindex = state
+    ngr = int(frame[6])
+    if n_granules is not None:
+        ngr = min(ngr, n_granules)
+    pcm, states, rdef = decode_granules_batch(
+        huff[None], params[None], sf[None], frame[None], sfjs[None],
+        [(over, prev_type, prev_win_switch, num_prev, vbuf)], vindex, ngr, device=device)
+    nch = int(frame[5])
+    return (pcm[0].reshape(-1)[: ngr * 576 * nch], (*states[0], _advance_vindex(vindex, ngr)),
+            bool(rdef[0]))
+
+
+def decode_granules_batch(huff, params, sf, frame, sfjs, states, vindex, ngr, device="cuda"):
+    """Decode ``ngr`` granules for ``B`` format-uniform streams in lockstep.
+
+    All streams share (version, samplerate index, nChans, vindex), the
+    grouping ``BatchedMP3Decoder`` establishes.
+
+    Args:
+      huff: int32 [B, 2, 2, 576]; params [B, 2, 2, 24]; sf [B, 2, 2, 62];
+      frame [B, 16]; sfjs [B, 8].
+      states: B per-stream tuples (over [2, 288], prev_type [2],
+        prev_win_switch [2], num_prev [2], vbuf [2176]), numpy.
+      vindex: the shared FIFO phase; ngr: granules to synthesize.
+
+    Returns (pcm int16 [B, ngr * 576 * nch], new per-stream state tuples,
+    reference_defined bool [B]).
+    """
+    dev = torch.device(device)
+    dev_state = tuple(_put(np.stack([s[i] for s in states]), dev) for i in range(5))
+    pcm, dev_state, ref_undef = decode_granules_batch_dev(huff, params, sf, frame, sfjs,
+                                                          dev_state, vindex, ngr)
+    st_np = tuple(_to_host(v) for v in dev_state)
+    new_states = [tuple(a[b] for a in st_np) for b in range(huff.shape[0])]
+    return _to_host(pcm), new_states, ~_to_host(ref_undef)
+
+
+def decode_granules_batch_dev(huff, params, sf, frame, sfjs, dev_state, vindex, ngr):
+    """Device-resident variant: ``dev_state`` is a tuple of stacked tensors
+    (over [B, 2, 288], prev_type [B, 2], prev_win_switch [B, 2], num_prev
+    [B, 2], vbuf [B, 2176]) on the device that runs the granules. Returns
+    (pcm [B, ngr * 576 * nch], new dev_state, ref_undef bool [B]) there."""
+    G = ngr
+    frame_g = np.repeat(np.asarray(frame)[:, None], max(G, 1), axis=1)
+    sfjs_g = np.repeat(np.asarray(sfjs)[:, None], max(G, 1), axis=1)
+    return decode_granules_run(huff[:, :G], params[:, :G], sf[:, :G], frame_g[:, :G],
+                               sfjs_g[:, :G], dev_state, vindex)
+
+
+def run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g):
+    """Host operands of a run's scan (arguments as
+    :func:`decode_granules_run`): ``((ver, sr_idx, nch, cutoff), huff_gs
+    int16 [G, B, nch, 576], side_gs int32 [G, B, 3 * nch + _GPC_SIZE])``,
+    numpy. side_gs packs nzb | block_type | mixed | the compact blob."""
+    B, G = huff_g.shape[:2]
+    nch = int(frame_g[0, 0, 5])
+    ver, sr_idx = int(frame_g[0, 0, 0]), int(frame_g[0, 0, 4])
+    cutoff = int(mp3_tables()["sfBandLong"][ver][sr_idx][8 if ver == 0 else 6] // 18)
+    huff_gs = _pack_huff16(np.ascontiguousarray(huff_g[:, :, :nch].swapaxes(0, 1)))
+    side_gs = None
+    for g in range(G):
+        blob = granule_params_compact_blob(params_g[:, g], sf_g[:, g], frame_g[:, g],
+                                           sfjs_g[:, g], params_g[:, g, :nch, 18], nch)
+        if side_gs is None:
+            side_gs = np.empty((G, B, 3 * nch + blob.shape[-1]), np.int32)
+        side_gs[g, :, 0:nch] = params_g[:, g, :nch, 18]
+        side_gs[g, :, nch:2 * nch] = params_g[:, g, :nch, 5]
+        side_gs[g, :, 2 * nch:3 * nch] = params_g[:, g, :nch, 6]
+        side_gs[g, :, 3 * nch:] = blob
+    return (ver, sr_idx, nch, cutoff), huff_gs, side_gs
+
+
+def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vindex):
+    """Synthesize a run of G granules (any mix of frames) for B
+    format-uniform streams: one upload and one scan.
+
+    Inputs carry a granule axis: huff_g int32 [B, G, 2, 576], params_g
+    [B, G, 2, 24], sf_g [B, G, 2, 62], frame_g [B, G, 16], sfjs_g [B, G, 8].
+    Streams share (version, samplerate index, nChans) and the starting
+    ``vindex``. The scan runs on ``dev_state``'s device.
+
+    Returns (pcm [B, G * 576 * nch], new dev_state, ref_undef bool [B]).
+    """
+    B, G = huff_g.shape[:2]
+    dev = dev_state[0].device
+    if G == 0:
+        return (torch.zeros((B, 0), dtype=torch.int16, device=dev), tuple(dev_state),
+                torch.zeros(B, dtype=torch.bool, device=dev))
+    fmt, huff_gs, side_gs = run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g)
+    side_dev = _put(side_gs, dev)
+    narrowed = _pack_huff8(huff_gs)
+    if narrowed is not None:
+        plane8, esc_pos, esc_val = narrowed
+        pcm_gs, new_state, ref_undef = _granules_scan_esc_for(*fmt)(
+            _put(plane8, dev), _put(esc_pos, dev), _put(esc_val, dev), side_dev,
+            *dev_state, vindex)
+    else:
+        pcm_gs, new_state, ref_undef = _granules_scan_for(*fmt)(
+            _put(huff_gs, dev), side_dev, *dev_state, vindex)
+    # [G, B, 576 * nch] -> [B, G * 576 * nch]
+    return pcm_gs.transpose(0, 1).reshape(B, -1), new_state, ref_undef

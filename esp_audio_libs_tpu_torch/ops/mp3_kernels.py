@@ -1,0 +1,154 @@
+"""Wrapper of the hand-written CUDA MP3 granule kernel, its plain PyTorch
+version and its launch count.
+
+``mp3_granules_cuda`` (csrc/mp3_granules.cu) replaces the JAX package's
+whole-run granule scan, ``_granules_scan_for`` with its body
+``_granule_body`` (esp_audio_libs_tpu/models/mp3_pipeline.py:90-265): an
+XLA ``lax.scan``, not a Pallas kernel. Eager PyTorch would run it as a few
+hundred launches per granule, so on the card it is one kernel: every granule
+of a run, for B streams of one format, in one launch, the carried state
+(overlap, block types, IMDCT block counts, the subband FIFO) never leaving
+the card between granules. Its plain version is :func:`mp3_granules_plain`,
+a loop of ``models.mp3_pipeline._granule_body`` over the granules.
+
+A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
+launches the kernel on the current stream or raises; there is no fallback.
+Any other device raises. ``mp3_granules_cuda.launches`` counts kernel
+launches only.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..runtime import kernels
+from ..runtime.tables import mp3_tables
+from .polyphase_kernels import _raise_on, _route
+
+__all__ = ["CONST_LAYOUT", "format_consts", "mp3_granules_cuda", "mp3_granules_plain",
+           "reset_launch_counts"]
+
+GPC_SIZE = 235   # models.mp3._GPC_SIZE: the compact parameter blob's words
+
+# The kernel's per-format constants: one int32 buffer, these blocks in this
+# order (csrc/mp3_granules.cu reads them at the same offsets). The first six
+# are format_maps(ver, sr_idx); the rest are mp3_tables(), flattened.
+CONST_LAYOUT = (("long_band", 576), ("band_out_l", 576), ("band_out_s", 576),
+                ("win_out", 576), ("sfb_l", 23), ("sfb_s", 14), ("pow14", 4),
+                ("pow43_14", 64), ("pow43", 48), ("poly43lo", 5), ("poly43hi", 5),
+                ("pow2exp", 8), ("pow2frac", 8), ("csa", 16), ("imdctWin", 144),
+                ("fastWin36", 18), ("c18", 9), ("c9", 5), ("dcttab", 48), ("polyCoef", 264),
+                ("ISFMpeg1", 14), ("ISFMpeg2", 64), ("ISFIIP", 4))
+
+
+@functools.lru_cache(None)
+def _consts_np(ver: int, sr_idx: int) -> np.ndarray:
+    from ..models.mp3 import format_maps
+    maps, T = format_maps(ver, sr_idx), mp3_tables()
+    T = dict(T, c9=np.array([T[f"c9_{i}"] for i in range(5)]))
+    parts = []
+    for name, n in CONST_LAYOUT:
+        a = np.asarray(maps[name] if name in maps else T[name], np.int32).reshape(-1)
+        if a.size != n:
+            raise AssertionError(f"{name}: {a.size} words, the layout says {n}")
+        parts.append(a)
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(None)
+def format_consts(ver: int, sr_idx: int, device: torch.device) -> torch.Tensor:
+    """The kernel's constants of one format on ``device`` (built and
+    uploaded once), after checking that csrc/mp3_granules.cu reads the
+    layout ``CONST_LAYOUT`` describes."""
+    sizes = np.zeros(64, np.int32)
+    n = kernels.library().eal_mp3_consts_layout(sizes.ctypes.data)
+    if tuple(sizes[:n]) != tuple(size for _, size in CONST_LAYOUT):
+        raise RuntimeError("csrc/mp3_granules.cu reads another constants layout than "
+                           "CONST_LAYOUT")
+    return torch.as_tensor(_consts_np(ver, sr_idx), device=device)
+
+
+def mp3_granules_plain(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev, vbuf,
+                       vindex: int, *, ver: int, sr_idx: int, nch: int, cutoff: int):
+    """Plain version of the kernel: ``models.mp3_pipeline._granule_body``
+    over the G granules in turn. Arguments and results as
+    :func:`mp3_granules_cuda`."""
+    from ..models.mp3 import format_maps
+    from ..models.mp3_pipeline import _granule_body
+
+    maps = format_maps(ver, sr_idx)
+    G, B = huff_gs.shape[:2]
+    ref_undef = torch.zeros(B, dtype=torch.bool, device=huff_gs.device)
+    state = (over, prev_type, prev_win_switch, num_prev, vbuf)
+    pcm = []
+    for g in range(G):
+        side = side_gs[g]
+        p, *state, vindex, ref_undef = _granule_body(
+            huff_gs[g], side[:, :nch], side[:, 3 * nch:], maps, *state[:5],
+            side[:, nch:2 * nch].reshape(-1), side[:, 2 * nch:3 * nch].reshape(-1), vindex,
+            ref_undef, nch=nch, cutoff=cutoff)
+        pcm.append(p)
+    return torch.stack(pcm), tuple(state), ref_undef
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape: tuple) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dtype} {list(shape)}, got "
+                         f"{t.dtype} {list(t.shape)}")
+
+
+def mp3_granules_cuda(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev, vbuf,
+                      vindex: int, *, ver: int, sr_idx: int, nch: int, cutoff: int):
+    """Every granule of a run for B streams of one format, in one launch.
+
+    Args:
+      huff_gs: int16 ``[G, B, nch, 576]`` spectra, sign in bit 15
+        (``models.mp3_pipeline._pack_huff16``).
+      side_gs: int32 ``[G, B, 3 * nch + 235]``: nzb | block_type | mixed |
+        the compact parameter blob, per granule.
+      over ``[B, 2, 288]``, prev_type / prev_win_switch / num_prev
+        ``[B, 2]``, vbuf ``[B, 2176]``: the carried state, int32.
+      vindex: the FIFO phase (0..7) shared by the B streams.
+      ver, sr_idx, nch: the format; cutoff: ``sfBandLong[8 or 6] // 18``.
+
+    Returns (pcm int16 ``[G, B, 576 * nch]``, the new state as a tuple in
+    the order of the arguments, ref_undef bool ``[B]``). The inputs are not
+    changed.
+    """
+    if _route(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev, vbuf) == "cpu":
+        return mp3_granules_plain(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev,
+                                  vbuf, vindex, ver=ver, sr_idx=sr_idx, nch=nch, cutoff=cutoff)
+    if huff_gs.dim() != 4:
+        raise ValueError(f"huff_gs must be [G, B, nch, 576], got {list(huff_gs.shape)}")
+    G, B = huff_gs.shape[:2]
+    if nch not in (1, 2):
+        raise ValueError(f"nch={nch}: MP3 has 1 or 2 channels")
+    _check("huff_gs", huff_gs, torch.int16, (G, B, nch, 576))
+    _check("side_gs", side_gs, torch.int32, (G, B, 3 * nch + GPC_SIZE))
+    _check("over", over, torch.int32, (B, 2, 288))
+    for name, t in (("prev_type", prev_type), ("prev_win_switch", prev_win_switch),
+                    ("num_prev", num_prev)):
+        _check(name, t, torch.int32, (B, 2))
+    _check("vbuf", vbuf, torch.int32, (B, 2176))
+    state = tuple(t.clone() for t in (over, prev_type, prev_win_switch, num_prev, vbuf))
+    pcm = torch.empty((B, G, 576 * nch), dtype=torch.int16, device=huff_gs.device)
+    undef = torch.zeros(B, dtype=torch.int32, device=huff_gs.device)
+    if G and B:
+        consts = format_consts(ver, sr_idx, huff_gs.device)
+        rc = kernels.library().eal_mp3_granules(
+            huff_gs.data_ptr(), side_gs.data_ptr(), consts.data_ptr(),
+            *(t.data_ptr() for t in state), pcm.data_ptr(), undef.data_ptr(), G, B, nch,
+            int(vindex) & 7, int(cutoff), torch.cuda.current_stream(huff_gs.device).cuda_stream)
+        _raise_on(rc, "mp3_granules")
+        mp3_granules_cuda.launches += 1
+    return pcm.transpose(0, 1), state, undef != 0
+
+
+mp3_granules_cuda.launches = 0
+
+
+def reset_launch_counts() -> None:
+    mp3_granules_cuda.launches = 0

@@ -23,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["TILE", "banded_K", "banded_weights_device", "polyphase_apply", "polyphase_banded"]
+__all__ = ["TILE", "banded_K", "banded_weights_device", "build_banded_weights",
+           "polyphase_apply", "polyphase_banded"]
 
 TILE = 128   # output columns per weight tile; the CUDA kernels are built for it
 
@@ -34,6 +35,71 @@ def banded_K(ratio: float, taps_p: int) -> int:
     count; rounded up to 128."""
     span = int(np.ceil((TILE - 1) / float(ratio))) + taps_p + 8
     return ((span + 127) // 128) * 128
+
+
+def build_banded_weights(filters_np, win0x, idx1, idx2, weight, mode, *,
+                         half, direct_row=None, valid_len=None, tile=128,
+                         L=None):
+    """Host-side schedule compression: block-banded weight tiles.
+
+    A copy of the JAX package's host builder: outputs are grouped into tiles
+    of ``tile`` columns; each tile's windows span only
+    ``O(tile*ratio + taps)`` input samples, so its weights fit a small dense
+    ``[K, tile]`` block anchored at ``starts[i]``, the operands of
+    :func:`polyphase_banded`. The port builds the same tiles on the device
+    per chunk (:func:`banded_weights_device`); this numpy form is the
+    reference's public API and a cross-check of it.
+
+    Args:
+      filters_np: f32 ``[F+1, taps']`` numpy filterbank (possibly biquad-folded).
+      win0x: int ``[T]`` window starts in xext coordinates (>= 0, monotonic).
+      idx1, idx2, weight, mode: the phase-grid arrays (numpy).
+      half: taps//2 of the ORIGINAL filterbank (direct-copy tap position).
+      direct_row: optional f32 ``[taps']`` row for mode-0 outputs (used when a
+        pre-filter is folded in: a "copy" must still be lowpassed); defaults
+        to a unit tap at half-1.
+      valid_len: outputs at t >= valid_len get all-zero rows (padded slots).
+      L: xext time length; when given, tile starts are clamped to L - K so a
+        slab never runs past the input (offsets are computed against the
+        clamped starts, so clamping stays aligned).
+    Returns: (Wt f32 ``[nt, K, tile]``, starts int32 ``[nt]``).
+    """
+    T = len(win0x)
+    V = T if valid_len is None else min(int(valid_len), T)
+    tapsp = filters_np.shape[1]
+    w = weight[:V].astype(np.float32)
+    f1 = filters_np[idx1[:V]]
+    f2 = filters_np[idx2[:V]]
+    feff = np.where((mode[:V] == 2)[:, None],
+                    f2 * w[:, None] + f1 * (np.float32(1.0) - w)[:, None],
+                    f1).astype(np.float32)
+    if direct_row is None:
+        direct_row = np.zeros(tapsp, np.float32)
+        direct_row[half - 1] = 1.0
+    feff[mode[:V] == 0] = direct_row
+
+    nt = -(-T // tile)
+    starts = np.zeros(nt, np.int64)
+    span = tapsp
+    for i in range(nt):
+        t0 = min(i * tile, V - 1) if V else 0
+        starts[i] = win0x[t0]
+        last = min((i + 1) * tile, V) - 1
+        if last >= t0:
+            span = max(span, int(win0x[last]) + tapsp - int(starts[i]))
+    K = ((span + 127) // 128) * 128
+    if L is not None:
+        if L < K:
+            raise ValueError(f"xext length {L} shorter than slab width {K}")
+        starts = np.minimum(starts, L - K)
+    Wt = np.zeros((nt, K, tile), np.float32)
+    for t in range(V):
+        i, j = divmod(t, tile)
+        o = int(win0x[t]) - int(starts[i])
+        if o + tapsp > K:   # possible only after clamping; widen would be needed
+            raise ValueError("band exceeds slab after start clamping")
+        Wt[i, o:o + tapsp, j] = feff[t]
+    return Wt, starts.astype(np.int32)
 
 
 def banded_weights_device(filters, direct_row, win0x, idx1, idx2, weight, mode,

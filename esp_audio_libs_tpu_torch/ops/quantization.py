@@ -37,6 +37,8 @@ __all__ = [
     "pack_pcm16_interleave2",
     "int_to_float",
     "float_to_int",
+    "quantized_to_float",
+    "float_to_quantized",
 ]
 
 _INT_MIN = -2147483648
@@ -198,3 +200,26 @@ def float_to_int(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor
     if offset:
         out = out + offset
     return out.to(torch.int32), clipped
+
+
+# ------------------------------------------------------- packed-byte wrappers
+
+
+def quantized_to_float(data: torch.Tensor, bits: int, gain_db: float = 0.0) -> torch.Tensor:
+    """Packed uint8 ``[..., n*B]`` -> f32 ``[..., n]`` with dB gain.
+
+    Batched equivalent of the reference
+    ``quantization_utils::quantized_to_float`` (src/quantization_utils.cpp:6-48).
+    """
+    return int_to_float(unpack_pcm(data, bits), gain_factor(bits, gain_db))
+
+
+def float_to_quantized(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``[..., n]`` -> (packed uint8 ``[..., n*B]``, clipped sample count,
+    an int64 scalar tensor).
+
+    Batched equivalent of the reference
+    ``quantization_utils::float_to_quantized`` (src/quantization_utils.cpp:50-94).
+    """
+    samples, clipped = float_to_int(x, bits)
+    return pack_pcm(samples, bits), clipped.sum()

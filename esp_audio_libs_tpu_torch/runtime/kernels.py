@@ -122,6 +122,9 @@ SIGNATURES = {
     "eal_iir2_sequential": (C.c_int, [_P, _P, _P, _P, _P, _LL, _I, _P]),
     "eal_polyphase_exact": (C.c_int, [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                                       _I, _P]),
+    "eal_mp3_consts_layout": (C.c_int, [_P]),
+    "eal_mp3_granules": (C.c_int, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P]),
 }
 
 

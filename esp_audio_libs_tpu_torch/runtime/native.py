@@ -5,9 +5,11 @@ built from ``native/`` by ``native/build_host.sh``: filter design with exact
 glibc f32 libm semantics, the serial f32 phase-grid recurrence and the FLAC
 bitstream front-end (sync, headers, CRC, Rice decoding into residual tables,
 and the decoder-state save/load blob) come from one C++ source for both
-packages. Bound here: the resampler's four entry points and the FLAC
-front-end; the MP3 front-end is not bound yet. The library is built at first
-use if it is missing (:func:`build_host_library`).
+packages. Bound here: the resampler's four entry points and the FLAC and MP3
+front-ends (MP3: sync search, frame parse one stream or a fleet at a time,
+frame info, the compact per-granule parameter blob and the decoder-state
+blob). The library is built at first use if it is missing
+(:func:`build_host_library`).
 """
 
 from __future__ import annotations
@@ -135,12 +137,34 @@ def host_lib() -> C.CDLL:
         i32p, i32p, i32p, i32p, i32p,                        # order, shift, wasted, use64, coeffs
         i32p, i32p, i32p, i32p, i32p,                        # bs, ca, depth, crc_ok, consumed
         i32p]                                                # last_rc (24 args total)
-    lib.eal_flac_state_size.restype = C.c_size_t
-    lib.eal_flac_state_size.argtypes = [C.c_void_p]
-    lib.eal_flac_state_save.restype = C.c_int
-    lib.eal_flac_state_save.argtypes = [C.c_void_p, u8p, C.c_size_t]
-    lib.eal_flac_state_load.restype = C.c_int
-    lib.eal_flac_state_load.argtypes = [C.c_void_p, u8p, C.c_size_t]
+
+    # ---- MP3 front-end ----
+    lib.eal_mp3_create.restype = C.c_void_p
+    lib.eal_mp3_destroy.argtypes = [C.c_void_p]
+    lib.eal_mp3_find_sync_word.restype = C.c_int
+    lib.eal_mp3_find_sync_word.argtypes = [u8p, C.c_int]
+    lib.eal_mp3_parse_frame.restype = C.c_int
+    lib.eal_mp3_parse_frame.argtypes = [
+        C.c_void_p, u8p, C.c_int, C.c_int,
+        i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p]
+    lib.eal_mp3_parse_frame_batch.restype = C.c_int
+    lib.eal_mp3_parse_frame_batch.argtypes = [
+        C.c_int, C.POINTER(C.c_void_p), C.POINTER(u8p), i32p, C.c_int,
+        i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p]
+    lib.eal_mp3_frame_info.restype = C.c_int
+    lib.eal_mp3_frame_info.argtypes = [C.c_void_p, u8p, i32p]
+    lib.eal_mp3_last_frame_info.restype = C.c_int
+    lib.eal_mp3_last_frame_info.argtypes = [C.c_void_p, i32p]
+    lib.eal_mp3_granule_params_compact_batch.restype = C.c_int
+    lib.eal_mp3_granule_params_compact_batch.argtypes = [C.c_int, i32p, i32p, i32p, i32p,
+                                                         i32p, i32p]
+    for codec in ("flac", "mp3"):
+        getattr(lib, f"eal_{codec}_state_size").restype = C.c_size_t
+        getattr(lib, f"eal_{codec}_state_size").argtypes = [C.c_void_p]
+        getattr(lib, f"eal_{codec}_state_save").restype = C.c_int
+        getattr(lib, f"eal_{codec}_state_save").argtypes = [C.c_void_p, u8p, C.c_size_t]
+        getattr(lib, f"eal_{codec}_state_load").restype = C.c_int
+        getattr(lib, f"eal_{codec}_state_load").argtypes = [C.c_void_p, u8p, C.c_size_t]
     return lib
 
 

@@ -1,5 +1,5 @@
 """Dispatch-slice sizing, the int8 escape sideband and the overlapped host
-parse shared by the FLAC serving paths.
+parse shared by the FLAC and MP3 serving paths.
 
 A torch-free and JAX-free copy of the parts of
 esp_audio_libs_tpu/runtime/transport.py that the port needs. The port
@@ -17,15 +17,21 @@ import threading
 
 import numpy as np
 
-__all__ = ["SLICE_OUT_BYTES", "ESC_MAX_DENSITY", "escape_sideband", "overlapped_parse"]
+__all__ = ["SLICE_OUT_BYTES", "MP3_SLICE_PCM_BYTES", "ESC_MAX_DENSITY", "escape_sideband",
+           "escape_sideband_blocked", "overlapped_parse"]
 
 # target PCM bytes per dispatch slice (the JAX package's value)
 SLICE_OUT_BYTES = 8 << 20
 
-# escape-density ceiling for the int8 + sideband transport tier of FLAC
-# residuals: each escape costs 8 sideband bytes (int32 position and value)
-# against the 1 byte per word the narrower plane saves, so the break-even
-# is 1/8; 1/64 keeps the tier safely profitable.
+# target PCM bytes per MP3 sub-fleet dispatch: the stream-axis slicing of a
+# format group's granule run (the JAX package's value); tests shrink it
+MP3_SLICE_PCM_BYTES = 8 << 20
+
+# escape-density ceiling for the int8 + sideband transport tiers (FLAC
+# residuals, MP3 spectral planes): each escape costs 6 or 8 sideband bytes
+# (an int32 position, an int16 or int32 value) against the 1 byte per word
+# the narrower plane saves, so the break-even is 1/8 to 1/6; 1/64 keeps the
+# tier safely profitable.
 ESC_MAX_DENSITY = 1.0 / 64.0
 
 
@@ -43,6 +49,28 @@ def escape_sideband(esc_flat_idx, flat_vals, oob_index: int, val_dtype):
     val = np.zeros(cap, val_dtype)
     pos[:n_esc] = esc_flat_idx
     val[:n_esc] = flat_vals
+    return pos, val
+
+
+def escape_sideband_blocked(mask2d, vals2d, val_dtype):
+    """Block-local escape sidebands of an int8 plane cut into ``S`` blocks
+    along its leading axis: ``mask2d``/``vals2d`` are the escape mask and the
+    source values as ``[S, M]``, one row per block. Positions are local to
+    the row and padded to one shared power-of-two capacity (at least 16);
+    padding slots carry the out-of-range local index ``M``. The layout of
+    the JAX package's mesh paths, whose per-device split of the stream axis
+    is still to be ported.
+    Returns ``(pos int32[S, cap], val val_dtype[S, cap])``.
+    """
+    S, M = mask2d.shape
+    n_max = int(mask2d.sum(axis=1).max()) if S else 0
+    cap = max(16, 1 << int(n_max - 1).bit_length()) if n_max else 16
+    pos = np.full((S, cap), M, np.int32)
+    val = np.zeros((S, cap), val_dtype)
+    for s in range(S):
+        idx = np.flatnonzero(mask2d[s])
+        pos[s, :idx.size] = idx
+        val[s, :idx.size] = vals2d[s, idx]
     return pos, val
 
 

@@ -14,7 +14,9 @@ plain version byte for byte on the real parsed buckets of
 tools/flac_kernel_fleet.py (numpy and the port only), the fleet that
 chip_smoke.py checks too. The exact-mode kernels (csrc/biquad_exact.cu and
 csrc/polyphase_exact.cu) are held to their plain versions bit for bit
-(NaN positions equal, every other f32 bit pattern equal).
+(NaN positions equal, every other f32 bit pattern equal). The MP3 granule
+kernel (csrc/mp3_granules.cu) is held to its plain version byte for byte,
+new state included, on real parsed runs of tools/mp3frames.py streams.
 """
 
 import dataclasses
@@ -29,9 +31,12 @@ import pytest
 import torch
 
 from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+from esp_audio_libs_tpu_torch.models import mp3_pipeline
+from esp_audio_libs_tpu_torch.models.batch import BatchedMP3Decoder, parsed_runs
 from esp_audio_libs_tpu_torch.ops import biquad as tbq
 from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
 from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 from esp_audio_libs_tpu_torch.ops import quantization as q
@@ -40,6 +45,7 @@ from esp_audio_libs_tpu_torch.runtime.phase_grid import HISTORY_MARGIN, PhaseSta
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import flac_kernel_fleet as fleet  # noqa: E402
+import mp3frames as mf  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -910,3 +916,126 @@ def test_exact_resampler_on_card_equals_cpu(cuda, src, dst):
     for a_stage, b_stage in zip(sg["biquad"], sc["biquad"]):
         for a, b in zip(a_stage, b_stage):
             np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+# ------------------------------------------------------------------ MP3
+
+# the batched-decoder formats plus intensity stereo, MPEG-1 (with mid-side)
+# and MPEG-2
+MP3_CFGS = mf.BATCH_CFGS + [dict(ver_bits=3, bitrate_idx=9, sr_idx=1, mode=1, mode_ext=3),
+                            dict(ver_bits=2, bitrate_idx=7, sr_idx=1, mode=1, mode_ext=1)]
+
+
+def mp3_runs(cfg, B, n_frames, fuzz, seed, n_runs=2):
+    """Real parsed runs of B mixed streams of one format (tools/mp3frames.py):
+    ``n_runs`` consecutive runs of ``n_frames`` frames, each a list of
+    (fmt, vindex, streams, huff_gs, side_gs) per format group. The FIFO
+    phase of a run follows the granules of the run before."""
+    bat = BatchedMP3Decoder(B, device="cpu")
+    streams = [mf.mixed_stream(cfg, seed + i, n_frames * n_runs, fuzz=fuzz) for i in range(B)]
+    runs = []
+    for r in range(n_runs):
+        # frames of one format have one size: run r starts at frame r * n_frames
+        run = list(parsed_runs(bat, [s[len(s) * r // n_runs:] for s in streams], n_frames))
+        for _, vindex, ids, huff_gs, _ in run:
+            for s in ids:
+                bat._vindex[s] = mp3_pipeline._advance_vindex(vindex, huff_gs.shape[0])
+        runs.append(run)
+    return runs
+
+
+def check_mp3_kernel(fmt, vindex, huff_gs, side_gs, state, dev, label):
+    """One launch against the plain version on the same CUDA tensors; returns
+    the kernel's new state."""
+    ver, sr_idx, nch, cutoff = fmt
+    h = torch.as_tensor(huff_gs, device=dev)
+    sd = torch.as_tensor(side_gs, device=dev)
+    kw = dict(ver=ver, sr_idx=sr_idx, nch=nch, cutoff=cutoff)
+    got = mk.mp3_granules_cuda(h, sd, *state, vindex, **kw)
+    want = mk.mp3_granules_plain(h, sd, *state, vindex, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]), f"{label}: PCM differs in {(got[0] != want[0]).sum()}"
+    for name, a, b in zip(("over", "prev_type", "prev_win_switch", "num_prev", "vbuf"),
+                          got[1], want[1]):
+        assert torch.equal(a, b), f"{label}: {name} differs"
+    assert torch.equal(got[2], want[2]), f"{label}: ref_undef differs"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_i", range(len(MP3_CFGS)))
+@pytest.mark.parametrize("B,n_frames,fuzz", [(5, 8, False), (3, 1, False), (7, 4, True)])
+def test_mp3_granules_kernel_matches_plain(cuda, cfg_i, B, n_frames, fuzz):
+    """Every block type (tonal and window-type frames in turn, so nonzero
+    overlap meets each window), both FIFO parities, G = 1 (MPEG-2 one
+    frame; fuzz runs cut short by an error frame), 2 and 16, B = 3, 5, 7;
+    the state of the first run carries into the second."""
+    cfg = MP3_CFGS[cfg_i]
+    gen = torch.Generator().manual_seed(cfg_i)
+    seen, state = set(), None
+    for r_i, run in enumerate(mp3_runs(cfg, B, n_frames, fuzz, 100 * cfg_i + B)):
+        for fmt, vindex, ids, huff_gs, side_gs in run:
+            if state is None or len(ids) != state[0].shape[0]:
+                # a group of its own: zero state, or random state after run 0
+                scale = 0 if state is None else 1
+                n = len(ids)
+                state = tuple(t.to(cuda) for t in (
+                    torch.randint(-2 ** 20, 2 ** 20, (n, 2, 288), generator=gen,
+                                  dtype=torch.int32) * scale,
+                    torch.randint(0, 4, (n, 2), generator=gen, dtype=torch.int32) * scale,
+                    torch.zeros((n, 2), dtype=torch.int32),
+                    torch.randint(0, 33, (n, 2), generator=gen, dtype=torch.int32) * scale,
+                    torch.randint(-2 ** 24, 2 ** 24, (n, 2176), generator=gen,
+                                  dtype=torch.int32) * scale))
+            state = check_mp3_kernel(fmt, vindex, huff_gs, side_gs, state, cuda,
+                                     f"run {r_i} G={huff_gs.shape[0]} B={len(ids)} v={vindex}")[1]
+            seen.add(huff_gs.shape[0])
+    assert seen
+
+
+@pytest.mark.cuda
+def test_mp3_granules_kernel_escape_tier(cuda, monkeypatch):
+    """The int8 + escape-sideband transport (widen and scatter on the card,
+    then one launch) gives the int16 plane's bytes; fuzz spectra carry
+    escapes."""
+    cfg = mf.BATCH_CFGS[1]
+    streams = [mf.fuzz_stream(cfg, 700 + i, 4) for i in range(6)]
+    for fmt, vindex, ids, huff_gs, side_gs in parsed_runs(
+            BatchedMP3Decoder(6, device="cpu"), streams, 4):
+        monkeypatch.setattr(mp3_pipeline, "ESC_MAX_DENSITY", 1.0)
+        narrowed = mp3_pipeline._pack_huff8(huff_gs)
+        assert narrowed is not None
+        plane8, pos, val = (torch.as_tensor(a, device=cuda) for a in narrowed)
+        state = tuple(torch.zeros(s, dtype=torch.int32, device=cuda)
+                      for s in ((len(ids), 2, 288), (len(ids), 2), (len(ids), 2), (len(ids), 2),
+                                (len(ids), 2176)))
+        sd = torch.as_tensor(side_gs, device=cuda)
+        got = mp3_pipeline._granules_scan_esc_for(*fmt)(plane8, pos, val, sd, *state, vindex)
+        want = mk.mp3_granules_plain(torch.as_tensor(huff_gs, device=cuda), sd, *state, vindex,
+                                     ver=fmt[0], sr_idx=fmt[1], nch=fmt[2], cutoff=fmt[3])
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mp3_batched_decoder_on_card_equals_cpu(cuda, monkeypatch):
+    """decode_run on the card (sliced dispatch, a mixed fleet of four
+    formats) gives the CPU decoder's results, state and flags; one launch
+    per dispatch slice and format group."""
+    streams = [mf.mixed_stream(c, 300 + i, 6, fuzz=False) for i, c in enumerate(mf.BATCH_CFGS)]
+    streams += [mf.tonal_stream(mf.BATCH_CFGS[1], 400 + i, 6) for i in range(3)]
+    # the four-stream group (12 granules of stereo) dispatches in two slices
+    monkeypatch.setattr(transport, "MP3_SLICE_PCM_BYTES", 2 * 12 * 576 * 2 * 2)
+    card = BatchedMP3Decoder(len(streams))
+    cpu = BatchedMP3Decoder(len(streams), device="cpu")
+    mk.reset_launch_counts()
+    got, want = card.decode_run(streams, 6), cpu.decode_run(streams, 6)
+    assert mk.mp3_granules_cuda.launches == 5   # 3 one-stream groups + 2 slices
+    for rg, rw in zip(got, want):
+        assert [(int(e), c) for e, _, c in rg] == [(int(e), c) for e, _, c in rw]
+        for (_, pg, _), (_, pw, _) in zip(rg, rw):
+            np.testing.assert_array_equal(pg, pw)
+    assert card.last_frame_reference_defined == cpu.last_frame_reference_defined
+    for a, b in zip(card._state(), cpu._state()):
+        assert torch.equal(a.cpu(), b)

@@ -123,3 +123,44 @@ def test_plain_fused16_matches_pallas_interpret():
     np.testing.assert_array_equal(c_t.numpy()[same], np.asarray(c_j)[same])
     # the huge-weight column clipped NEGATIVE despite its positive overflow
     assert (s_t.numpy()[:, 5] == -32768).any() and (c_t.numpy()[:, 5] == 1).all()
+
+
+@pytest.mark.parametrize("taps,nf,lowpass,flags", [
+    (64, 32, 0.9 * 16000 / 44100, jsinc.SUBSAMPLE_INTERPOLATE | jsinc.INCLUDE_LOWPASS),
+    (16, 256, 1.0, jsinc.SUBSAMPLE_INTERPOLATE | jsinc.BLACKMAN_HARRIS),
+    (1024, 4, 0.45, jsinc.INCLUDE_LOWPASS | jsinc.BLACKMAN_HARRIS),
+    (4, 2, 1.0, 0),
+])
+def test_design_filterbank_matches_jax(taps, nf, lowpass, flags):
+    """The numpy filterbank design, bit for bit (both are numpy code)."""
+    from esp_audio_libs_tpu_torch.ops import sinc as tsinc
+    lp, fl = tsinc.normalize_lowpass(lowpass, flags)
+    got = tsinc.design_filterbank(taps, nf, lp, fl)
+    want = jsinc.design_filterbank(taps, nf, lp, fl)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("ratio,frames,valid", [(16000 / 44100, 700, None),
+                                                (48000 / 44100, 400, 300),
+                                                (22050 / 44100, 500, 200)])
+def test_build_banded_weights_matches_jax(ratio, frames, valid):
+    """The host tile builder, bit for bit, with and without valid_len and
+    the start clamp, and a folded direct row."""
+    taps, nf = 64, 32
+    flags = jsinc.SUBSAMPLE_INTERPOLATE | jsinc.INCLUDE_LOWPASS
+    bank = np.asarray(design_filterbank_native(
+        taps, nf, float(np.float32(min(ratio, 1.0) * 0.9)), flags), np.float32)
+    out_free = int(frames * ratio) + 8
+    st = PhaseState.initial(taps)
+    st.advance(taps / 2.0)
+    g = phase_grid(st, nf, flags, np.float32(ratio), frames, out_free)
+    hist = taps + 8
+    args = (bank, g.win0.astype(np.int64) + hist, g.idx1, g.idx2, g.weight, g.mode)
+    direct = np.random.default_rng(frames).standard_normal(taps).astype(np.float32)
+    for kw in (dict(valid_len=valid), dict(valid_len=valid, L=hist + frames + 2048,
+                                           direct_row=direct)):
+        Wt, starts = tpoly.build_banded_weights(*args, half=taps // 2, **kw)
+        Wj, sj = jpoly.build_banded_weights(*args, half=taps // 2, **kw)
+        np.testing.assert_array_equal(starts, sj)
+        np.testing.assert_array_equal(Wt.view(np.uint32), np.asarray(Wj).view(np.uint32))

@@ -115,3 +115,26 @@ def test_bytes_per_sample_and_range_check(bits):
         tq.bytes_per_sample(33)
     with pytest.raises(TypeError):
         tq.unpack_pcm(torch.zeros(4, dtype=torch.int16), 16)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("gain_db", [0.0, -9.5, 4.25])
+def test_quantized_to_float_exact(bits, gain_db):
+    """The packed-byte wrapper: bytes -> f32 with dB gain, bit for bit."""
+    data = _packed(np.random.default_rng(40 + bits), (3,), 333, bits)
+    got = tq.quantized_to_float(torch.from_numpy(data), bits, gain_db)
+    ref = np.asarray(jq.quantized_to_float(jnp.asarray(data), bits, gain_db))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_float_to_quantized_exact(bits):
+    """f32 -> packed bytes and the clip count, byte for byte, with samples
+    past full scale, NaN and infinities."""
+    x = np.random.default_rng(50 + bits).uniform(-1.3, 1.3, (2, 413)).astype(np.float32)
+    x[0, :4] = [np.nan, np.inf, -np.inf, 3e9]
+    got, clipped = tq.float_to_quantized(torch.from_numpy(x), bits)
+    ref, ref_clipped = jq.float_to_quantized(jnp.asarray(x), bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(clipped) == int(ref_clipped) > 0

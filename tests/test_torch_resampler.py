@@ -257,6 +257,12 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.ops.biquad\n"
             "import esp_audio_libs_tpu_torch.ops.biquad_kernels\n"
             "import esp_audio_libs_tpu_torch.models.art_resampler\n"
+            "import esp_audio_libs_tpu_torch.models.mp3_pipeline\n"
+            "import esp_audio_libs_tpu_torch.models.wav\n"
+            "import esp_audio_libs_tpu_torch.ops.mp3_kernels\n"
+            "import esp_audio_libs_tpu_torch.runtime.tables\n"
+            "sys.path.insert(0, 'tools')\n"
+            "import mp3frames, profile_mp3_chain\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'esp_audio_libs_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
