@@ -88,9 +88,10 @@ Phases, each printing a line:
                plus MPEG-1 and MPEG-2 intensity stereo, tonal and window-type
                frames and fuzz frames, two runs in a row, and the escape
                tier; then timed by direct launches through eal_mp3_granules
-               beside one wrapper call, the plain version and the bytes bound
-               at B = 256 and 2048 x G = 16 (8 frames of MPEG-1 44.1 kHz
-               stereo).
+               beside one wrapper call, the plain version and the bound (the
+               larger of its bytes at 3.35 TB/s and its integer operations at
+               PEAK_INT32, mp3_work) at B = 256 and 2048 x G = 16 (8 frames
+               of MPEG-1 44.1 kHz stereo).
  12. mp3 corpus - every corpus/independent_mp3 file decoded frame by frame by
                MP3Decoder(device="cuda"): error ladder, consumed bytes and PCM
                SHA256 equal to its signatures.json (pinned by the reference).
@@ -1087,11 +1088,12 @@ def mp3_check(fmt, vindex, huff, side, state, label, esc=None):
     return got[1]
 
 
-def mp3_launcher(huff, side, state, fmt, vindex):
+def mp3_launcher(huff, side, state, fmt, vindex, lib=None):
     """A function that launches mp3_granules through the C entry point
-    eal_mp3_granules, its arguments and buffers prepared once (the state
-    buffers are updated in place launch after launch): the kernel alone.
-    Used only to time the kernel; its launches are not counted."""
+    eal_mp3_granules (of ``lib``, by default the package's library), its
+    arguments and buffers prepared once (the state buffers are updated in
+    place launch after launch): the kernel alone. Used only to time the
+    kernel; its launches are not counted."""
     import torch
 
     from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
@@ -1105,7 +1107,7 @@ def mp3_launcher(huff, side, state, fmt, vindex):
     args = (huff.data_ptr(), side.data_ptr(), consts.data_ptr(), *(t.data_ptr() for t in st),
             pcm.data_ptr(), undef.data_ptr(), G, B, nch, vindex, cutoff,
             torch.cuda.current_stream().cuda_stream)
-    lib = kernels.library()
+    lib = lib or kernels.library()
 
     def launch():
         if lib.eal_mp3_granules(*args) != 0:
@@ -1115,16 +1117,58 @@ def mp3_launcher(huff, side, state, fmt, vindex):
     return launch
 
 
+# Integer operations of one granule and channel, counted from the algorithm
+# (csrc/mp3_granules.cu, the JAX package's _granule_body): a 32-bit add,
+# subtraction, shift, logic op, compare, select or MULSHIFT32 (__mulhi)
+# counts 1, a widening multiply-add (32 x 32 + 64 -> 64 bits) counts 2.
+# Parts that depend on guard bits the kernel finds on the way (the es
+# rescales) are left out, so the count stays a lower bound.
+MP3_DEQUANT_OPS = (12, 18, 40)   # per sample by magnitude: < 16, < 64, >= 64 (polynomial)
+MP3_EXPAND_OPS = 10              # per sample: band, gain and reorder lookups
+MP3_STEREO_OPS = 4               # per sample position and channel when mode_ext != 0
+MP3_BUTTERFLY_OPS = 8            # per butterfly: 4 MULSHIFT32, 2 adds, 2 shifts
+MP3_IMDCT_OPS = 260              # per computed block: 2 idct9, chain, window, overlap
+MP3_FDCT_OPS = 408               # per slot: 32 input shifts, 128 + 212 in the passes, 36 adds
+MP3_PQMF_OPS = 8 * 2 * 2 + 6     # per output: 8 taps x 2 widening multiply-adds, round, clip
+# INT32 rate outside the tensor cores: 64 INT32 lanes per SM and clock (the
+# NVIDIA Hopper architecture white paper, the H100 SM) x 132 SMs x 1980 MHz,
+# the maximum SM clock that max_clock_mhz() reads on the H100 SXM.
+PEAK_INT32 = 64 * 132 * 1980e6
+
+
 def mp3_work(huff, side, fmt):
-    """(bytes, bound ms) of one mp3_granules launch: the int16 spectra, the
-    side rows, the constants, the carried state read and written, the PCM
-    and the flags, each once, at 3.35 TB/s. Its integer operations are not
-    counted: the peak rates this script uses (PEAK_*) have no INT32 rate
-    outside the tensor cores."""
+    """The work of one mp3_granules launch, from its operands:
+    (bytes, bound ms, bound_by, integer operations, bytes ms, operations ms).
+
+    Bytes: the int16 spectra, the side rows, the constants, the carried
+    state read and written, the PCM and the flags, each once, at 3.35 TB/s.
+    Operations: per granule and channel the dequantizer by each sample's
+    magnitude, the parameter expansion, joint stereo where the granule has
+    it, the butterflies and IMDCT blocks the granule's nonzero bound needs,
+    FDCT32 on 18 slots and the PQMF on 576 outputs (MP3_*_OPS), at
+    PEAK_INT32. The bound is the larger of the two times."""
+    import torch
     G, B, nch = huff.shape[:3]
     nbytes = (huff.numel() * 2 + side.numel() * 4 + 3069 * 4 + 2 * B * (576 + 6 + 2176) * 4
               + B * G * 576 * nch * 2 + B * 4)
-    return nbytes, nbytes / PEAK_BYTES * 1e3
+    mag = (huff.to(torch.int32) & 0x7FFF)
+    n_mid = int(((mag >= 16) & (mag < 64)).sum())
+    n_big = int((mag >= 64).sum())
+    n_small = huff.numel() - n_mid - n_big
+    nzb = side[..., :nch].to(torch.int64)
+    blocks = torch.clamp((nzb + 7) // 18 + 1, max=32)
+    joint = int((side[..., 3 * nch + 232] != 0).sum()) if nch == 2 else 0
+    units = G * B * nch                        # granule-channels
+    n_ops = (n_small * MP3_DEQUANT_OPS[0] + n_mid * MP3_DEQUANT_OPS[1]
+             + n_big * MP3_DEQUANT_OPS[2] + huff.numel() * MP3_EXPAND_OPS
+             + joint * 2 * 576 * MP3_STEREO_OPS
+             + int((blocks - 1).sum()) * 8 * MP3_BUTTERFLY_OPS
+             + int(blocks.sum()) * MP3_IMDCT_OPS
+             + units * 18 * MP3_FDCT_OPS + units * 576 * MP3_PQMF_OPS)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_INT32 * 1e3
+    if ops_ms >= bytes_ms:
+        return nbytes, ops_ms, "operations", n_ops, bytes_ms, ops_ms
+    return nbytes, bytes_ms, "bytes", n_ops, bytes_ms, ops_ms
 
 
 def mp3_streams(kind, B, n_frames, seed, cfg=None):
@@ -1226,22 +1270,23 @@ def mp3_kernel_phase():
         ms_wrapper = cuda_time(lambda: mk.mp3_granules_cuda(h, sd, *state, vindex, ver=fmt[0],
                                                             sr_idx=fmt[1], nch=fmt[2],
                                                             cutoff=fmt[3]))
-        nbytes, bound_ms = mp3_work(h, sd, fmt)
+        nbytes, bound_ms, bound_by, n_ops, bytes_ms, ops_ms = mp3_work(h, sd, fmt)
         G = h.shape[0]
-        res[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        res[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(f"kernel mp3_granules B={B} G={G} stereo (MPEG-1 44.1 kHz, {B * G} granules, "
               f"{B * G * 1152 / 1e6:.3f} Msamples): byte-identical; {ms:.4f} ms per direct "
               f"launch (one wrapper call {ms_wrapper:.4f} ms; plain version {plain_ms:.1f} ms), "
               f"{B * G * 1152 / ms / 1e3:.1f} decoded Msamples/s; bound {bound_ms:.4f} ms "
-              f"(bytes: {nbytes} B at 3.35 TB/s; integer operations not counted: no INT32 peak "
-              f"among PEAK_*), {bound_ms / ms:.1%} of it")
+              f"({bound_by}; bytes: {nbytes} B at 3.35 TB/s take {bytes_ms:.4f} ms, integer "
+              f"operations: {n_ops} at {PEAK_INT32 / 1e12:.2f} TOP/s take {ops_ms:.4f} ms), "
+              f"{bound_ms / ms:.1%} of it")
     r = res[MP3_STREAMS]
     return {"name": "mp3_granules", "route": "cuda",
             "source": "esp_audio_libs_tpu_torch/csrc/mp3_granules.cu",
             "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:215",
             "launches": 0, "max_abs_err": 0, "byte_exact": True,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": None,
             "ms_b2048": res[8 * MP3_STREAMS]["ms"],
             "plain_ms_b2048": res[8 * MP3_STREAMS]["plain_ms"],
             "bound_ms_b2048": res[8 * MP3_STREAMS]["bound_ms"]}

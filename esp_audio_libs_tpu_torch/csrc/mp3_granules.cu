@@ -2,45 +2,69 @@
 // one format, in one launch, byte-exact against the JAX package.
 //
 // Replaces _granules_scan_for and its body _granule_body
-// (esp_audio_libs_tpu/models/mp3_pipeline.py:90-265): there an XLA lax.scan
-// over the granules of a run, whose step chains the dequantizer and joint
-// stereo (ops/mp3dsp.py), the anti-alias butterflies, IMDCT36/12 and the
-// overlap-add (ops/mp3imdct.py), and FDCT32 with the int64 PQMF polyphase
-// over the vbuf FIFO (ops/mp3subband.py). The carried state (overlap,
-// previous block type, window switch, IMDCT block count, the FIFO and its
-// phase, the reference-UB flag) never leaves the card between granules.
+// (esp_audio_libs_tpu/models/mp3_pipeline.py:90-265, the escape form :438):
+// there an XLA lax.scan over the granules of a run, whose step chains the
+// dequantizer and joint stereo (ops/mp3dsp.py), the anti-alias butterflies,
+// IMDCT36/12 and the overlap-add (ops/mp3imdct.py), and FDCT32 with the
+// int64 PQMF polyphase over the vbuf FIFO (ops/mp3subband.py). The carried
+// state (overlap, previous block type, window switch, IMDCT block count, the
+// FIFO and its phase, the reference-UB flag) never leaves the card between
+// granules.
 //
-// Design (the simple, right first version): one block of 576 threads per
-// stream, both channels in it (MS and intensity stereo couple them). The
-// per-format constants (the sample maps and the Helix tables, 12 KB) and
-// the carried state are staged into shared memory once; the granule loop
-// runs inside the kernel, each stage closed by __syncthreads:
-//   1. widen the int16 spectra to the sign-in-MSB form, expand the
-//      per-sample parameters from the compact blob, dequantize; guard-bit
-//      mask and critical-band ends by shared-memory atomics (OR, max);
-//   2. the short-block reorder (a gather) and joint stereo, one thread per
-//      sample holding both channels;
-//   3. the anti-alias butterflies in place;
-//   4. IMDCT36 or IMDCT12x3 (or the window-previous-only branch) with the
-//      overlap, one thread per (channel, subband block);
-//   5. FDCT32 of the 18 time slots, one thread per (slot, channel);
-//   6. the 18 FIFO steps in turn: the stored values, then the int64 PQMF,
-//      one thread per output sample.
-// What bounds it: not bytes (a stereo granule moves about 3.3 KB of spectra
-// and side data in and 2.3 KB of PCM out per stream) but the chain of
-// dependent stages per granule, each a few hundred integer operations on 32
-// to 576 threads of a block, and 36 block-wide barriers in the FIFO steps;
-// at 96 registers one block fills an SM. Measured on an NVIDIA H100 80GB
-// HBM3 at 700 W: 0.85 ms for B = 256 x G = 16, 1 % of the bytes bound, about
-// 26 us per granule of a block (PERF.md). Making it fast (warp-level
-// stages, several streams per block) is a later PR's work.
+// What the first design lost (one 576-thread block per stream, stages in
+// turn; probes of tools/kernel_variants.py --mp3 on an NVIDIA H100 80GB HBM3
+// at 700 W, PERF.md): 0.856 ms at B = 256 x G = 16, of which the 18 FIFO
+// steps took 0.665 ms (2.3 us per step and granule; dropping their 36
+// barriers saved nothing: their int64 PQMF read FIFO rows 64 words apart,
+// one shared-memory bank for all 32 lanes, with 64 x 64-bit multiplies),
+// IMDCT 0.031 ms (64 threads, arrays in local memory), FDCT 0.010 ms (36
+// threads), the butterflies 0.007 ms, the dequantizer, parameter expansion
+// and joint stereo nothing measurable; the rest, 0.15 ms, waits between
+// stages with one block per SM (96 registers x 576 threads).
 //
+// This design: one block of 288 threads (9 warps) per stream, registers
+// capped at 72 (MIN_BLOCKS = 3 blocks, i.e. streams, share an SM by
+// registers; 5 would fit by shared memory), so that one stream's narrow
+// stages overlap another's wide ones. The per-format tables and the carried
+// state live in shared memory for the whole run (the four 576-entry band
+// maps packed into one word per sample, the short-block band, window and
+// reorder offset of every offset tabulated when the block starts). A
+// granule takes four block barriers:
+//   1. widen, expand and dequantize (thread = two samples, both channels: a
+//      butterfly pair where it has one); guard bits and band ends by warp
+//      reductions, one shared atomic per warp and quantity;
+//   2. the short-block reorder, joint stereo and the butterflies on the same
+//      samples in registers;
+//   3. IMDCT36 / IMDCT12x3 / the window-previous-only branch with the
+//      overlap, two threads per (channel, subband block), each running one
+//      of the two 9-point IDCTs (or the short windows), then half the
+//      outputs; beside it, on the other warps, the previous granule's PQMF;
+//   4. FDCT32 of the 18 slots, eight threads per (slot, channel), warp
+//      shuffles between the butterfly passes, the 33 stored values of each
+//      slot written into the granule's linear FIFO history.
+// The PQMF computes all 18 x 32 x nch outputs of a granule in one pass over
+// that history (the 15 carried steps, then the 18 new ones; the index map
+// is ops/mp3subband.py::subband_granule_onepass, held to the JAX FIFO by
+// tests/test_torch_mp3.py); two histories alternate between granules. The
+// side row and the spectra of granule g + 1 are loaded while granule g
+// runs. The JAX-layout ring vbuf and its phase are read once into the
+// history (both copies of the first granule's carried steps: a window reads
+// the copy its column falls on) and rebuilt once from the last 16 steps.
+// What bounds it: neither bytes (a stereo granule moves about 3.3 KB in and
+// 2.3 KB out per stream) nor its integer operations (about 8.6 x 10^4 a
+// stream-granule; chip_smoke.mp3_work: 0.021 ms at B = 256 x G = 16) but
+// the instructions around them (table lookups, clamps, reductions,
+// addressing) and, at B = 256, the chain of a granule's stages on two
+// blocks an SM; no stage dominates (the probes of tools/kernel_variants.py). On an NVIDIA H100 80GB HBM3 at
+// 700 W: 0.121 ms at B = 256 x G = 16 and 0.76 ms at B = 2048 (PERF.md).
+
 // Integer semantics (those of XLA, which the JAX package runs on): int32
 // adds, subtractions, negations and left shifts wrap, done here on uint32
 // (the W type) so that no signed overflow is undefined; >> of a signed int
 // is arithmetic; MULSHIFT32 is __mulhi; every variable shift count is in
 // [0, 31] (clamped where the JAX package clamps it); clz(0) = 32 (__clz);
-// the PQMF sums wrap modulo 2^64 and their low 32 bits are kept.
+// the PQMF sums wrap modulo 2^64 (32 x 32 -> 64-bit multiply-adds) and their
+// low 32 bits are kept.
 
 #include <cuda_runtime.h>
 
@@ -50,8 +74,15 @@ namespace {
 
 constexpr int NS = 576;          // samples per granule and channel
 constexpr int GPC = 235;         // compact parameter blob words
-constexpr int THREADS = NS;
+constexpr int SW_MAX = 3 * 2 + GPC;
+constexpr int THREADS = 288;     // 9 warps: two samples a thread in stages 1-2
+constexpr int MIN_BLOCKS = 3;    // blocks (streams) the registers must let share an SM
 constexpr int V33 = 33;          // values one FIFO step stores per channel
+constexpr int CARRY = 15;        // FIFO steps a granule reads from before it
+constexpr int HSTEP = 2 * V33;   // history words per step: value j of channel ch at 2 j + ch
+constexpr int HN = CARRY + 18;   // history steps of a granule: the carried ones, then its own
+constexpr int HBUF = HN * HSTEP; // one granule's history; granules alternate two of them
+constexpr int FD_STRIDE = 33;    // FDCT scratch words per (slot, channel)
 
 // per-format constants: ops/mp3_kernels.py CONST_LAYOUT, in this order
 enum Block {
@@ -70,6 +101,7 @@ struct Off<0> {
   static constexpr int v = 0;
 };
 #define OFF(k) (Off<k>::v)
+#define TB(k) (Off<k>::v - Off<SFB_L>::v)   // offset in the tables kept in shared memory
 constexpr int CONSTS_LEN = OFF(N_BLOCKS);
 
 // compact blob offsets (native/src/mp3_frontend.cpp eal_mp3_granule_params_compact)
@@ -80,6 +112,22 @@ constexpr int GB_GAIN_L = 0, GB_GAIN_S = 44, GB_PE_L = 122, GB_SHORT_BASE = 124,
 constexpr int DEF_NFRACBITS = 6;
 constexpr int CSHIFT = 12;
 constexpr long long RND = 1LL << (DEF_NFRACBITS - 1 + (32 - CSHIFT));
+
+// the FIFO values of FDCT32's output shuffle (ops/mp3subband.py _ROWS, _QROWS;
+// reference :7856-7979): value j is the sum of up to three post-pass
+// entries, packed as idx0 | idx1 << 5 | idx2 << 10 | count << 15
+__host__ __device__ constexpr uint32_t rec(int n, int a, int b = 0, int c = 0) {
+  return static_cast<uint32_t>(a | b << 5 | c << 10 | n << 15);
+}
+__constant__ uint32_t kRecipes[V33] = {
+    rec(1, 0),
+    rec(1, 1), rec(3, 17, 25, 29), rec(2, 9, 13), rec(3, 21, 25, 29), rec(1, 5),
+    rec(3, 21, 29, 27), rec(2, 13, 11), rec(3, 19, 29, 27), rec(1, 3), rec(3, 19, 27, 31),
+    rec(2, 11, 15), rec(3, 23, 27, 31), rec(1, 7), rec(2, 23, 31), rec(1, 15), rec(1, 31),
+    rec(1, 1), rec(3, 17, 30, 25), rec(2, 14, 9), rec(3, 22, 30, 25), rec(1, 6),
+    rec(3, 22, 26, 30), rec(2, 10, 14), rec(3, 18, 26, 30), rec(1, 2), rec(3, 18, 28, 26),
+    rec(2, 12, 10), rec(3, 20, 28, 26), rec(1, 4), rec(3, 20, 24, 28), rec(2, 8, 12),
+    rec(3, 16, 24, 28)};
 
 // int32 with two's-complement wraparound
 struct W {
@@ -102,6 +150,7 @@ __device__ __forceinline__ int fdiv(int a, int b) {      // floor division
   int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
+constexpr unsigned FULL = 0xffffffffu;
 
 // reference CLIP_2N: clip to [-2^n, 2^n - 1], 0 <= n <= 31
 __device__ __forceinline__ W clip2n(W y, int n) {
@@ -109,6 +158,8 @@ __device__ __forceinline__ W clip2n(W y, int n) {
   const W lim = wu((1u << n) - 1u);
   return (sign.i() != (y >> n).i()) ? wu(sign.u ^ lim.u) : y;
 }
+// the es epilogue of IMDCT and FDCT: clip to 31 - es bits, then shift up
+__device__ __forceinline__ W rescale(W y, int es) { return es > 0 ? clip2n(y, 31 - es) << es : y; }
 
 struct Args {
   const int16_t* huff;     // [G, B, nch, 576]
@@ -137,63 +188,85 @@ enum Red {
   R_EXT = 20,         // [2] last nonzero window-previous-only block
   R_N = 22
 };
+__device__ __forceinline__ int red_init(int k) {
+  return (k >= R_CBL && k < R_MOUT_MS) || k >= R_EXT ? -1 : 0;
+}
 
+// one warp's OR / max, added to a shared word by its first lane
+__device__ __forceinline__ void warp_or(int* dst, int v) {
+  const unsigned r = __reduce_or_sync(FULL, static_cast<unsigned>(v));
+  if ((threadIdx.x & 31) == 0 && r) atomicOr(dst, static_cast<int>(r));
+}
+__device__ __forceinline__ void warp_max(int* dst, int v) {
+  const int r = __reduce_max_sync(FULL, v);
+  if ((threadIdx.x & 31) == 0 && r >= 0) atomicMax(dst, r);
+}
+
+// ------------------------------------------------------------ FIFO map
+
+// Where step s of a granule whose phase is v keeps stored value j (0..32)
+// of channel ch in the JAX-layout ring [34 rows, 64 columns]: the index of
+// the first of its two cells (the second is 8 further; ops/mp3subband.py
+// fifo_cell). Steps before the granule (s < 0) are where the ring holds
+// them when the granule starts.
+__device__ __forceinline__ int ring_cell(int s, int v, int j, int ch) {
+  const int odd = s & 1;
+  const int vs = (v - (s >> 1)) & 7;           // the phase at step s
+  const int c0 = (vs - odd) & 7;
+  int row, col;
+  if (j == 0) {
+    row = 17 * (1 - odd) + 16;
+    col = c0;
+  } else if (j <= 16) {
+    row = 17 * odd + j - 1;
+    col = vs;
+  } else {
+    row = 17 * (1 - odd) + j - 17;
+    col = c0 + 16;
+  }
+  return row * 64 + col + 32 * ch;
+}
 // ------------------------------------------------------------ dequantizer
 
-struct Sample {            // the per-sample parameters of expand_hp_device
-  int gain, band, win, invperm;
-  bool is_long, processed, short_proc;
+// The per-sample parameters of expand_hp_device for one channel: what the
+// granule's blob says once per channel, then per sample a band-map word and
+// a short-block word from tables built when the block starts.
+struct Chan {
+  int pe_l, sbase, pe_s, tab;   // tab: 0 or NS, the short table of base sfb_s[0] or sfb_s[3]
+  bool has_short;
 };
+__device__ __forceinline__ Chan chan_of(const int* cb, int ch) {
+  Chan c;
+  c.pe_l = cb[GB_PE_L + ch];
+  c.sbase = cb[GB_SHORT_BASE + ch];
+  c.pe_s = cb[GB_PE_S + ch];
+  c.has_short = cb[GB_HAS_SHORT + ch] != 0;
+  c.tab = cb[GB_CB_START_S + ch] == 3 ? NS : 0;
+  return c;
+}
 
-__device__ __forceinline__ Sample expand(const int* cb, const int* cst, int ch, int i) {
-  Sample s;
-  const int pe_l = cb[GB_PE_L + ch], sbase = cb[GB_SHORT_BASE + ch], pe_s = cb[GB_PE_S + ch];
-  const bool has_short = cb[GB_HAS_SHORT + ch] != 0;
-  const int* sfb_s = cst + OFF(SFB_S);
-  const bool long_proc = i < pe_l;
-  const int o = i - sbase;
-  const int so = clampi(o, 0, NS - 1);
-  s.short_proc = o >= 0 && i < pe_s && has_short;
-  const int base_s = cb[GB_CB_START_S + ch] == 3 ? sfb_s[3] : sfb_s[0];
-  int sband = 0, s_sel = 0, n_sel = 1;
-  for (int b = 0; b < 13; ++b) {
-    const int start = 3 * (sfb_s[b] - base_s);
-    if (so >= start) {
-      sband = b;
-      s_sel = start;
-      n_sel = sfb_s[b + 1] - sfb_s[b];
-    }
-  }
+// short-block word of an offset so (0..575) past the short base: the band
+// (4 bits), the window min(q / n_sel, 3) (2 bits) and the reorder offset
+// s_sel + n_sel (q % 3) + q / 3 (from bit 8), q = so - s_sel
+__device__ __forceinline__ uint32_t short_word(const int* sfb_s, int base_s, int so) {
+  int sband = 0;
+  for (int b = 0; b < 13; ++b)
+    if (so >= 3 * (sfb_s[b] - base_s)) sband = b;
+  const int s_sel = 3 * (sfb_s[sband] - base_s);
+  const int n_sel = sfb_s[sband + 1] - sfb_s[sband];
   const int q = so - s_sel;                       // >= 0
-  const int swin = q / n_sel;
+  const int swin = min(q / n_sel, 3);
   const int sinv = s_sel + n_sel * (q % 3) + q / 3;
-  const int lband = cst[OFF(LONG_BAND) + i];
-  s.is_long = long_proc;
-  s.processed = long_proc || s.short_proc;
-  if (long_proc) {
-    s.band = lband;
-    s.gain = cb[GB_GAIN_L + 22 * ch + lband];
-    s.win = 0;
-  } else if (s.short_proc) {
-    s.band = sband;
-    s.gain = cb[GB_GAIN_S + 39 * ch + 3 * sband + (swin < 2 ? swin : 2)];
-    s.win = swin;
-  } else {
-    s.band = -1;
-    s.gain = 0;
-    s.win = 0;
-  }
-  s.invperm = s.short_proc ? sbase + sinv : i;
-  return s;
+  return static_cast<uint32_t>(sband | swin << 4) | static_cast<uint32_t>(sinv) << 8;
 }
 
 // DequantBlock (reference :550-634) of one sample: (signed value, magnitude)
-__device__ __forceinline__ void dequant(int sx, int scale, const int* cst, int& out, int& mag) {
+__device__ __forceinline__ void dequant(int sx, int scale, const int* tb, int& out, int& mag) {
   const int x = sx & 0x7FFFFFFF;
   const int scale_low = scale & 3;
-  const W scalef = cst[OFF(POW14) + scale_low];
+  const W scalef = tb[TB(POW14) + scale_low];
   const int scalei = min(scale >> 2, 31);
-  const W tab16 = cst[OFF(POW43_14) + ((scale_low << 4) | clampi(x, 0, 15))];
+  const W tab16 = tb[TB(POW43_14) + ((scale_low << 4) | clampi(x, 0, 15))];
   W y;
   if (x < 4) {
     y = x == 0 ? W(0) : tab16 >> clampi(scalei + 3, 0, 31);
@@ -203,7 +276,7 @@ __device__ __forceinline__ void dequant(int sx, int scale, const int* cst, int& 
     W yb;
     W shb;
     if (x < 64) {
-      yb = ms(W(cst[OFF(POW43) + clampi(x - 16, 0, 47)]), scalef);
+      yb = ms(W(tb[TB(POW43) + clampi(x - 16, 0, 47)]), scalef);
       shb = W(scalei) - W(3);
     } else {
       W xn = W(x) << 17;
@@ -211,12 +284,13 @@ __device__ __forceinline__ void dequant(int sx, int scale, const int* cst, int& 
       if (xn.i() < 0x08000000) { xn = xn << 4; sh += 4; }
       if (xn.i() < 0x20000000) { xn = xn << 2; sh += 2; }
       if (xn.i() < 0x40000000) { xn = xn << 1; sh += 1; }
-      const int* poly = cst + (xn.i() < 0x5A82799A ? OFF(POLY43LO) : OFF(POLY43HI));
+      const int* poly = tb + (xn.i() < 0x5A82799A ? TB(POLY43LO) : TB(POLY43HI));
       W yp = poly[0];
+#pragma unroll
       for (int k = 1; k < 5; ++k) yp = ms(yp, xn) + W(poly[k]);
-      yp = ms(yp, W(cst[OFF(POW2FRAC) + sh])) << 3;
+      yp = ms(yp, W(tb[TB(POW2FRAC) + sh])) << 3;
       yb = ms(yp, scalef);
-      shb = W(scalei) - W(cst[OFF(POW2EXP) + sh]);
+      shb = W(scalei) - W(tb[TB(POW2EXP) + sh]);
     }
     if (shb.i() < 0) {
       const int shn = clampi((-shb).i(), 0, 31);
@@ -229,6 +303,36 @@ __device__ __forceinline__ void dequant(int sx, int scale, const int* cst, int& 
   }
   out = sx < 0 ? (-y).i() : y.i();
   mag = y.i();
+}
+
+// The IMDCT block counts of channel ch (reference IMDCT :2584-2603) and its
+// nonzero bound, before (nzb_in) and after joint stereo: the side row alone
+// decides them.
+struct Blocks {
+  int nzb_in, nzb, nbl, nbfly, nbt, cws;
+};
+__device__ __forceinline__ int nzb_of(const int* sd, int nch, int ch) {
+  const int* cb = sd + 3 * nch;
+  return cb[GB_HAS_SHORT + ch] != 0 ? cb[GB_PE_S + ch] : sd[ch];
+}
+__device__ __forceinline__ Blocks blocks_of(const int* sd, int nch, int ch, int cutoff) {
+  Blocks k;
+  k.nzb_in = nzb_of(sd, nch, ch);
+  k.nzb = nch == 2 && sd[3 * nch + GB_SCALARS] != 0
+              ? max(nzb_of(sd, nch, 0), nzb_of(sd, nch, 1)) : k.nzb_in;
+  const int bt = sd[nch + ch], mixed = sd[2 * nch + ch];
+  const int n_long_all = min((k.nzb + 7) / 18 + 1, 32);
+  k.nbl = bt != 2 ? n_long_all : (mixed == 1 ? cutoff : 0);
+  k.nbfly = bt != 2 ? k.nbl - 1 : (mixed == 1 ? cutoff - 1 : 0);
+  k.nbt = (max(k.nzb, k.nbfly * 18 + 8) + 17) / 18;
+  k.cws = mixed == 1 ? cutoff : 0;
+  return k;
+}
+// guard bits of channel ch after joint stereo (reference :7694-7701)
+__device__ __forceinline__ int gb_post(const int* red, const int* cb, int nch, int ch) {
+  const int mode_ext = nch == 2 ? cb[GB_SCALARS] : 0;
+  const int k = mode_ext == 0 ? R_GBMASK : (mode_ext & 1) ? R_MOUT_IS : R_MOUT_MS;
+  return __clz(red[k + ch]) - 1;
 }
 
 // --------------------------------------------------------------- IMDCT
@@ -261,99 +365,6 @@ __device__ __forceinline__ void idct9(const W* x, W* o, const int* c9) {
   o[8] = a23 - a19;
 }
 
-// WinPrevious (:1883-1935): xp[9] -> wp[18]
-__device__ __forceinline__ void win_previous(const W* xp, int bt, const int* win, W* wp) {
-  if (bt == 2) {
-    const int* w2 = win + 2 * 36;
-    wp[0] = ms(w2[6], xp[2]) + ms(w2[0], xp[6]);
-    wp[1] = ms(w2[7], xp[1]) + ms(w2[1], xp[7]);
-    wp[2] = ms(w2[8], xp[0]) + ms(w2[2], xp[8]);
-    wp[3] = ms(w2[9], xp[0]) + ms(w2[3], xp[8]);
-    wp[4] = ms(w2[10], xp[1]) + ms(w2[4], xp[7]);
-    wp[5] = ms(w2[11], xp[2]) + ms(w2[5], xp[6]);
-    wp[6] = ms(w2[6], xp[5]);
-    wp[7] = ms(w2[7], xp[4]);
-    wp[8] = ms(w2[8], xp[3]);
-    wp[9] = ms(w2[9], xp[3]);
-    wp[10] = ms(w2[10], xp[4]);
-    wp[11] = ms(w2[11], xp[5]);
-    for (int k = 12; k < 18; ++k) wp[k] = W(0);
-  } else {
-    const int* w = win + 36 * clampi(bt, 0, 3);
-    for (int k = 0; k < 9; ++k) {
-      wp[k] = ms(w[18 + k], xp[k]);
-      wp[9 + k] = ms(w[27 + k], xp[8 - k]);
-    }
-  }
-}
-
-// FreqInvertRescale (:1937-2044); returns the OR of |y| when es > 0
-__device__ __forceinline__ W freq_invert_rescale(W* y, W* np, int blk, int es) {
-  if (blk & 1)
-    for (int k = 1; k < 18; k += 2) y[k] = -y[k];
-  W m = W(0);
-  if (es > 0) {
-    for (int k = 0; k < 18; ++k) {
-      y[k] = clip2n(y[k], 31 - es) << es;
-      m = m | wabs(y[k]);
-    }
-    for (int k = 0; k < 9; ++k) np[k] = clip2n(np[k], 31 - es) << es;
-  }
-  return m;
-}
-
-// IMDCT36 (:2174-2283) of one block
-__device__ W imdct36(const int* xin, const int* xprev, int bt_curr, int bt_prev, int blk, int gb,
-                     const int* cst, W* y, W* np) {
-  const int es = max(7 - gb, 0);
-  W xs[18], xp[9];
-  for (int k = 0; k < 18; ++k) xs[k] = W(xin[k]) >> es;
-  for (int k = 0; k < 9; ++k) xp[k] = W(xprev[k]) >> es;
-  W xe[9], xo[9];
-  W acc1 = W(0), acc2 = W(0);
-  for (int i = 8; i >= 0; --i) {
-    acc1 = xs[2 * i + 1] - acc1;
-    acc2 = acc1 - acc2;
-    acc1 = xs[2 * i] - acc1;
-    xo[i] = acc2;
-    xe[i] = acc1;
-  }
-  xo[0] = xo[0] >> 1;
-  xe[0] = xe[0] >> 1;
-  W even[9], odd[9];
-  idct9(xe, even, cst + OFF(C9));
-  idct9(xo, odd, cst + OFF(C9));
-
-  const int* win = cst + OFF(IMDCTWIN);
-  const int* fw = cst + OFF(FASTWIN36);
-  const bool fast = bt_prev == 0 && bt_curr == 0;
-  W wp[18];
-  win_previous(xp, bt_prev, win, wp);
-  const int* wc = win + 36 * clampi(bt_curr, 0, 3);
-  W mout = W(0);
-  for (int i = 0; i < 9; ++i) {
-    const W xo_ = ms(W(cst[OFF(C18) + 8 - i]), odd[8 - i]);
-    const W xe_ = even[8 - i] >> 2;
-    W lo, hi;
-    if (fast) {
-      const W s = -xp[i];
-      const W d = -(xe_ - xo_);
-      const W t = s - d;
-      lo = d + (ms(t, W(fw[2 * i])) << 2);
-      hi = s + (ms(t, W(fw[2 * i + 1])) << 2);
-    } else {
-      const W d = xe_ - xo_;
-      lo = (wp[i] + ms(d, W(wc[i]))) << 2;
-      hi = (wp[17 - i] + ms(d, W(wc[17 - i]))) << 2;
-    }
-    y[i] = lo;
-    y[17 - i] = hi;
-    np[i] = xe_ + xo_;
-    mout = mout | wabs(lo) | wabs(hi);
-  }
-  return mout | freq_invert_rescale(y, np, blk, es);
-}
-
 // imdct12 (:2291-2340): 6 strided inputs -> 6 outputs
 __device__ __forceinline__ void imdct12(W x0, W x1, W x2, W x3, W x4, W x5, W c3, W* o) {
   x4 = x4 - x5;
@@ -381,422 +392,641 @@ __device__ __forceinline__ void imdct12(W x0, W x1, W x2, W x3, W x4, W x5, W c3
   o[5] = o0 - o1;
 }
 
-// IMDCT12x3 (:2364-2448) of one block
-__device__ W imdct12x3(const int* xin, const int* xprev, int bt_prev, int blk, int gb,
-                       const int* cst, W* y, W* np) {
-  const int es = max(7 - gb, 0);
-  W xs[18], xp[9], xb[18];
-  for (int k = 0; k < 18; ++k) xs[k] = W(xin[k]) >> es;
-  for (int k = 0; k < 9; ++k) xp[k] = W(xprev[k]) >> es;
-  const W c3 = W(cst[OFF(C9)]);
-  for (int w = 0; w < 3; ++w)
-    imdct12(xs[w], xs[w + 3], xs[w + 6], xs[w + 9], xs[w + 12], xs[w + 15], c3, xb + 6 * w);
-  W wp[18];
-  const int* win = cst + OFF(IMDCTWIN);
-  win_previous(xp, bt_prev, win, wp);
-  const int* w2 = win + 2 * 36;
-  W mout = W(0);
-  for (int i = 0; i < 3; ++i) {
-    y[i] = wp[i] << 2;
-    y[3 + i] = wp[3 + i] << 2;
-    y[6 + i] = (wp[6 + i] << 2) + ms(w2[i], xb[3 + i]);
-    y[9 + i] = (wp[9 + i] << 2) + ms(w2[3 + i], xb[5 - i]);
-    y[12 + i] = (wp[12 + i] << 2) + (ms(w2[6 + i], xb[2 - i]) + ms(w2[i], xb[9 + i]));
-    y[15 + i] = (wp[15 + i] << 2) + (ms(w2[9 + i], xb[i]) + ms(w2[3 + i], xb[11 - i]));
-    for (int k = 0; k < 18; k += 3) mout = mout | wabs(y[k + i]);
+// WinPrevious (:1883-1935), entry k (0..17) of wp, from the carried overlap
+// xprev[9] shifted right by es
+__device__ __forceinline__ W win_prev_at(const int* xprev, int es, int bt, const int* win, int k) {
+  if (bt == 2) {
+    const int* w2 = win + 2 * 36;
+    if (k < 6) {
+      const int ia = k < 3 ? 2 - k : k - 3;
+      return ms(w2[6 + k], W(xprev[ia]) >> es) + ms(w2[k], W(xprev[8 - ia]) >> es);
+    }
+    if (k < 12) return ms(w2[k], W(xprev[k < 9 ? 11 - k : k - 6]) >> es);
+    return W(0);
   }
-  const int src[9] = {6, 7, 8, 12, 13, 14, 15, 16, 17};
-  for (int k = 0; k < 9; ++k) np[k] = xb[src[k]] >> 2;
-  return mout | freq_invert_rescale(y, np, blk, es);
+  return ms(win[36 * clampi(bt, 0, 3) + 18 + k], W(xprev[k < 9 ? k : 17 - k]) >> es);
 }
 
-// ------------------------------------------------------------- subband
-
-// FDCT32 (:7776-7855) of one slot, then the 33 values the FIFO step stores
-// (ops/mp3subband.py fdct_values) with the es epilogue (:7981-8005)
-__device__ void fdct33(const int* x, int stride, int gb, const int* dct, int* v33) {
-  const int es = max(6 - gb, 0);
-  W b[32];
-  for (int k = 0; k < 32; ++k) b[k] = W(x[k * stride]) >> es;
-  const W cos4 = W(0x5A82799A);
-  const int sh[8][3] = {{1, 5, 1}, {1, 3, 1}, {1, 3, 1}, {1, 2, 1},
-                        {1, 2, 1}, {1, 1, 2}, {1, 1, 2}, {1, 1, 4}};
-  for (int i = 0, c = 0; i < 8; ++i, c += 3) {
-    const W a0 = b[i], a3 = b[31 - i], a1 = b[15 - i], a2 = b[16 + i];
-    const W b0 = a0 + a3, b3 = ms(W(dct[c]), a0 - a3) << sh[i][0];
-    const W b1 = a1 + a2, b2 = ms(W(dct[c + 1]), a1 - a2) << sh[i][1];
-    b[i] = b0 + b1;
-    b[15 - i] = ms(W(dct[c + 2]), b0 - b1) << sh[i][2];
-    b[16 + i] = b2 + b3;
-    b[31 - i] = ms(W(dct[c + 2]), b3 - b2) << sh[i][2];
+// FreqInvertRescale (:1937-2044) of output k of block blk; m collects |y|
+__device__ __forceinline__ W invert_rescale(W y, int k, int blk, int es, W& m) {
+  if ((blk & 1) && (k & 1)) y = -y;
+  if (es > 0) {
+    y = clip2n(y, 31 - es) << es;
+    m = m | wabs(y);
   }
-  for (int g = 0; g < 4; ++g) {
-    W* p = b + 8 * g;
-    const int* d = dct + 24 + 6 * g;
-    W a0 = p[0], a7 = p[7], a3 = p[3], a4 = p[4];
-    W b0 = a0 + a7, b7 = ms(W(d[0]), a0 - a7) << 1;
-    W b3 = a3 + a4, b4 = ms(W(d[1]), a3 - a4) << 3;
-    a0 = b0 + b3;
-    a3 = ms(W(d[2]), b0 - b3) << 1;
-    a4 = b4 + b7;
-    a7 = ms(W(d[2]), b7 - b4) << 1;
-    W a1 = p[1], a6 = p[6], a2 = p[2], a5 = p[5];
-    W b1 = a1 + a6, b6 = ms(W(d[3]), a1 - a6) << 1;
-    W b2 = a2 + a5, b5 = ms(W(d[4]), a2 - a5) << 1;
-    a1 = b1 + b2;
-    a2 = ms(W(d[5]), b1 - b2) << 2;
-    a5 = b5 + b6;
-    a6 = ms(W(d[5]), b6 - b5) << 2;
-    b0 = a0 + a1;
-    b1 = ms(cos4, a0 - a1) << 1;
-    b2 = a2 + a3;
-    b3 = ms(cos4, a3 - a2) << 1;
-    p[0] = b0;
-    p[1] = b1;
-    p[2] = b2 + b3;
-    p[3] = b3;
-    b4 = a4 + a5;
-    b5 = ms(cos4, a4 - a5) << 1;
-    b6 = a6 + a7;
-    b7 = ms(cos4, a7 - a6) << 1;
-    b6 = b6 + b7;
-    p[4] = b4 + b6;
-    p[5] = b5 + b7;
-    p[6] = b5 + b6;
-    p[7] = b7;
-  }
-  // output shuffle (:7856-7979): rows block 1..16, then qrows 17..32
-  const signed char rec[32][3] = {
-      {1, -1, -1}, {17, 25, 29}, {9, 13, -1}, {21, 25, 29}, {5, -1, -1}, {21, 29, 27},
-      {13, 11, -1}, {19, 29, 27}, {3, -1, -1}, {19, 27, 31}, {11, 15, -1}, {23, 27, 31},
-      {7, -1, -1}, {23, 31, -1}, {15, -1, -1}, {31, -1, -1},
-      {1, -1, -1}, {17, 30, 25}, {14, 9, -1}, {22, 30, 25}, {6, -1, -1}, {22, 26, 30},
-      {10, 14, -1}, {18, 26, 30}, {2, -1, -1}, {18, 28, 26}, {12, 10, -1}, {20, 28, 26},
-      {4, -1, -1}, {20, 24, 28}, {8, 12, -1}, {16, 24, 28}};
-  W v[V33];
-  v[0] = b[0];
-  for (int r = 0; r < 32; ++r) {
-    W t = b[rec[r][0]];
-    if (rec[r][1] >= 0) t = t + b[rec[r][1]];
-    if (rec[r][2] >= 0) t = t + b[rec[r][2]];
-    v[1 + r] = t;
-  }
-  for (int k = 0; k < V33; ++k) v33[k] = (es > 0 ? clip2n(v[k], 31 - es) << es : v[k]).i();
+  return y;
 }
 
-// --------------------------------------------------------------- kernel
+// ------------------------------------------------------------- kernel
 
-__global__ void __launch_bounds__(THREADS) mp3_granules_kernel(Args a) {
-  __shared__ int cst[CONSTS_LEN];
-  __shared__ int bufA[2 * 18 * V33];     // x (2 x 576), then the FDCT values (18 x 2 x 33)
-  __shared__ int bufB[2 * NS];           // dequantized samples, then the IMDCT output
-  __shared__ int over[2 * 288];
-  __shared__ int vb[2176];
-  __shared__ int sd[3 * 2 + GPC];
-  __shared__ int red[R_N];
-  __shared__ int st[7];                  // prev_type[2], prev_ws[2], num_prev[2], undef
+struct Smem {
+  int tab[CONSTS_LEN - OFF(SFB_L)];  // the per-format tables (TB offsets)
+  int bandpack[NS];                  // long_band | band_out_l << 8 | band_out_s << 16 | win_out << 24
+  uint32_t shtab[2 * NS];            // short_word of each offset, base sfb_s[0] then sfb_s[3]
+  int hist[2 * HBUF];                // FIFO histories of granules g (g & 1) and g - 1, see pqmf
+  int bufA[2 * 18 * FD_STRIDE];      // x (2 x 576), then the FDCT scratch (36 x 33)
+  int bufB[2 * NS];                  // dequantized samples, then the IMDCT output
+  int over[2 * 288];
+  int xpc[2 * 288];                  // the overlap as the granule found it (IMDCT reads it)
+  int4 pq[8 * 16];                   // PQMF taps [k][r]: (c1, -c2, P, Q), see pqmf
+  int sd[2][SW_MAX];                 // side rows of granules g and g + 1
+  int red[2][R_N];                   // reductions of granules g and g + 1
+  int st[7];                         // prev_type[2], prev_ws[2], num_prev[2], undef
+  uint32_t recipes[V33];
+};
 
+__device__ __forceinline__ int byte_of(int w, int k) {   // signed byte k of a packed word
+  return static_cast<int>(static_cast<int8_t>(static_cast<uint32_t>(w) >> (8 * k)));
+}
+
+// The PQMF of all 18 x 32 x nch outputs of a granule over its history,
+// after its stage 4. Item (s, ch, r), r = 0..15: row r gives outputs r (lo)
+// and 32 - r (hi); row 0 gives output 0 and, in hi's place, output 16 (row
+// 16). With A[k] = value 1 + r of step s - 2k (row 16: value 0 of step
+// s - 2k - 1) and Bv[k] = value 17 + r of step s - 15 + 2k:
+//   lo = sum c1 A - c2 Bv,  hi = sum c2 A + c1 Bv  (row 16: poly[256+k] A)
+// (the int64 sums of ops/mp3subband.py polyphase_window, in any order).
+// In the first granule (FIRST) a carried value is read from the ring copy
+// the step-by-step FIFO's window column falls on: column vs + k of the rows
+// block, vs + 23 - k of the qrows block, the second copy from 8 on.
+// The history of granule g is hist[g & 1]: step s (-15..17) at HSTEP words
+// from slot CARRY + s. The first granule's ring copy at +8 of its carried
+// steps lies in the other history's slots 18..32 (HN + s), which the next
+// granule writes only after this PQMF has run. Threads t0 .. t0 + nt - 1
+// run it (nt a multiple of 16).
+template <bool FIRST>
+__device__ __forceinline__ void pqmf(const Smem& S, int buf, int16_t* out, int nch, int v,
+                                     int t0, int nt) {
+  const int r = (threadIdx.x - t0) & 15;
+#pragma unroll 1
+  for (int item = threadIdx.x - t0; item < 18 * nch * 16; item += nt) {
+    const int hi_ = item >> 4;
+    const int ch = nch == 2 ? hi_ & 1 : 0, s = nch == 2 ? hi_ >> 1 : hi_;
+    const int* hc = S.hist + buf * HBUF + (CARRY + s) * HSTEP + ch;   // step s; earlier below
+    const int* dc = S.hist + (buf ^ 1) * HBUF + (HN + s) * HSTEP + ch;
+    const int vs = (v - (s >> 1)) & 7;
+    unsigned long long lo = 0, hi = 0;
+#pragma unroll 2
+    for (int k = 0; k < 8; ++k) {
+      const int4 c = S.pq[16 * k + r];
+      const int sa = s - 2 * k, s2 = sa - 1, sb = s - 15 + 2 * k;
+      int av = hc[-2 * k * HSTEP + 2 * (1 + r)];
+      int a16 = hc[(-2 * k - 1) * HSTEP];
+      int bv = hc[(2 * k - 15) * HSTEP + 2 * (17 + r)];
+      if (FIRST) {
+        const bool da = vs + k >= 8, db = vs + 7 - k >= 8;
+        if (da && sa < 0) av = dc[-2 * k * HSTEP + 2 * (1 + r)];
+        if (da && s2 < 0) a16 = dc[(-2 * k - 1) * HSTEP];
+        if (db && sb < 0) bv = dc[(2 * k - 15) * HSTEP + 2 * (17 + r)];
+      }
+      const int a2 = r ? av : a16;
+      lo += static_cast<unsigned long long>(c.x * static_cast<long long>(av));
+      lo += static_cast<unsigned long long>(c.y * static_cast<long long>(bv));
+      hi += static_cast<unsigned long long>(c.z * static_cast<long long>(a2));
+      hi += static_cast<unsigned long long>(c.w * static_cast<long long>(bv));
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const unsigned long long acc = (e ? hi : lo) + static_cast<unsigned long long>(RND);
+      const int s32 = static_cast<int>(static_cast<uint32_t>(
+          static_cast<unsigned long long>(static_cast<long long>(acc) >> (32 - CSHIFT))));
+      int xo = s32 >> DEF_NFRACBITS;
+      const int sign = xo >> 31;
+      if (sign != (xo >> 15)) xo = sign ^ 0x7FFF;
+      const int n = e ? (r ? 32 - r : 16) : r;
+      out[s * 32 * nch + n * nch + ch] = static_cast<int16_t>(xo);
+    }
+  }
+}
+
+// the two samples of thread t in stages 1-2: a butterfly pair (li, ri) of
+// boundary bnd (t < 248), else two samples no butterfly touches (bnd = 0)
+__device__ __forceinline__ void samples_of(int t, int& ia, int& ib, int& bnd) {
+  if (t < 248) {
+    bnd = t / 8 + 1;
+    const int j = t % 8;
+    ia = 18 * bnd - 1 - j;
+    ib = 18 * bnd + j;
+    return;
+  }
+  bnd = 0;
+  const int q = t - 248;   // 0..39
+  if (q < 32) {
+    ia = 18 * q + 8;       // offsets 8 and 9 of every block
+  } else if (q < 36) {
+    ia = 2 * (q - 32);     // offsets 0..7 of block 0
+  } else {
+    ia = 568 + 2 * (q - 36);   // offsets 10..17 of block 31
+  }
+  ib = ia + 1;
+}
+
+__device__ __forceinline__ int pick3(int w, int a0, int a1, int a2) {
+  return w == 0 ? a0 : (w == 1 ? a1 : a2);
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) mp3_granules_kernel(Args a) {
+  __shared__ Smem S;
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int nch = a.nch;
   const int B = a.B;
+  const int G = a.G;
   const int SW = 3 * nch + GPC;
+  const int* tb = S.tab;
 
-  for (int k = tid; k < CONSTS_LEN; k += THREADS) cst[k] = a.consts[k];
-  for (int k = tid; k < 2 * 288; k += THREADS) over[k] = a.over[(size_t)b * 576 + k];
-  for (int k = tid; k < 2176; k += THREADS) vb[k] = a.vbuf[(size_t)b * 2176 + k];
-  if (tid < 2) {
-    st[tid] = a.prev_type[2 * b + tid];
-    st[2 + tid] = a.prev_ws[2 * b + tid];
-    st[4 + tid] = a.num_prev[2 * b + tid];
+  // ---- prologue: tables, carried state, the ring read into the history
+  for (int k = tid; k < CONSTS_LEN - OFF(SFB_L); k += THREADS) S.tab[k] = a.consts[OFF(SFB_L) + k];
+  for (int k = tid; k < NS; k += THREADS) {
+    const int32_t* c = a.consts;
+    S.bandpack[k] = (c[OFF(LONG_BAND) + k] & 0xFF) | (c[OFF(BAND_OUT_L) + k] & 0xFF) << 8 |
+                    (c[OFF(BAND_OUT_S) + k] & 0xFF) << 16 |
+                    static_cast<int>(static_cast<uint32_t>(c[OFF(WIN_OUT) + k]) << 24);
   }
-  if (tid == 0) st[6] = 0;
+  for (int k = tid; k < 2 * 288; k += THREADS) S.over[k] = a.over[(size_t)b * 576 + k];
+  if (tid < 2) {
+    S.st[tid] = a.prev_type[2 * b + tid];
+    S.st[2 + tid] = a.prev_ws[2 * b + tid];
+    S.st[4 + tid] = a.num_prev[2 * b + tid];
+  }
+  if (tid == 0) S.st[6] = 0;
+  if (tid < V33) S.recipes[tid] = kRecipes[tid];
+  if (tid < R_N) S.red[0][tid] = red_init(tid);
+  if (tid < SW) S.sd[0][tid] = a.side[(size_t)b * SW + tid];
+  {
+    const int32_t* vb = a.vbuf + (size_t)b * 2176;
+    for (int k = tid; k < CARRY * nch * V33; k += THREADS) {
+      const int s = k / (nch * V33) - CARRY, ch = (k / V33) % nch, j = k % V33;
+      const int cell = ring_cell(s, a.vindex, j, ch);
+      S.hist[(CARRY + s) * HSTEP + 2 * j + ch] = vb[cell];
+      S.hist[HBUF + (HN + s) * HSTEP + 2 * j + ch] = vb[cell + 8];
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < 2 * NS; k += THREADS) {
+    const int* sfb_s = tb + TB(SFB_S);
+    S.shtab[k] = short_word(sfb_s, k >= NS ? sfb_s[3] : sfb_s[0], k % NS);
+  }
+  if (tid < 8 * 16) {   // PQMF taps, see pqmf
+    const int k = tid / 16, r = tid % 16;
+    const int* poly = tb + TB(POLYCOEF);
+    const int c1 = poly[16 * r + 2 * k], c2 = poly[16 * r + 2 * k + 1];
+    S.pq[tid] = r ? make_int4(c1, -c2, c2, c1) : make_int4(c1, -c2, poly[256 + k], 0);
+  }
+
+  // the thread's samples in stages 1-2 and their spectra, loaded a granule ahead
+  int ia, ib, bnd;
+  samples_of(tid, ia, ib, bnd);
+  int hx[2] = {};      // per channel: sample ia in the low half, ib in the high half
+  int side_next = 0;
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    if (ch >= nch) break;
+    const int16_t* h = a.huff + ((size_t)b * nch + ch) * NS;
+    hx[ch] = (h[ia] & 0xFFFF) | static_cast<int>(static_cast<uint32_t>(h[ib]) << 16);
+  }
+  __syncthreads();
+
   int v = a.vindex;
-  const int* cb = sd + 3 * nch;
+  for (int g = 0; g < G; ++g) {
+    const int cur = g & 1;
+    const int* sd = S.sd[cur];
+    const int* cb = sd + 3 * nch;
+    int* red = S.red[cur];
 
-  for (int g = 0; g < a.G; ++g) {
-    // ---- 0. the granule's side row; reductions reset
-    const int32_t* srow = a.side + ((size_t)g * B + b) * SW;
-    for (int k = tid; k < SW; k += THREADS) sd[k] = srow[k];
-    if (tid < R_N) red[tid] = (tid >= R_CBL && tid < R_MOUT_MS) || tid >= R_EXT ? -1 : 0;
-    __syncthreads();
-
-    // ---- 1. widen, expand, dequantize (thread = sample, both channels)
-    int invp[2];
-    bool sproc[2];
-    for (int ch = 0; ch < nch; ++ch) {
-      const int i = tid;
-      const int h = a.huff[(((size_t)g * B + b) * nch + ch) * NS + i];   // sign-extended
-      const int hm = h & 0x7FFF;
-      const int hs = h < 0 ? static_cast<int>(static_cast<uint32_t>(hm) | 0x80000000u) : hm;
-      const Sample s = expand(cb, cst, ch, i);
-      int dq = hs, mag = 0;
-      if (s.processed) dequant(hs, s.gain, cst, dq, mag);
-      if (mag) atomicOr(&red[R_GBMASK + ch], mag);
-      if (dq != 0 && s.processed) {
-        if (s.is_long) atomicMax(&red[R_CBL + ch], s.band);
-        else if (s.win < 3) atomicMax(&red[R_CBS + 3 * ch + s.win], s.band);
+    // ---- 1. widen, expand, dequantize (both channels of two samples)
+    int src[2][2] = {};      // where stage 2 reads each sample: the reorder's source
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      if (ch >= nch) break;
+      const Chan c = chan_of(cb, ch);
+      int gbm = 0, cbl = -1, cbs0 = -1, cbs1 = -1, cbs2 = -1;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = e ? ib : ia;
+        const int h = e ? hx[ch] >> 16 : static_cast<int16_t>(hx[ch]);   // sign-extended
+        const int hm = h & 0x7FFF;
+        const int hs = h < 0 ? static_cast<int>(static_cast<uint32_t>(hm) | 0x80000000u) : hm;
+        const bool long_proc = i < c.pe_l;
+        const int o = i - c.sbase;
+        const bool short_proc = o >= 0 && i < c.pe_s && c.has_short;
+        int d = hs, mag = 0;       // a zero dequantizes to zero: only its reorder matters
+        src[ch][e] = i;
+        if ((long_proc || short_proc) && (hs != 0 || short_proc)) {
+          const uint32_t sw = S.shtab[c.tab + clampi(o, 0, NS - 1)];
+          if (short_proc) src[ch][e] = c.sbase + static_cast<int>(sw >> 8);
+          if (hs != 0) {
+            const int sband = sw & 15, swin = (sw >> 4) & 3;
+            const int lband = byte_of(S.bandpack[i], 0);
+            const int gain = long_proc ? cb[GB_GAIN_L + 22 * ch + lband]
+                                       : cb[GB_GAIN_S + 39 * ch + 3 * sband + min(swin, 2)];
+            dequant(hs, gain, tb, d, mag);
+            if (d != 0) {
+              if (long_proc) cbl = max(cbl, lband);
+              else if (swin == 0) cbs0 = max(cbs0, sband);
+              else if (swin == 1) cbs1 = max(cbs1, sband);
+              else if (swin == 2) cbs2 = max(cbs2, sband);
+            }
+          }
+        }
+        gbm |= mag;
+        S.bufB[ch * NS + i] = d;
       }
-      bufB[ch * NS + i] = dq;
-      invp[ch] = s.invperm;
-      sproc[ch] = s.short_proc;
-      if (i < 288 && over[ch * 288 + i] != 0) atomicOr(&red[R_ANYOVER + ch], 1);
+      warp_or(&red[R_GBMASK + ch], gbm);
+      warp_max(&red[R_CBL + ch], cbl);
+      warp_max(&red[R_CBS + 3 * ch], cbs0);
+      warp_max(&red[R_CBS + 3 * ch + 1], cbs1);
+      warp_max(&red[R_CBS + 3 * ch + 2], cbs2);
+      warp_or(&red[R_ANYOVER + ch], S.over[ch * 288 + tid] != 0);
     }
-    __syncthreads();
-
-    // per-channel results of the dequantizer (every thread, from shared)
-    int gb[2], nzb[2], cbl[2], cbs[2][3], cbsmax[2];
-    for (int ch = 0; ch < nch; ++ch) {
-      gb[ch] = __clz(red[R_GBMASK + ch]) - 1;
-      const bool has_short = cb[GB_HAS_SHORT + ch] != 0;
-      nzb[ch] = has_short ? cb[GB_PE_S + ch] : sd[ch];
-      cbl[ch] = max(red[R_CBL + ch], 0);
-      cbsmax[ch] = 0;
-      for (int w = 0; w < 3; ++w) {
-        cbs[ch][w] = has_short ? max(red[R_CBS + 3 * ch + w], cb[GB_CB_START_S + ch]) : 0;
-        cbsmax[ch] = max(cbsmax[ch], cbs[ch][w]);
+    if (g + 1 < G) {               // the next granule's spectra and side row
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        if (ch >= nch) break;
+        const int16_t* h = a.huff + (((size_t)(g + 1) * B + b) * nch + ch) * NS;
+        hx[ch] = (h[ia] & 0xFFFF) | static_cast<int>(static_cast<uint32_t>(h[ib]) << 16);
       }
+      if (tid < SW) side_next = a.side[((size_t)(g + 1) * B + b) * SW + tid];
     }
+    __syncthreads();   // B1: the dequantized samples and their reductions
 
-    // ---- 2. short-block reorder and joint stereo (thread = sample)
+    // ---- 2. short-block reorder, joint stereo, butterflies (same samples);
+    // the carried FIFO steps moved to the front of the history
+    if (g > 0) {
+      int* hd = S.hist + cur * HBUF;
+      const int* hs = S.hist + (cur ^ 1) * HBUF + 18 * HSTEP;
+      for (int k = tid; k < CARRY * HSTEP; k += THREADS) hd[k] = hs[k];
+    }
     {
-      const int i = tid;
-      W x[2];
-      for (int ch = 0; ch < nch; ++ch) x[ch] = bufB[ch * NS + (sproc[ch] ? invp[ch] : i)];
-      if (nch == 2) {
-        const int* sfb_l = cst + OFF(SFB_L);
-        const int* sfb_s = cst + OFF(SFB_S);
-        const int mode_ext = cb[GB_SCALARS];
+      W x[2][2];
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (ch < nch) x[ch][e] = W(S.bufB[ch * NS + src[ch][e]]);
+      const int mode_ext = nch == 2 ? cb[GB_SCALARS] : 0;
+      if (mode_ext != 0) {
+        const int* sfb_l = tb + TB(SFB_L);
+        const int* sfb_s = tb + TB(SFB_S);
+        const bool has_s0 = cb[GB_HAS_SHORT] != 0, has_s1 = cb[GB_HAS_SHORT + 1] != 0;
+        const int cbl0 = max(red[R_CBL], 0), cbl1 = max(red[R_CBL + 1], 0);
+        int cbs[2][3];
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch)
+#pragma unroll
+          for (int w = 0; w < 3; ++w)
+            cbs[ch][w] = (ch ? has_s1 : has_s0)
+                             ? max(red[R_CBS + 3 * ch + w], cb[GB_CB_START_S + ch]) : 0;
+        const int cbsmax0 = max(max(cbs[0][0], cbs[0][1]), cbs[0][2]);
+        const int cbsmax1 = max(max(cbs[1][0], cbs[1][1]), cbs[1][2]);
+        const int nzb0 = nzb_of(sd, 2, 0), nzb1 = nzb_of(sd, 2, 1);
         const bool m1 = cb[GB_SCALARS + 1] != 0;
         const int iscale = cb[GB_SCALARS + 2];
         const int midside = mode_ext >> 1, intensity = mode_ext & 1;
-        if (mode_ext != 0 && (gb[0] < 1 || gb[1] < 1))
-          for (int ch = 0; ch < 2; ++ch)
-            if (i < nzb[ch]) x[ch] = W(clampi(x[ch].i(), -0x3FFFFFFF, 0x3FFFFFFF));
-        // mid-side
         const bool use_long = cb[GB_CB_TYPE + 1] == 0;
-        const int n_long = sfb_l[clampi(cbl[1] + 1, 0, 22)];
-        const int i0 = 3 * sfb_s[clampi(cbsmax[1] + 1, 0, 13)];
-        const int ms_n = intensity == 1 ? (use_long ? n_long : i0) : max(nzb[0], nzb[1]);
-        W x0 = x[0], x1 = x[1];
-        if (midside == 1 && i < ms_n) {
-          x0 = x[0] + x[1];
-          x1 = x[0] - x[1];
-          atomicOr(&red[R_MOUT_MS], wabs(x0).i());
-          atomicOr(&red[R_MOUT_MS + 1], wabs(x1).i());
-        }
-        // intensity
-        const int ob_l = cst[OFF(BAND_OUT_L) + i], ob_s = cst[OFF(BAND_OUT_S) + i];
-        const int ow = cst[OFF(WIN_OUT) + i];
-        const int ns_in = nzb[0];
-        bool active;
-        if (use_long) {
-          active = ob_l >= cbl[1] + 1 && ob_l < cbl[0] + 1 && ob_l >= 0 && i < ns_in;
-        } else if (m1) {
-          const int lim = i0 + 3 * fdiv(ns_in - i0, 3);
-          active = ob_s >= cbsmax[1] + 1 && ob_s < cbsmax[0] + 1 && ob_s >= 0 && i < lim &&
-                   i >= i0;
-        } else {
-          const int w = clampi(ow, 0, 2);
-          active = ob_s >= cbs[1][w] + 1 && ob_s < cbs[0][w] + 1 && ob_s >= 0;
-        }
-        if (intensity == 1 && active) {
-          int sf_r, il;
-          if (use_long) {
-            sf_r = ob_l >= 0 ? cb[GB_SFL1 + clampi(ob_l, 0, 22)] : 0;
-            il = ob_l >= 0 ? cb[GB_IL_LONG + clampi(ob_l, 0, 22)] : 0;
-          } else {
-            sf_r = ob_s >= 0 ? cb[GB_SFS1 + clampi(3 * ob_s + ow, 0, 38)] : 0;
-            il = ob_s >= 0 ? cb[GB_IL_SHORT + clampi(ob_s, 0, 12)] : 0;
+        const int n_long = sfb_l[clampi(cbl1 + 1, 0, 22)];
+        const int i0 = 3 * sfb_s[clampi(cbsmax1 + 1, 0, 13)];
+        const int ms_n = intensity == 1 ? (use_long ? n_long : i0) : max(nzb0, nzb1);
+        const bool clip = __clz(red[R_GBMASK]) - 1 < 1 || __clz(red[R_GBMASK + 1]) - 1 < 1;
+        int mms0 = 0, mms1 = 0, mis0 = 0, mis1 = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = e ? ib : ia;
+          if (clip) {
+            if (i < nzb0) x[0][e] = W(clampi(x[0][e].i(), -0x3FFFFFFF, 0x3FFFFFFF));
+            if (i < nzb1) x[1][e] = W(clampi(x[1][e].i(), -0x3FFFFFFF, 0x3FFFFFFF));
           }
-          const int ms1 = clampi(midside, 0, 1);
-          const int* iip = cst + OFF(ISFIIP) + 2 * ms1;
-          W fl, fr;
-          if (m1) {
-            if (sf_r == 7) {
+          W x0 = x[0][e], x1 = x[1][e];
+          if (midside == 1 && i < ms_n) {
+            x0 = x[0][e] + x[1][e];
+            x1 = x[0][e] - x[1][e];
+            mms0 |= wabs(x0).i();
+            mms1 |= wabs(x1).i();
+          }
+          const int bp = S.bandpack[i];
+          const int ob_l = byte_of(bp, 1), ob_s = byte_of(bp, 2), ow = byte_of(bp, 3);
+          bool active;
+          if (use_long) {
+            active = ob_l >= cbl1 + 1 && ob_l < cbl0 + 1 && ob_l >= 0 && i < nzb0;
+          } else if (m1) {
+            const int lim = i0 + 3 * fdiv(nzb0 - i0, 3);
+            active = ob_s >= cbsmax1 + 1 && ob_s < cbsmax0 + 1 && ob_s >= 0 && i < lim &&
+                     i >= i0;
+          } else {
+            const int w = clampi(ow, 0, 2);
+            active = ob_s >= pick3(w, cbs[1][0], cbs[1][1], cbs[1][2]) + 1 &&
+                     ob_s < pick3(w, cbs[0][0], cbs[0][1], cbs[0][2]) + 1 && ob_s >= 0;
+          }
+          if (intensity == 1 && active) {
+            int sf_r, il;
+            if (use_long) {
+              sf_r = ob_l >= 0 ? cb[GB_SFL1 + clampi(ob_l, 0, 22)] : 0;
+              il = ob_l >= 0 ? cb[GB_IL_LONG + clampi(ob_l, 0, 22)] : 0;
+            } else {
+              sf_r = ob_s >= 0 ? cb[GB_SFS1 + clampi(3 * ob_s + ow, 0, 38)] : 0;
+              il = ob_s >= 0 ? cb[GB_IL_SHORT + clampi(ob_s, 0, 12)] : 0;
+            }
+            const int ms1 = clampi(midside, 0, 1);
+            const int* iip = tb + TB(ISFIIP) + 2 * ms1;
+            W fl, fr;
+            if (m1) {
+              if (sf_r == 7) {
+                fl = iip[0];
+                fr = iip[1];
+              } else {
+                const int* isf = tb + TB(ISF1) + 7 * ms1;
+                fl = isf[clampi(sf_r, 0, 6)];
+                fr = W(isf[6]) - fl;
+              }
+            } else if (sf_r == il) {
               fl = iip[0];
               fr = iip[1];
             } else {
-              const int* isf = cst + OFF(ISF1) + 7 * ms1;
-              fl = isf[clampi(sf_r, 0, 6)];
-              fr = W(isf[6]) - fl;
+              const int* isf = tb + TB(ISF2) + 16 * ((clampi(iscale, 0, 1) << 1) | ms1);
+              const int half = clampi((W(sf_r) + W(1)).i() >> 1, 0, 15);
+              const bool odd = (sf_r & 1) == 1;
+              fl = isf[odd ? half : 0];
+              fr = isf[odd ? 0 : half];
             }
-          } else if (sf_r == il) {
-            fl = iip[0];
-            fr = iip[1];
-          } else {
-            const int* isf = cst + OFF(ISF2) + 16 * ((clampi(iscale, 0, 1) << 1) | ms1);
-            const int half = clampi((W(sf_r) + W(1)).i() >> 1, 0, 15);
-            const bool odd = (sf_r & 1) == 1;
-            fl = isf[odd ? half : 0];
-            fr = isf[odd ? 0 : half];
+            const W xl = ms(fl, x0) << 2, xr = ms(fr, x0) << 2;
+            x0 = xl;
+            x1 = xr;
+            mis0 |= wabs(xl).i();
+            mis1 |= wabs(xr).i();
           }
-          const W xl = ms(fl, x0) << 2, xr = ms(fr, x0) << 2;
-          x0 = xl;
-          x1 = xr;
-          atomicOr(&red[R_MOUT_IS], wabs(xl).i());
-          atomicOr(&red[R_MOUT_IS + 1], wabs(xr).i());
+          x[0][e] = x0;
+          x[1][e] = x1;
         }
-        x[0] = x0;
-        x[1] = x1;
+        warp_or(&red[R_MOUT_MS], mms0);
+        warp_or(&red[R_MOUT_MS + 1], mms1);
+        warp_or(&red[R_MOUT_IS], mis0);
+        warp_or(&red[R_MOUT_IS + 1], mis1);
       }
-      for (int ch = 0; ch < nch; ++ch) {
-        bufA[ch * NS + i] = x[ch].i();
-        if (x[ch].i() != 0) atomicOr(&red[R_ANYX + ch], 1);
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        if (ch >= nch) break;
+        warp_or(&red[R_ANYX + ch], (x[ch][0].i() | x[ch][1].i()) != 0);
+        if (bnd != 0 && bnd <= blocks_of(sd, nch, ch, a.cutoff).nbfly) {
+          const int j = tid % 8;    // anti-alias butterfly (li, ri) = (ia, ib)
+          const W a0 = x[ch][0], b0 = x[ch][1];
+          const W c0 = tb[TB(CSA) + 2 * j], c1 = tb[TB(CSA) + 2 * j + 1];
+          x[ch][0] = (ms(c0, a0) - ms(c1, b0)) << 1;
+          x[ch][1] = (ms(c0, b0) + ms(c1, a0)) << 1;
+        }
+        S.bufA[ch * NS + ia] = x[ch][0].i();
+        S.bufA[ch * NS + ib] = x[ch][1].i();
       }
     }
-    __syncthreads();
+    __syncthreads();   // B2: the stereo samples, the carried history moved
 
-    // post-stereo guard bits and nzb (reference :7694-7701)
-    if (nch == 2 && cb[GB_SCALARS] != 0) {
-      const int intensity = cb[GB_SCALARS] & 1;
-      for (int ch = 0; ch < 2; ++ch)
-        gb[ch] = __clz(red[(intensity ? R_MOUT_IS : R_MOUT_MS) + ch]) - 1;
-      nzb[0] = nzb[1] = max(nzb[0], nzb[1]);
-    }
-    // IMDCT block counts (reference IMDCT :2584-2603)
-    int nbl[2], nbfly[2], nbt[2], cws[2];
-    for (int ch = 0; ch < nch; ++ch) {
+    // ---- 3. IMDCT with overlap: two threads per (channel, block); the
+    // other warps run the previous granule's PQMF meanwhile
+    if (tid >= 64 * nch) {
+      if (g > 0) {
+        int16_t* out = a.pcm + ((size_t)b * G + g - 1) * (NS * nch);
+        if (g == 1)
+          pqmf<true>(S, cur ^ 1, out, nch, (v + 9) & 7, 64 * nch, THREADS - 64 * nch);
+        else
+          pqmf<false>(S, cur ^ 1, out, nch, (v + 9) & 7, 64 * nch, THREADS - 64 * nch);
+      }
+    } else {                        // whole warps
+      const int h = tid & 1, unit = tid >> 1, ch = unit >> 5, blk = unit & 31;
+      const Blocks nb = blocks_of(sd, nch, ch, a.cutoff);
       const int bt = sd[nch + ch], mixed = sd[2 * nch + ch];
-      const int n_long_all = min((nzb[ch] + 7) / 18 + 1, 32);
-      nbl[ch] = bt != 2 ? n_long_all : (mixed == 1 ? a.cutoff : 0);
-      nbfly[ch] = bt != 2 ? nbl[ch] - 1 : (mixed == 1 ? a.cutoff - 1 : 0);
-      nbt[ch] = (max(nzb[ch], nbfly[ch] * 18 + 8) + 17) / 18;
-      cws[ch] = mixed == 1 ? a.cutoff : 0;
-    }
-
-    // ---- 3. anti-alias butterflies in place (thread = (channel, boundary, j))
-    if (tid < nch * 31 * 8) {
-      const int ch = tid / 248, bnd = (tid % 248) / 8 + 1, j = tid % 8;
-      if (bnd <= nbfly[ch]) {
-        int* x = bufA + ch * NS;
-        const int li = 18 * bnd - 1 - j, ri = 18 * bnd + j;
-        const W a0 = x[li], b0 = x[ri];
-        const W c0 = cst[OFF(CSA) + 2 * j], c1 = cst[OFF(CSA) + 2 * j + 1];
-        x[li] = ((ms(c0, a0) - ms(c1, b0)) << 1).i();
-        x[ri] = ((ms(c0, b0) + ms(c1, a0)) << 1).i();
-      }
-    }
-    __syncthreads();
-
-    // ---- 4. IMDCT with overlap (thread = (channel, block))
-    if (tid < nch * 32) {
-      const int ch = tid / 32, blk = tid % 32;
-      const int bt = sd[nch + ch], mixed = sd[2 * nch + ch];
-      const int pt = st[ch], pws = st[2 + ch], npv = st[4 + ch];
-      const int m_lim = max(nbl[ch], nbt[ch]);
-      const bool in_long = blk < nbl[ch];
-      const bool in_short = !in_long && blk < nbt[ch];
+      const int pt = S.st[ch], pws = S.st[2 + ch], npv = S.st[4 + ch];
+      const int m_lim = max(nb.nbl, nb.nbt);
+      const bool in_long = blk < nb.nbl;
+      const bool in_short = !in_long && blk < nb.nbt;
       const bool in_prev = !in_long && !in_short && blk >= m_lim && blk < npv;
-      const int curr_win = (mixed == 1 && blk < cws[ch]) ? 0 : bt;
+      const int curr_win = (mixed == 1 && blk < nb.cws) ? 0 : bt;
       const int prev_win = blk < pws ? 0 : pt;
-      int* xprev = over + ch * 288 + 9 * blk;
-      const int* xin = bufA + ch * NS + 18 * blk;
-      W y[18], np[9];
-      W mout = W(0);
+      int* xprev = S.over + ch * 288 + 9 * blk;
+      int* xin = S.bufA + ch * NS + 18 * blk;   // the block's input, then its scratch
+      int* y = S.bufB + ch * NS + 18 * blk;
+      const int* win = tb + TB(IMDCTWIN);
+      const int es = (in_long || in_short) ? max(7 - gb_post(red, cb, nch, ch), 0) : 0;
+      // A: the carried overlap copied aside (B writes the new one in place);
+      // the thread's transform into registers (long: the even (h = 0) or
+      // odd (h = 1) 9-point IDCT; short: windows h and 2), then into the
+      // block's input, which no one reads any more
+      int* xp = S.xpc + ch * 288 + 9 * blk;
+      for (int k = h; k < 9; k += 2) xp[k] = xprev[k];
+      W t[9];
+      W o2[6];
       if (in_long) {
-        mout = imdct36(xin, xprev, curr_win, prev_win, blk, gb[ch], cst, y, np);
+        W acc1 = W(0), acc2 = W(0);
+        W xv[9];
+#pragma unroll
+        for (int i = 8; i >= 0; --i) {
+          acc1 = (W(xin[2 * i + 1]) >> es) - acc1;
+          acc2 = acc1 - acc2;
+          acc1 = (W(xin[2 * i]) >> es) - acc1;
+          xv[i] = h ? acc2 : acc1;
+        }
+        xv[0] = xv[0] >> 1;
+        idct9(xv, t, tb + TB(C9));
       } else if (in_short) {
-        mout = imdct12x3(xin, xprev, prev_win, blk, gb[ch], cst, y, np);
-      } else if (in_prev) {
-        // window previous only (HybridTransform :2482-2512)
-        W xp[9];
-        for (int k = 0; k < 9; ++k) xp[k] = W(xprev[k]);
-        win_previous(xp, prev_win, cst + OFF(IMDCTWIN), y);
-        W any = W(0);
-        for (int k = 0; k < 18; ++k) {
-          y[k] = y[k] << 2;
-          if ((blk & 1) && (k & 1)) y[k] = -y[k];
-          mout = mout | wabs(y[k]);
-          any = any | y[k];
+        const W c3 = W(tb[TB(C9)]);
+        imdct12(W(xin[h]) >> es, W(xin[h + 3]) >> es, W(xin[h + 6]) >> es, W(xin[h + 9]) >> es,
+                W(xin[h + 12]) >> es, W(xin[h + 15]) >> es, c3, t);
+        imdct12(W(xin[2]) >> es, W(xin[5]) >> es, W(xin[8]) >> es, W(xin[11]) >> es,
+                W(xin[14]) >> es, W(xin[17]) >> es, c3, o2);
+      }
+      __syncwarp();
+      if (in_long) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) xin[9 * h + k] = t[k].i();   // even then odd
+      } else if (in_short) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          xin[6 * h + k] = t[k].i();
+          xin[12 + k] = o2[k].i();
         }
-        for (int k = 0; k < 9; ++k) np[k] = W(0);
-        if (any.i() != 0) atomicMax(&red[R_EXT + ch], blk);
+      }
+      __syncwarp();
+      // B: half the outputs and half the new overlap
+      W m = W(0);
+      bool any = false;
+      if (in_long) {
+        const int* fw = tb + TB(FASTWIN36);
+        const int* wc = win + 36 * clampi(curr_win, 0, 3);
+        const bool fast = prev_win == 0 && curr_win == 0;
+#pragma unroll 1
+        for (int i = 5 * h; i < 5 + 4 * h; ++i) {
+          const W even = xin[8 - i], odd = xin[17 - i];
+          const W xo_ = ms(W(tb[TB(C18) + 8 - i]), odd);
+          const W xe_ = even >> 2;
+          W lo, hi;
+          if (fast) {
+            const W s = -(W(xp[i]) >> es);
+            const W d = -(xe_ - xo_);
+            const W tt = s - d;
+            lo = d + (ms(tt, W(fw[2 * i])) << 2);
+            hi = s + (ms(tt, W(fw[2 * i + 1])) << 2);
+          } else {
+            const W d = xe_ - xo_;
+            lo = (win_prev_at(xp, es, prev_win, win, i) + ms(d, W(wc[i]))) << 2;
+            hi = (win_prev_at(xp, es, prev_win, win, 17 - i) + ms(d, W(wc[17 - i]))) << 2;
+          }
+          m = m | wabs(lo) | wabs(hi);
+          y[i] = invert_rescale(lo, i, blk, es, m).i();
+          y[17 - i] = invert_rescale(hi, 17 - i, blk, es, m).i();
+          xprev[i] = rescale(xe_ + xo_, es).i();
+        }
+      } else if (in_short) {
+        const int* w2 = win + 2 * 36;
+        const int* xb = xin;
+#pragma unroll 1
+        for (int k = 9 * h; k < 9 + 9 * h; ++k) {
+          const int grp = k / 3, i = k % 3;
+          W val = win_prev_at(xp, es, prev_win, win, k) << 2;
+          if (grp == 2) val = val + ms(w2[i], xb[3 + i]);
+          else if (grp == 3) val = val + ms(w2[3 + i], xb[5 - i]);
+          else if (grp == 4) val = val + (ms(w2[6 + i], xb[2 - i]) + ms(w2[i], xb[9 + i]));
+          else if (grp == 5) val = val + (ms(w2[9 + i], xb[i]) + ms(w2[3 + i], xb[11 - i]));
+          m = m | wabs(val);
+          y[k] = invert_rescale(val, k, blk, es, m).i();
+        }
+#pragma unroll 1
+        for (int k = 5 * h; k < 5 + 4 * h; ++k)
+          xprev[k] = rescale(W(xb[k < 3 ? 6 + k : 9 + k]) >> 2, es).i();
+      } else if (in_prev) {     // window previous only (HybridTransform :2482-2512)
+#pragma unroll 1
+        for (int k = 9 * h; k < 9 + 9 * h; ++k) {
+          W val = win_prev_at(xp, 0, prev_win, win, k) << 2;
+          if ((blk & 1) && (k & 1)) val = -val;
+          m = m | wabs(val);
+          any = any || val.i() != 0;
+          y[k] = val.i();
+        }
+        for (int k = 5 * h; k < 5 + 4 * h; ++k) xprev[k] = 0;
       } else {
-        for (int k = 0; k < 18; ++k) y[k] = W(0);
-        for (int k = 0; k < 9; ++k) np[k] = W(xprev[k]);
+        for (int k = 9 * h; k < 9 + 9 * h; ++k) y[k] = 0;
       }
-      for (int k = 0; k < 18; ++k) bufB[ch * NS + 18 * blk + k] = y[k].i();
-      for (int k = 0; k < 9; ++k) xprev[k] = np[k].i();
-      if (mout.i()) atomicOr(&red[R_MOUT_IMDCT + ch], mout.i());
+      if (any) atomicMax(&red[R_EXT + ch], blk);
+      warp_or(&red[R_MOUT_IMDCT + ch], m.i());
     }
-    __syncthreads();
+    __syncthreads();   // B3: the IMDCT output and the new overlap
 
-    // ---- 5. FDCT32 per (slot, channel); carried block state; UB flag
-    if (tid < 18 * nch) {
-      const int s = tid / nch, ch = tid % nch;
-      fdct33(bufB + ch * NS + s, 18, __clz(red[R_MOUT_IMDCT + ch]) - 1, cst + OFF(DCTTAB),
-             bufA + (2 * s + ch) * V33);
-    }
-    if (tid == THREADS - 1) {
-      for (int ch = 0; ch < nch; ++ch) {
-        if (gb[ch] == 31 && (red[R_ANYX + ch] | red[R_ANYOVER + ch])) st[6] = 1;
-        st[ch] = sd[nch + ch];
-        st[2 + ch] = cws[ch];
-        st[4 + ch] = max(max(nbl[ch], nbt[ch]), red[R_EXT + ch]);
-      }
-    }
-    __syncthreads();
-
-    // ---- 6. the 18 FIFO steps: store, then the int64 PQMF
-    int16_t* out = a.pcm + ((size_t)b * a.G + g) * (NS * nch);
-    for (int s = 0; s < 18; ++s) {
-      const int odd = s & 1;
-      const int row_off = 17 * odd, qrow_off = 17 * (1 - odd), c0 = (v - odd) & 7;
-      if (tid < nch * V33) {
-        const int ch = tid / V33, j = tid % V33, cc = 32 * ch;
-        const int val = bufA[(2 * s + ch) * V33 + j];
-        int row, col;
-        if (j == 0) {
-          row = qrow_off + 16;
-          col = c0 + cc;
-        } else if (j <= 16) {
-          row = row_off + j - 1;
-          col = v + cc;
-        } else {
-          row = qrow_off + j - 17;
-          col = c0 + 16 + cc;
+    // ---- 4. FDCT32 per (slot, channel), eight threads each; the carried
+    // block state and the UB flag; the next granule's side row and reductions
+    {
+      const int nu = 18 * nch;
+      if ((tid & ~31) < 8 * nu) {     // whole warps; a partly used warp runs a clamped unit
+        const int l = tid & 7, u0 = tid >> 3, u = min(u0, nu - 1);
+        const int s = u % 18, ch = u / 18;
+        const bool store = u0 < nu;
+        const int es = max(6 - (__clz(red[R_MOUT_IMDCT + ch]) - 1), 0);
+        const int* x = S.bufB + ch * NS + s;    // stride 18
+        const int* dct = tb + TB(DCTTAB);
+        int* p = S.bufA + u * FD_STRIDE;        // the 32 post-pass entries
+        {   // first pass: butterfly group l
+          const W a0 = W(x[18 * l]) >> es, a3 = W(x[18 * (31 - l)]) >> es;
+          const W a1 = W(x[18 * (15 - l)]) >> es, a2 = W(x[18 * (16 + l)]) >> es;
+          const int s1 = (0x11122335 >> (4 * l)) & 15, s2 = (0x42211111 >> (4 * l)) & 15;
+          const W b0 = a0 + a3, b3 = ms(W(dct[3 * l]), a0 - a3) << 1;
+          const W b1 = a1 + a2, b2 = ms(W(dct[3 * l + 1]), a1 - a2) << s1;
+          if (store) {
+            p[l] = (b0 + b1).i();
+            p[15 - l] = (ms(W(dct[3 * l + 2]), b0 - b1) << s2).i();
+            p[16 + l] = (b2 + b3).i();
+            p[31 - l] = (ms(W(dct[3 * l + 2]), b3 - b2) << s2).i();
+          }
         }
-        vb[row * 64 + col] = val;
-        vb[row * 64 + col + 8] = val;
-      }
-      __syncthreads();
-      if (tid < 32 * nch) {
-        const int ch = tid / 32, n = tid % 32;
-        const int r = n <= 16 ? n : 32 - n;
-        const int* wrow = vb + (17 * odd + r) * 64 + v + 32 * ch;
-        const int* poly = cst + OFF(POLYCOEF);
-        unsigned long long acc = 0;
-        for (int k = 0; k < 8; ++k) {
-          const long long c1 = r < 16 ? poly[16 * r + 2 * k] : poly[256 + k];
-          const long long c2 = r < 16 ? poly[16 * r + 2 * k + 1] : 0;
-          const long long av = wrow[k], bv = wrow[23 - k];
-          if (n <= 16)
-            acc += static_cast<unsigned long long>(c1 * av) - static_cast<unsigned long long>(c2 * bv);
-          else
-            acc += static_cast<unsigned long long>(c2 * av) + static_cast<unsigned long long>(c1 * bv);
+        __syncwarp();
+        {   // second pass: group l / 2 of 8, elements (0, 7, 3, 4) or (1, 6, 2, 5)
+          const int hh = l & 1;
+          const int* pg = p + 8 * (l >> 1);
+          const int* d = dct + 24 + 6 * (l >> 1) + 3 * hh;
+          const W u0v = pg[hh], u1v = pg[7 - hh], u2v = pg[3 - hh], u3v = pg[4 + hh];
+          const W x0 = u0v + u1v, x1 = ms(W(d[0]), u0v - u1v) << 1;
+          const W x2 = u2v + u3v, x3 = ms(W(d[1]), u2v - u3v) << (hh ? 1 : 3);
+          const int shc = hh ? 2 : 1;
+          const W y0 = x0 + x2, y1 = ms(W(d[2]), x0 - x2) << shc;
+          const W y2 = x3 + x1, y3 = ms(W(d[2]), x1 - x3) << shc;
+          // hh = 0 holds (A0, A3, A4, A7), hh = 1 (A1, A2, A5, A6); the
+          // last step pairs A0..A3 on hh = 0 and A4..A7 on hh = 1
+          const W r0 = W(__shfl_xor_sync(FULL, (hh ? y0 : y2).i(), 1));
+          const W r1 = W(__shfl_xor_sync(FULL, (hh ? y1 : y3).i(), 1));
+          const W P = hh ? r0 : y0, Q = hh ? y2 : r0, U = hh ? r1 : y1, V = hh ? y3 : r1;
+          const W cos4 = W(0x5A82799A);
+          const W e = P + Q, f = ms(cos4, P - Q) << 1;
+          const W hv = ms(cos4, U - V) << 1, gh = (V + U) + hv;
+          __syncwarp();
+          if (store) {
+            int* o = p + 8 * (l >> 1) + 4 * hh;
+            o[0] = (hh ? e + gh : e).i();
+            o[1] = (hh ? f + hv : f).i();
+            o[2] = (hh ? f + gh : gh).i();
+            o[3] = hv.i();
+          }
         }
-        acc += static_cast<unsigned long long>(RND);
-        const int s32 = static_cast<int>(
-            static_cast<uint32_t>(static_cast<unsigned long long>(static_cast<long long>(acc) >> (32 - CSHIFT))));
-        int xo = s32 >> DEF_NFRACBITS;
-        const int sign = xo >> 31;
-        if (sign != (xo >> 15)) xo = sign ^ 0x7FFF;
-        out[s * 32 * nch + n * nch + ch] = static_cast<int16_t>(xo);
+        __syncwarp();
+        if (store) {   // the 33 stored values, es epilogue, into the history
+          int* hrow = S.hist + cur * HBUF + (CARRY + s) * HSTEP + ch;
+#pragma unroll
+          for (int q = 0; q < 5; ++q) {
+            const int j = l + 8 * q;
+            if (j >= V33) break;
+            const uint32_t r = S.recipes[j];
+            const int n = r >> 15;
+            W vv = W(p[r & 31]);
+            if (n > 1) vv = vv + W(p[(r >> 5) & 31]);
+            if (n > 2) vv = vv + W(p[(r >> 10) & 31]);
+            hrow[2 * j] = rescale(vv, es).i();
+          }
+        }
       }
-      __syncthreads();
-      v = (v - odd) & 7;
+      if (tid == THREADS - 1) {
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch) {
+          if (ch >= nch) break;
+          const Blocks nb = blocks_of(sd, nch, ch, a.cutoff);
+          if (gb_post(red, cb, nch, ch) == 31 && (red[R_ANYX + ch] | red[R_ANYOVER + ch]))
+            S.st[6] = 1;
+          S.st[ch] = sd[nch + ch];
+          S.st[2 + ch] = nb.cws;
+          S.st[4 + ch] = max(max(nb.nbl, nb.nbt), red[R_EXT + ch]);
+        }
+      }
+      if (tid < R_N) S.red[cur ^ 1][tid] = red_init(tid);
+      if (g + 1 < G && tid < SW) S.sd[cur ^ 1][tid] = side_next;
     }
+    __syncthreads();   // B4: the history, the state, the next side row
+    v = (v - 9) & 7;
   }
 
-  for (int k = tid; k < 2 * 288; k += THREADS) a.over[(size_t)b * 576 + k] = over[k];
-  for (int k = tid; k < 2176; k += THREADS) a.vbuf[(size_t)b * 2176 + k] = vb[k];
+  // ---- the last granule's PQMF, on every thread
+  {
+    const int gl = G - 1;
+    int16_t* out = a.pcm + ((size_t)b * G + gl) * (NS * nch);
+    if (gl == 0)
+      pqmf<true>(S, 0, out, nch, (v + 9) & 7, 0, THREADS);
+    else
+      pqmf<false>(S, gl & 1, out, nch, (v + 9) & 7, 0, THREADS);
+  }
+
+  // ---- epilogue: the carried state; the ring rebuilt from the last
+  // granule's last 16 steps (every ring cell but rows 16 and 33 of the
+  // qrows block, which no step writes)
+  for (int k = tid; k < 2 * 288; k += THREADS) a.over[(size_t)b * 576 + k] = S.over[k];
   if (tid < 2) {
-    a.prev_type[2 * b + tid] = st[tid];
-    a.prev_ws[2 * b + tid] = st[2 + tid];
-    a.num_prev[2 * b + tid] = st[4 + tid];
+    a.prev_type[2 * b + tid] = S.st[tid];
+    a.prev_ws[2 * b + tid] = S.st[2 + tid];
+    a.num_prev[2 * b + tid] = S.st[4 + tid];
   }
-  if (tid == 0) a.undef[b] = st[6];
+  if (tid == 0) a.undef[b] = S.st[6];
+  {
+    const int vl = (v + 9) & 7;
+    int32_t* vb = a.vbuf + (size_t)b * 2176;
+    for (int k = tid; k < 16 * nch * V33; k += THREADS) {
+      const int s = 2 + k / (nch * V33), ch = (k / V33) % nch, j = k % V33;
+      const int val = S.hist[((G - 1) & 1) * HBUF + (CARRY + s) * HSTEP + 2 * j + ch];
+      const int cell = ring_cell(s, vl, j, ch);
+      vb[cell] = val;
+      vb[cell + 8] = val;
+    }
+  }
 }
 
 }  // namespace

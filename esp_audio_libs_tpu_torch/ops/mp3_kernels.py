@@ -44,6 +44,10 @@ CONST_LAYOUT = (("long_band", 576), ("band_out_l", 576), ("band_out_s", 576),
                 ("ISFMpeg1", 14), ("ISFMpeg2", 64), ("ISFIIP", 4))
 
 
+# the sample maps csrc/mp3_granules.cu packs into one word per sample, a byte each
+_BYTE_MAPS = ("long_band", "band_out_l", "band_out_s", "win_out")
+
+
 @functools.lru_cache(None)
 def _consts_np(ver: int, sr_idx: int) -> np.ndarray:
     from ..models.mp3 import format_maps
@@ -54,6 +58,8 @@ def _consts_np(ver: int, sr_idx: int) -> np.ndarray:
         a = np.asarray(maps[name] if name in maps else T[name], np.int32).reshape(-1)
         if a.size != n:
             raise AssertionError(f"{name}: {a.size} words, the layout says {n}")
+        if name in _BYTE_MAPS and (a.min() < -128 or a.max() > 127):
+            raise AssertionError(f"{name}: the kernel keeps it as signed bytes")
         parts.append(a)
     return np.concatenate(parts)
 

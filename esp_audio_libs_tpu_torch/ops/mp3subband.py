@@ -25,7 +25,7 @@ import torch
 from ..runtime.tables import mp3_tables
 from .mp3dsp import mulshift32, tables
 
-__all__ = ["subband_granule"]
+__all__ = ["fifo_cell", "subband_granule", "subband_granule_onepass"]
 
 DEF_NFRACBITS = 25 - 2 - 2 - 15  # = 6 (reference :791-795)
 CSHIFT = 12
@@ -207,3 +207,96 @@ def subband_granule(outbuf, gb, vbuf, vindex: int, *, nch: int):
         pcm.append(torch.stack(outs, dim=-1).reshape(L, 32 * nch))
         v = (v - odd) & 7
     return torch.cat(pcm, dim=-1), vb.reshape(L, 2176)
+
+
+# ------------------------------------------------ the FIFO as a linear history
+
+CARRY = 15   # FIFO steps before a granule that its PQMF reads
+
+
+def fifo_cell(step: int, v: int, j: int):
+    """Where FIFO step ``step`` of a granule whose phase is ``v`` stores its
+    value ``j`` (0..32) of channel 0 in the ``[34, 64]`` ring: (row, first
+    column); the second copy is 8 columns further, channel 1 32 further.
+    Steps before the granule (``step < 0``) are where the ring holds them when
+    the granule starts. Step ``s`` runs at phase ``v - floor(s / 2)``: the odd
+    steps before it each moved the phase back by one."""
+    odd = step & 1
+    vs = (v - (step >> 1)) & 7
+    c0 = (vs - odd) & 7
+    if j == 0:
+        return 17 * (1 - odd) + 16, c0
+    if j <= 16:
+        return 17 * odd + j - 1, vs
+    return 17 * (1 - odd) + j - 17, c0 + 16
+
+
+@functools.lru_cache(None)
+def _onepass_maps(v: int):
+    """Index maps of :func:`subband_granule_onepass` at phase ``v``, numpy:
+    the ring cells of the carried steps (first and second copy), and for each
+    step s (0..17), row r (0..16) and tap k (0..7) the history entries (copy,
+    step + CARRY, value) that the step-by-step FIFO reads as its window's
+    columns k (A) and 23 - k (Bv)."""
+    carried = np.zeros((2, CARRY, 33), np.int64)           # flat ring cell, channel 0
+    for s in range(-CARRY, 0):
+        for j in range(33):
+            row, col = fifo_cell(s, v, j)
+            carried[0, s + CARRY, j] = row * 64 + col
+            carried[1, s + CARRY, j] = row * 64 + col + 8
+    a_idx = np.zeros((3, 18, 17, 8), np.int64)             # (copy, step, value) of A
+    b_idx = np.zeros((3, 18, 17, 8), np.int64)             # and of Bv (row 16: unused)
+    for s in range(18):
+        vs = (v - (s >> 1)) & 7
+        for r in range(17):
+            for k in range(8):
+                # column vs + k: slot age k of this parity's rows block;
+                # row 16 holds value 0 of the other parity's steps
+                a_step, a_val = (s - 2 * k, 1 + r) if r < 16 else (s - 2 * k - 1, 0)
+                a_idx[:, s, r, k] = (int(vs + k >= 8), a_step + CARRY, a_val)
+                # column vs + 23 - k: slot age 7 - k of the qrows block
+                b_idx[:, s, r, k] = (int(vs + 7 - k >= 8), s - 15 + 2 * k + CARRY,
+                                     17 + min(r, 15))
+    return carried, a_idx, b_idx
+
+
+def subband_granule_onepass(outbuf, gb, vbuf, vindex: int, *, nch: int):
+    """:func:`subband_granule` computed as csrc/mp3_granules.cu computes it:
+    the 33 stored values of all 18 steps first, then every PQMF output in
+    one pass over a linear history (the ring's 15 carried steps, then the 18
+    new ones), then the ring rebuilt from the last 16 steps. Used by tests to
+    pin that index map to the step-by-step FIFO; no path on the card runs it.
+
+    A step s reads, for its window's column k, the value of step s - 2k (its
+    row 16: value 0 of step s - 2k - 1) and for column 23 - k value 17 + r of
+    step s - 15 + 2k. A carried value is read from the ring copy the window
+    column falls on (the copies agree whenever the ring was written by this
+    FIFO). Arguments and results as :func:`subband_granule`.
+    """
+    T = tables(outbuf.device)
+    outbuf = outbuf.to(torch.int32)
+    gb = gb.to(torch.int32)
+    L = outbuf.shape[0]
+    v = int(vindex) & 7
+    C1, C2 = _poly_coefs(outbuf.device)
+    carried, a_idx, b_idx = (torch.as_tensor(m, device=outbuf.device)
+                             for m in _onepass_maps(v))
+    vb = vbuf.to(torch.int32).reshape(L, 2176)
+    new_vb = vb.clone()
+    pcm = []
+    for ch in range(nch):
+        new = fdct_values(outbuf[:, ch], gb[:, ch, None].expand(L, 18), T)   # [L, 18, 33]
+        old = vb[:, carried + 32 * ch]                                         # [L, 2, 15, 33]
+        hist = torch.stack([torch.cat([old[:, c], new], dim=1) for c in range(2)], dim=1)
+        # [L, 2 copies, 33 steps, 33 values]; the new steps have one value per copy
+        A = hist[:, a_idx[0], a_idx[1], a_idx[2]]                              # [L, 18, 17, 8]
+        Bv = hist[:, b_idx[0], b_idx[1], b_idx[2]]
+        win = torch.cat([A, torch.zeros_like(A), Bv.flip(-1)], dim=-1)         # [L, 18, 17, 24]
+        pcm.append(polyphase_window(win, C1, C2))                              # [L, 18, 32]
+        for s in range(2, 18):
+            for j in range(33):
+                row, col = fifo_cell(s, v, j)
+                for c in (col, col + 8):
+                    new_vb[:, row * 64 + c + 32 * ch] = new[:, s, j]
+    pcm = torch.stack(pcm, dim=-1).reshape(L, 18 * 32 * nch)
+    return pcm, new_vb

@@ -227,6 +227,32 @@ def test_subband_granule_matches_jax(nch):
         _eq(got[1], want[1], f"vbuf vindex={vindex}")
 
 
+@pytest.mark.parametrize("nch", [1, 2])
+def test_subband_onepass_matches_jax(nch):
+    """The one-pass FIFO index map of csrc/mp3_granules.cu
+    (``subband_granule_onepass``: all stored values first, every PQMF output
+    over a linear history, the ring rebuilt) against JAX's step-by-step
+    ``subband_granule`` at every FIFO phase, over two granules in a row (the
+    second from the first's ring at the phase it left), from a random ring
+    whose two copies disagree."""
+    rng = np.random.default_rng(10 + nch)
+    L = 4
+    outbufs = rng.integers(-(1 << 27), 1 << 27, (2, L, nch, 18, 32)).astype(np.int32)
+    outbufs[:, 1] >>= 12
+    gbs = rng.integers(-1, 32, (2, L, nch)).astype(np.int32)
+    gbs[:, 0] = 0
+    vbuf0 = rng.integers(-(1 << 28), 1 << 28, (L, 2176)).astype(np.int32)
+    for vindex in range(8):
+        vbuf, v = vbuf0, vindex
+        for g in range(2):
+            want = jsub.subband_granule(jnp.asarray(outbufs[g]), jnp.asarray(gbs[g]),
+                                        jnp.asarray(vbuf), jnp.int32(v), nch=nch)
+            got = tsub.subband_granule_onepass(_t(outbufs[g]), _t(gbs[g]), _t(vbuf), v, nch=nch)
+            _eq(got[0], want[0], f"pcm vindex={vindex} granule {g}")
+            _eq(got[1], want[1], f"vbuf vindex={vindex} granule {g}")
+            vbuf, v = np.asarray(want[1]), (v - 9) & 7
+
+
 # ---------------------------------------------------------- whole-run scan
 
 

@@ -107,6 +107,39 @@ the SASS opcode counts of ``flac_frame_kernel<8, false, int8_t>`` (its full
 listing goes to ``build/variants/flac_<variant>/sass.txt``), and samples
 the SM clock (nvidia-smi) while dispatch launches run.
 
+``--mp3``: the MP3 granule kernel (``mp3_granules.cu``, built alone):
+
+  as_is       the sources unchanged;
+  mb2, mb4    registers capped for 2 or 4 blocks a SM instead of 3;
+  no_prefetch each granule's spectra loaded when it starts, not a granule
+              ahead (exact);
+  no_dequant, no_reduce, no_butterfly, no_imdct, no_fdct, no_pqmf
+              speed probes: that stage cut out (not exact; no_reduce: the
+              dequantizer's warp reductions);
+  no_b12      a speed probe: the granule's first two barriers dropped;
+  <dir>       with ``--mp3-parent DIR/mp3_granules.cu ...``: each such file as
+              mp3_granules.cu, named by its directory; with ``--parent-probes``
+              also that file's probes, edits of the first design (``git show
+              ebe6481:esp_audio_libs_tpu_torch/csrc/mp3_granules.cu``), each a
+              speed probe that cuts out one stage or its barriers (not exact):
+              ``no_granules`` (the granule loop: what staging the constants
+              and the state costs), ``no_dequant`` (the dequantizer call),
+              ``no_expand`` (the per-sample parameter expansion),
+              ``no_stereo``, ``no_butterfly``, ``no_imdct``, ``no_fdct``,
+              ``no_fifo`` (the 18 FIFO steps), ``fifo_one_step`` (one of
+              them) and ``fifo_no_sync`` (their 36 barriers), named
+              ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 20 direct launches through
+``eal_mp3_granules`` after 2 warm-ups, in turns) on phase 11's operands
+(``chip_smoke.mp3_run_operands``: tonal MPEG-1 44.1 kHz stereo streams, 8
+frames) at B = 256 and 2048 x G = 16, checks each variant byte for byte
+(PCM, state, UB flag) against ``mp3_granules_plain`` there and on small
+mixed-frame runs of the four batch formats (two runs in a row, B = 5),
+prints each library's ptxas report and the SASS opcode counts of the kernel
+(its listing goes to ``build/variants/mp3_<variant>/sass.txt``), and
+samples the SM clock while B = 2048 launches run.
+
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
@@ -115,6 +148,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
         [--polyphase-exact-parent build/pr4/polyphase_exact.cu --parent-probes no_dot]
     python3 tools/kernel_variants.py --flac \
         [--flac-parent build/pr7/flac_frame.cu --parent-probes one_tap no_pack no_load]
+    python3 tools/kernel_variants.py --mp3 \
+        [--mp3-parent build/parent/mp3_granules.cu --parent-probes no_fifo no_fdct]
 
 The last line is one JSON object with the means.
 """
@@ -295,6 +330,51 @@ FLAC_VARIANTS = {
     "no_pack": [("const int nf = min(g.fpb, a.F - g.f0);", "const int nf = 0;")],
 }
 FLAC_SASS_KERNEL = "flac_frame_kernelILi8ELb0EaE"   # flac_frame_kernel<8, false, int8_t>
+
+# probes of the first granule kernel (`git show ebe6481:esp_audio_libs_tpu_torch/csrc/mp3_granules.cu`)
+MP3_PARENT_PROBES = {
+    "no_granules": [("  for (int g = 0; g < a.G; ++g) {", "  for (int g = 0; g < 0; ++g) {")],
+    "no_dequant": [("      if (s.processed) dequant(hs, s.gain, cst, dq, mag);\n", "")],
+    "no_expand": [("      const Sample s = expand(cb, cst, ch, i);",
+                   "      const Sample s{0, 0, 0, i, true, true, false};")],
+    "no_stereo": [("      if (nch == 2) {\n        const int* sfb_l",
+                   "      if (nch == 3) {\n        const int* sfb_l")],
+    "no_butterfly": [("      if (bnd <= nbfly[ch]) {", "      if (bnd < 0) {")],
+    "no_imdct": [("    if (tid < nch * 32) {\n", "    if (tid < 0) {\n")],
+    "no_fdct": [("    if (tid < 18 * nch) {\n", "    if (tid < 0) {\n")],
+    "no_fifo": [("for (int s = 0; s < 18; ++s) {", "for (int s = 0; s < 0; ++s) {")],
+    "fifo_one_step": [("for (int s = 0; s < 18; ++s) {", "for (int s = 0; s < 1; ++s) {")],
+    "fifo_no_sync": [("      __syncthreads();\n      if (tid < 32 * nch) {", "      if (tid < 32 * nch) {"),
+                     ("      __syncthreads();\n      v = (v - odd) & 7;", "      v = (v - odd) & 7;")],
+}
+MP3_VARIANTS = {
+    "as_is": [],
+    "mb2": [("constexpr int MIN_BLOCKS = 3;", "constexpr int MIN_BLOCKS = 2;")],
+    "mb4": [("constexpr int MIN_BLOCKS = 3;", "constexpr int MIN_BLOCKS = 4;")],
+    "no_prefetch": [("    if (g + 1 < G) {               // the next granule's spectra and side row",
+                     "    if (g + 1 < G && false) {"),
+                    ("    int src[2][2] = {};",
+                     "    if (g > 0)\n#pragma unroll\n      for (int ch = 0; ch < 2; ++ch) {\n"
+                     "        if (ch >= nch) break;\n"
+                     "        const int16_t* h = a.huff + (((size_t)g * B + b) * nch + ch) * NS;\n"
+                     "        hx[ch][0] = h[ia];\n        hx[ch][1] = h[ib];\n      }\n"
+                     "    if (g + 1 < G && tid < SW) side_next = a.side[((size_t)(g + 1) * B + b) * SW + tid];\n"
+                     "    int src[2][2] = {};")],
+    "no_dequant": [("          dequant(hs, gain, tb, d, mag);\n", "          mag = gain & hs;\n")],
+    "no_reduce": [("      warp_or(&red[R_GBMASK + ch], gbm);\n",
+                   "      if (gbm == 12345) red[0] = cbl + cbs0 + cbs1 + cbs2;\n"),
+                  ("      warp_max(&red[R_CBL + ch], cbl);\n", ""),
+                  ("      warp_max(&red[R_CBS + 3 * ch], cbs0);\n", ""),
+                  ("      warp_max(&red[R_CBS + 3 * ch + 1], cbs1);\n", ""),
+                  ("      warp_max(&red[R_CBS + 3 * ch + 2], cbs2);\n", ""),
+                  ("      warp_or(&red[R_ANYOVER + ch], S.over[ch * 288 + tid] != 0);\n", "")],
+    "no_butterfly": [("if (bnd != 0 && bnd <= blocks_of(sd, nch, ch, a.cutoff).nbfly) {", "if (bnd < 0) {")],
+    "no_b12": [("    __syncthreads();   // B1:", "    // B1:"), ("    __syncthreads();   // B2:", "    // B2:")],
+    "no_imdct": [("    } else {                        // whole warps", "    } else if (tid < 0) {")],
+    "no_fdct": [("      if ((tid & ~31) < 8 * nu) {", "      if (tid < 0) {")],
+    "no_pqmf": [("item < 18 * nch * 16; item += nt", "item < 0; item += nt")],
+}
+MP3_SASS_KERNEL = "mp3_granules_kernel"
 
 def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
     """``sources`` copied into build/variants/<name>/, then ``target`` (there)
@@ -548,16 +628,104 @@ def flac_main(args, card: str) -> None:
               f"lane {m['one_lane_ms']:.4f} ms ({m['one_lane_ns_per_step']:.2f} ns/step), W=12 "
               f"{m['dispatch_w12_ms']:.4f} ms, W=32 {m['dispatch_w32_ms']:.4f} ms, byte-exact "
               f"{exact} (means of 2 turns, 20 direct launches each)")
-    print(f"SM clock while the first variant's dispatch launches run: {sm_clock(shapes, libs)}")
+    launch = cs.flac_launcher(*shapes["dispatch"], lib=next(iter(libs.values()))[0])
+    print(f"SM clock while the first variant's dispatch launches run: {sm_clock(launch)}")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
-def sm_clock(shapes, libs, seconds: float = 1.5) -> str:
-    """The SM clock (nvidia-smi, sampled every 50 ms) while the first
-    library's dispatch-shape launches run back to back for ``seconds``:
-    median and range in MHz, to turn a step time into cycles."""
-    lib = next(iter(libs.values()))[0]
-    launch = cs.flac_launcher(*shapes["dispatch"], lib=lib)
+def mp3_checks():
+    """The operands and plain results every --mp3 variant is held to, byte
+    for byte: phase 11's tonal run (B = 256, G = 16) and small mixed-frame
+    runs of the four batch formats, two runs in a row (B = 5, G = 8)."""
+    from esp_audio_libs_tpu_torch.models import mp3_pipeline
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    mf = cs.tools_import("mp3frames")
+    runs = []
+    (fmt, vindex, huff, side), = cs.mp3_run_operands(
+        cs.mp3_streams("tonal", cs.MP3_STREAMS, cs.MP3_FRAMES, 5000), cs.MP3_FRAMES)
+    runs.append(("tonal", fmt, vindex, huff, side, cs.mp3_zero_state(huff.shape[1], "cuda")))
+    for ci, cfg in enumerate(mf.BATCH_CFGS):
+        streams = cs.mp3_streams("mixed", 5, 8, 100 * ci, cfg)
+        (fmt, vindex, huff, side), = cs.mp3_run_operands([s[: len(s) // 2] for s in streams], 4)
+        state = cs.mp3_zero_state(5, "cuda")
+        runs.append((f"fmt{ci}_run0", fmt, vindex, huff, side, state))
+        state = mk.mp3_granules_plain(huff, side, *state, vindex, ver=fmt[0], sr_idx=fmt[1],
+                                      nch=fmt[2], cutoff=fmt[3])[1]
+        vindex = mp3_pipeline._advance_vindex(vindex, huff.shape[0])
+        (fmt, _, huff, side), = cs.mp3_run_operands([s[len(s) // 2:] for s in streams], 4)
+        runs.append((f"fmt{ci}_run1", fmt, vindex, huff, side, state))
+    wants = [mk.mp3_granules_plain(huff, side, *state, vindex, ver=fmt[0], sr_idx=fmt[1],
+                                   nch=fmt[2], cutoff=fmt[3])
+             for _, fmt, vindex, huff, side, state in runs]
+    return runs, wants
+
+
+def mp3_exact(lib, runs, wants) -> bool:
+    """Whether ``lib``'s eal_mp3_granules gives the plain results on every
+    run (one launch each, from copies of the state)."""
+    ok = True
+    for (_, fmt, vindex, huff, side, state), want in zip(runs, wants):
+        launch = cs.mp3_launcher(huff, side, state, fmt, vindex, lib=lib)
+        pcm = launch()
+        torch.cuda.synchronize()
+        _, _, _, st, _, undef = launch.keep
+        got = (pcm.transpose(0, 1), *st, undef != 0)
+        ok = ok and all(torch.equal(a, b) for a, b in zip(got, (want[0], *want[1], want[2])))
+    return ok
+
+
+def mp3_main(args, card: str) -> None:
+    """--mp3: the granule kernel's variants, earlier sources and their probes
+    at phase 11's timed shapes (B = 256 and 2048 x G = 16)."""
+    names = list(MP3_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "mp3_granules.cu"
+    dirs = {name: make_variant(f"mp3_{name}", src.name, MP3_VARIANTS[name], [src])
+            for name in names}
+    for path in args.mp3_parent:
+        parent = path.resolve().parent.name
+        dirs[parent] = make_variant(f"mp3_{parent}", src.name, [], [src], path)
+        for probe in args.parent_probes:
+            dirs[f"{parent}_{probe}"] = make_variant(f"mp3_{parent}_{probe}", src.name,
+                                                     MP3_PARENT_PROBES[probe], [src], path)
+    libs = build_all(dirs, ("eal_mp3_granules",))
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+        print(f"{name} SASS: {sass_histogram(dirs[name] / 'lib.so', MP3_SASS_KERNEL)}")
+        (dirs[name] / "sass.txt").write_text(sass_listing(dirs[name] / "lib.so", MP3_SASS_KERNEL))
+
+    runs, wants = mp3_checks()
+    _, fmt, vindex, huff, side, _ = runs[0]
+    shapes = {}
+    for B in (cs.MP3_STREAMS, 8 * cs.MP3_STREAMS):
+        h = huff.repeat(1, B // cs.MP3_STREAMS, 1, 1).contiguous()
+        sd = side.repeat(1, B // cs.MP3_STREAMS, 1).contiguous()
+        shapes[f"b{B}"] = (h, sd, cs.mp3_zero_state(B, "cuda"))
+        nbytes, bound_ms, bound_by = cs.mp3_work(h, sd, fmt)[:3]
+        print(f"b{B}: G={h.shape[0]} B={B} stereo: {nbytes} B; bound {bound_ms:.4f} ms ({bound_by})")
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        lib = libs[name][0]
+        row = {"byte_exact": float(mp3_exact(lib, runs, wants))}
+        for key, (h, sd, state) in shapes.items():
+            row[f"{key}_ms"] = cs.cuda_time(cs.mp3_launcher(h, sd, state, fmt, vindex, lib=lib),
+                                            iters=20)
+        results[name].append(row)
+        print(name, json.dumps(row))
+    means = {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+             for name, rows in results.items()}
+    for name, m in means.items():
+        print(f"{name}: B=256 {m['b256_ms']:.4f} ms, B=2048 {m['b2048_ms']:.4f} ms, byte-exact "
+              f"{m['byte_exact'] == 1.0} (means of 2 turns, 20 direct launches each)")
+    h, sd, state = shapes[f"b{8 * cs.MP3_STREAMS}"]
+    launch = cs.mp3_launcher(h, sd, state, fmt, vindex, lib=next(iter(libs.values()))[0])
+    print(f"SM clock while the first variant's B=2048 launches run: {sm_clock(launch)}")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
+def sm_clock(launch, seconds: float = 1.5) -> str:
+    """The SM clock (nvidia-smi, sampled every 50 ms) while ``launch()``
+    runs back to back for ``seconds``: median and range in MHz, to turn a
+    step time into cycles."""
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
                             "-lms", "50"], stdout=subprocess.PIPE, text=True)
     try:
@@ -592,13 +760,19 @@ def main() -> None:
     ap.add_argument("--flac-parent", type=Path, nargs="+", default=[],
                     help="with --flac: earlier flac_frame.cu files, each timed as a variant "
                          "named by its directory")
+    ap.add_argument("--mp3", action="store_true",
+                    help="probe the MP3 granule kernel instead of the banded main loop")
+    ap.add_argument("--mp3-parent", type=Path, nargs="+", default=[],
+                    help="with --mp3: earlier mp3_granules.cu files, each timed as a variant "
+                         "named by its directory")
     ap.add_argument("--parent-probes", nargs="+", default=[],
-                    choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)),
-                    help="with --polyphase-exact-parent or --flac-parent: these probes of each "
-                         "parent too")
+                    choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)
+                                   | set(MP3_PARENT_PROBES)),
+                    help="with --polyphase-exact-parent, --flac-parent or --mp3-parent: these "
+                         "probes of each parent too")
     ap.add_argument("--variants", nargs="*", default=None,
                     choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)
-                                   | set(FLAC_VARIANTS)))
+                                   | set(FLAC_VARIANTS) | set(MP3_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -615,6 +789,9 @@ def main() -> None:
         return
     if args.flac:
         flac_main(args, card)
+        return
+    if args.mp3:
+        mp3_main(args, card)
         return
     names = args.variants or list(VARIANTS)
     sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
