@@ -1121,11 +1121,13 @@ def mp3_launcher(huff, side, state, fmt, vindex, lib=None):
 # (csrc/mp3_granules.cu, the JAX package's _granule_body): a 32-bit add,
 # subtraction, shift, logic op, compare, select or MULSHIFT32 (__mulhi)
 # counts 1, a widening multiply-add (32 x 32 + 64 -> 64 bits) counts 2.
+# Only the samples below a granule's nonzero bound need the stages before
+# the IMDCT (past it the spectrum is zero), and a zero needs no dequantizer.
 # Parts that depend on guard bits the kernel finds on the way (the es
-# rescales) are left out, so the count stays a lower bound.
-MP3_DEQUANT_OPS = (12, 18, 40)   # per sample by magnitude: < 16, < 64, >= 64 (polynomial)
-MP3_EXPAND_OPS = 10              # per sample: band, gain and reorder lookups
-MP3_STEREO_OPS = 4               # per sample position and channel when mode_ext != 0
+# rescales) are left out.
+MP3_DEQUANT_OPS = (12, 18, 40)   # per nonzero sample by magnitude: < 16, < 64, >= 64 (polynomial)
+MP3_EXPAND_OPS = 10              # per sample below the bound: band, gain and reorder lookups
+MP3_STEREO_OPS = 4               # per position below both channels' bound, and channel, when mode_ext != 0
 MP3_BUTTERFLY_OPS = 8            # per butterfly: 4 MULSHIFT32, 2 adds, 2 shifts
 MP3_IMDCT_OPS = 260              # per computed block: 2 idct9, chain, window, overlap
 MP3_FDCT_OPS = 408               # per slot: 32 input shifts, 128 + 212 in the passes, 36 adds
@@ -1142,26 +1144,27 @@ def mp3_work(huff, side, fmt):
 
     Bytes: the int16 spectra, the side rows, the constants, the carried
     state read and written, the PCM and the flags, each once, at 3.35 TB/s.
-    Operations: per granule and channel the dequantizer by each sample's
-    magnitude, the parameter expansion, joint stereo where the granule has
-    it, the butterflies and IMDCT blocks the granule's nonzero bound needs,
-    FDCT32 on 18 slots and the PQMF on 576 outputs (MP3_*_OPS), at
-    PEAK_INT32. The bound is the larger of the two times."""
+    Operations: per granule and channel the dequantizer on each nonzero
+    sample by its magnitude, the parameter expansion of the samples below
+    the nonzero bound, joint stereo below both channels' bound where the
+    granule has it, the butterflies and IMDCT blocks the bound needs, FDCT32
+    on 18 slots and the PQMF on 576 outputs (MP3_*_OPS), at PEAK_INT32. The
+    bound is the larger of the two times."""
     import torch
     G, B, nch = huff.shape[:3]
     nbytes = (huff.numel() * 2 + side.numel() * 4 + 3069 * 4 + 2 * B * (576 + 6 + 2176) * 4
               + B * G * 576 * nch * 2 + B * 4)
     mag = (huff.to(torch.int32) & 0x7FFF)
+    n_small = int(((mag > 0) & (mag < 16)).sum())
     n_mid = int(((mag >= 16) & (mag < 64)).sum())
     n_big = int((mag >= 64).sum())
-    n_small = huff.numel() - n_mid - n_big
-    nzb = side[..., :nch].to(torch.int64)
+    nzb = side[..., :nch].to(torch.int64).clamp(0, 576)
     blocks = torch.clamp((nzb + 7) // 18 + 1, max=32)
-    joint = int((side[..., 3 * nch + 232] != 0).sum()) if nch == 2 else 0
+    joint = ((side[..., 3 * nch + 232] != 0) * nzb.amax(-1)).sum() if nch == 2 else 0
     units = G * B * nch                        # granule-channels
     n_ops = (n_small * MP3_DEQUANT_OPS[0] + n_mid * MP3_DEQUANT_OPS[1]
-             + n_big * MP3_DEQUANT_OPS[2] + huff.numel() * MP3_EXPAND_OPS
-             + joint * 2 * 576 * MP3_STEREO_OPS
+             + n_big * MP3_DEQUANT_OPS[2] + int(nzb.sum()) * MP3_EXPAND_OPS
+             + int(joint) * 2 * MP3_STEREO_OPS
              + int((blocks - 1).sum()) * 8 * MP3_BUTTERFLY_OPS
              + int(blocks.sum()) * MP3_IMDCT_OPS
              + units * 18 * MP3_FDCT_OPS + units * 576 * MP3_PQMF_OPS)

@@ -50,9 +50,13 @@
 // runs. The JAX-layout ring vbuf and its phase are read once into the
 // history (both copies of the first granule's carried steps: a window reads
 // the copy its column falls on) and rebuilt once from the last 16 steps.
+// Both packages write every value to both copies, but the JAX package's
+// MP3Decoder.set_state takes its vbuf from a caller's dict as it is, and the
+// JAX FIFO then reads whichever copy a window column falls on; reading the
+// same copy keeps such a state byte-exact once it crosses into the port.
 // What bounds it: neither bytes (a stereo granule moves about 3.3 KB in and
-// 2.3 KB out per stream) nor its integer operations (about 8.6 x 10^4 a
-// stream-granule; chip_smoke.mp3_work: 0.021 ms at B = 256 x G = 16) but
+// 2.3 KB out per stream) nor its integer operations (about 6.3 x 10^4 a
+// stream-granule; chip_smoke.mp3_work: 0.015 ms at B = 256 x G = 16) but
 // the instructions around them (table lookups, clamps, reductions,
 // addressing) and, at B = 256, the chain of a granule's stages on two
 // blocks an SM; no stage dominates (the probes of tools/kernel_variants.py). On an NVIDIA H100 80GB HBM3 at

@@ -639,14 +639,15 @@ def test_flac_frame_kernel_dispatch_shape(cuda, F):
 
 
 @pytest.mark.parametrize("table", ["VARIANTS", "BIQUAD_VARIANTS", "EXACT_VARIANTS",
-                                   "FLAC_VARIANTS"])
+                                   "FLAC_VARIANTS", "MP3_VARIANTS"])
 def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     """Every text edit of tools/kernel_variants.py still matches the
     sources it edits exactly once (the tool stops on the card otherwise)."""
     import kernel_variants as kv
     monkeypatch.setattr(kv, "OUT", tmp_path)
     target = {"VARIANTS": "banded_tile.cuh", "BIQUAD_VARIANTS": "biquad_exact.cu",
-              "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu"}[table]
+              "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu",
+              "MP3_VARIANTS": "mp3_granules.cu"}[table]
     sources = sorted(kernels.CSRC.glob("*.cu*"))
     for name, edits in getattr(kv, table).items():
         assert (kv.make_variant(name, target, edits, sources) / target).exists()

@@ -11,6 +11,8 @@ stereo, joint and intensity stereo, MPEG-1 and MPEG-2, tonal, window-type
 and fuzz frames, B in {1, 3, 5}, and two runs in a row (the second from the
 first's state, at another FIFO phase). Any undefined behaviour the
 sanitizer reports (signed overflow, a shift out of range) fails the test.
+Every ``--mp3`` variant of tools/kernel_variants.py is compiled the same
+way (syntax only), so that an edit gone stale fails here and not on a card.
 
 The test needs g++ (skipped without it) and no card.
 """
@@ -33,9 +35,8 @@ from esp_audio_libs_tpu_torch.runtime import kernels
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
+import kernel_variants as kv  # noqa: E402
 import mp3frames as mf  # noqa: E402
-
-torch.set_num_threads(2)
 
 MONO, STEREO, JOINT_MS, MPEG2 = mf.BATCH_CFGS
 INTENSITY = dict(ver_bits=3, bitrate_idx=9, sr_idx=1, mode=1, mode_ext=3)
@@ -43,26 +44,44 @@ LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,>]+)(?:,.*?)?>>>\(")
 
 
 @pytest.fixture(scope="module")
-def shim_lib(tmp_path_factory):
+def gxx():
+    path = shutil.which("g++")
+    if path is None:
+        pytest.skip("g++ is not installed: the CUDA source cannot be compiled for the CPU")
+    return path
+
+
+def shim_source(cu: Path, tmp: Path) -> Path:
+    """``cu`` as a C++ file in ``tmp`` that compiles against the shim: its
+    ``<<<>>>`` launch rewritten into ``eal_shim_launch``, and a
+    ``cuda_runtime.h`` there that includes tools/cuda_cpu_shim.h."""
+    (tmp / "cuda_runtime.h").write_text(f'#include "{REPO / "tools" / "cuda_cpu_shim.h"}"\n')
+    src, n = LAUNCH.subn(r"eal_shim_launch(\1, \2, \3, ", cu.read_text())
+    assert n == 1, f"{cu.name} should launch its kernel once"
+    out = tmp / (cu.stem + ".cpp")
+    out.write_text(src)
+    return out
+
+
+@pytest.fixture(scope="module")
+def shim_lib(gxx, tmp_path_factory):
     """csrc/mp3_granules.cu built for the CPU through the shim, with its C
     signatures bound. UBSan reports go to the process's stderr (the
     sanitizer reads its options from the environment the process started
-    with), which the tests capture with ``capfd``."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the CUDA source cannot be compiled for the CPU")
+    with), which the tests capture with ``capfd``. The plain version runs on
+    two torch threads meanwhile, beside the shim's 288 std::threads; the
+    count is restored when the module's tests end."""
     tmp = tmp_path_factory.mktemp("mp3_shim")
-    (tmp / "cuda_runtime.h").write_text(f'#include "{REPO / "tools" / "cuda_cpu_shim.h"}"\n')
-    src = (kernels.CSRC / "mp3_granules.cu").read_text()
-    src, n = LAUNCH.subn(r"eal_shim_launch(\1, \2, \3, ", src)
-    assert n == 1, "csrc/mp3_granules.cu should launch its kernel once"
-    (tmp / "mp3_granules.cpp").write_text(src)
+    src = shim_source(kernels.CSRC / "mp3_granules.cu", tmp)
     lib = tmp / "libmp3_shim.so"
     res = subprocess.run([gxx, "-std=c++20", "-O1", "-fsanitize=undefined", "-fPIC", "-shared",
-                          "-pthread", "-I", str(tmp), "-o", str(lib), str(tmp / "mp3_granules.cpp")],
+                          "-pthread", "-I", str(tmp), "-o", str(lib), str(src)],
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
-    return kernels.bind(C.CDLL(str(lib)), ("eal_mp3_consts_layout", "eal_mp3_granules"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield kernels.bind(C.CDLL(str(lib)), ("eal_mp3_consts_layout", "eal_mp3_granules"))
+    torch.set_num_threads(threads)
 
 
 def shim_granules(lib, huff, side, state, vindex, fmt):
@@ -167,3 +186,18 @@ def test_shim_kernel_random_state(shim_lib, capfd):
         rng.integers(-(1 << 24), 1 << 24, (B, 2176)).astype(np.int32)))
     check_run(shim_lib, capfd, torch.as_tensor(huff), torch.as_tensor(side), state, 5, fmt,
               "random state")
+
+
+@pytest.mark.parametrize("variant", sorted(kv.MP3_VARIANTS))
+def test_kernel_variant_compiles(gxx, tmp_path, monkeypatch, variant):
+    """Each ``--mp3`` variant of tools/kernel_variants.py, its edits applied
+    to csrc/mp3_granules.cu, still compiles (g++ -fsyntax-only through the
+    shim): the tool builds every variant at once on the card and stops at
+    the first that nvcc refuses."""
+    monkeypatch.setattr(kv, "OUT", tmp_path / "variants")
+    cu = kv.make_variant(f"mp3_{variant}", "mp3_granules.cu", kv.MP3_VARIANTS[variant],
+                         [kernels.CSRC / "mp3_granules.cu"]) / "mp3_granules.cu"
+    src = shim_source(cu, cu.parent)
+    res = subprocess.run([gxx, "-std=c++20", "-fsyntax-only", "-I", str(cu.parent), str(src)],
+                         capture_output=True, text=True)
+    assert res.returncode == 0, f"{variant}: {res.stderr[-2000:]}"

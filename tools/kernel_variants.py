@@ -136,8 +136,9 @@ It times one launch (CUDA events, mean of 20 direct launches through
 frames) at B = 256 and 2048 x G = 16, checks each variant byte for byte
 (PCM, state, UB flag) against ``mp3_granules_plain`` there and on small
 mixed-frame runs of the four batch formats (two runs in a row, B = 5),
-prints each library's ptxas report and the SASS opcode counts of the kernel
-(its listing goes to ``build/variants/mp3_<variant>/sass.txt``), and
+prints each library's ptxas report, the SASS opcode counts of the kernel
+(its listing goes to ``build/variants/mp3_<variant>/sass.txt``) and the
+multiplies in its PQMF tap loops (``IMAD.WIDE`` or longer sequences), and
 samples the SM clock while B = 2048 launches run.
 
 Run from the repository root on a machine with an NVIDIA GPU:
@@ -354,10 +355,11 @@ MP3_VARIANTS = {
     "no_prefetch": [("    if (g + 1 < G) {               // the next granule's spectra and side row",
                      "    if (g + 1 < G && false) {"),
                     ("    int src[2][2] = {};",
-                     "    if (g > 0)\n#pragma unroll\n      for (int ch = 0; ch < 2; ++ch) {\n"
+                     "    if (g > 0) {\n#pragma unroll\n      for (int ch = 0; ch < 2; ++ch) {\n"
                      "        if (ch >= nch) break;\n"
                      "        const int16_t* h = a.huff + (((size_t)g * B + b) * nch + ch) * NS;\n"
-                     "        hx[ch][0] = h[ia];\n        hx[ch][1] = h[ib];\n      }\n"
+                     "        hx[ch] = (h[ia] & 0xFFFF) | "
+                     "static_cast<int>(static_cast<uint32_t>(h[ib]) << 16);\n      }\n    }\n"
                      "    if (g + 1 < G && tid < SW) side_next = a.side[((size_t)(g + 1) * B + b) * SW + tid];\n"
                      "    int src[2][2] = {};")],
     "no_dequant": [("          dequant(hs, gain, tb, d, mag);\n", "          mag = gain & hs;\n")],
@@ -500,6 +502,45 @@ def sass_histogram(lib: Path, kernel: str) -> str:
             counts[m.group(1)] = counts.get(m.group(1), 0) + 1
     top = sorted(counts.items(), key=lambda kv: -kv[1])[:24]
     return ", ".join(f"{op} {n}" for op, n in top) or listing
+
+
+def loop_opcodes(listing: str, marker: str, n_marker: int) -> tuple:
+    """The opcodes of the innermost loops of a SASS ``listing`` (a backward
+    branch and the instructions from its target on) that hold ``marker``
+    exactly ``n_marker`` times: (number of such loops, their opcode counts)."""
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                     listing)
+    ins = [(int(a, 16), op, rest) for a, op, rest in ins]
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+    loops = []
+    for i, (a, op, rest) in enumerate(ins):
+        t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if t and int(t.group(1), 16) < a and int(t.group(1), 16) in at:
+            loops.append((at[int(t.group(1), 16)], i))
+    inner = [(s, e) for s, e in loops
+             if not any(s <= s2 and e2 <= e and (s2, e2) != (s, e) for s2, e2 in loops)]
+    counts, n = {}, 0
+    for s, e in inner:
+        body = [op for _, op, _ in ins[s:e + 1]]
+        if body.count(marker) == n_marker:
+            n += 1
+            for op in body:
+                counts[op] = counts.get(op, 0) + 1
+    return n, counts
+
+
+def pqmf_opcodes(lib: Path) -> str:
+    """The multiplies of the granule kernel's PQMF tap loops (two taps a
+    body, whose four coefficients a tap are two ``LDS.128``): whether the
+    products are ``IMAD.WIDE`` (32 x 32 + 64 -> 64 bits) or longer 64-bit
+    sequences, as one text line."""
+    n, counts = loop_opcodes(sass_listing(lib, MP3_SASS_KERNEL), "LDS.128", 2)
+    if not n:
+        return "no PQMF tap loop found"
+    mul = {op: c for op, c in sorted(counts.items())
+           if op.startswith(("IMAD.WIDE", "IMAD.HI", "IMUL", "IMAD.X", "IADD3.X"))}
+    return (f"{n} tap loops, {sum(counts.values())} instructions: "
+            + ", ".join(f"{op} {c}" for op, c in mul.items()))
 
 
 def polyphase_exact_main(args, card: str) -> None:
@@ -691,6 +732,7 @@ def mp3_main(args, card: str) -> None:
     for name, (_, report) in libs.items():
         print(f"{name}: {' | '.join(report)}")
         print(f"{name} SASS: {sass_histogram(dirs[name] / 'lib.so', MP3_SASS_KERNEL)}")
+        print(f"{name} PQMF: {pqmf_opcodes(dirs[name] / 'lib.so')}")
         (dirs[name] / "sass.txt").write_text(sass_listing(dirs[name] / "lib.so", MP3_SASS_KERNEL))
 
     runs, wants = mp3_checks()
