@@ -101,10 +101,30 @@ Phases, each printing a line:
                against decode_run(to_device=False) and a CPU run of the plain
                path on 8 streams, the chain against the host-roundtrip chain
                (bytes) and a CPU run (1 LSB); rates at the median of 5 calls.
-The launch counts of phases 4-5, of phase 8's and 13's timed calls and of
-each path of phase 10, each set to 0 just before and read just after, show
-that the main paths ran through the kernels; phases 8, 10 and 13 assert
-their exact counts.
+ 14. dsp     - ops/dsp.py on the card: dotprod_f32 (exact) at [4096, 8192]
+               (2048 stereo streams x one 8192-frame chunk) and [65536, 64]
+               (64-tap FIR dots), biquad_f32 (exact) at [4096, 8192] and
+               add_s16 / mulc_s16 / mix_s16 at S = 4 x [2048, 2 x 8192],
+               launches counted (one dotprod_exact per dot, one iir2 launch
+               per biquad_f32); the dot bit for bit against its plain version
+               on the card, there and on ragged n (0, 1, 17, 4099), an
+               unaligned row pitch and subnormal products; the biquad and the
+               int16 ops (shifts 0, 15, 31, 32, 40, -1 and a tensor shift)
+               against a CPU run on a few rows; then the dot timed by direct
+               launches through eal_dotprod_exact beside one wrapper call,
+               the plain version, its bytes bound, an estimated serial chain
+               and torch.linalg.vecdot (another rounding order).
+ 15. mp3 serving - phase 13's streams lengthened to 4 runs x 8 frames:
+               decode_run_pipelined(to_device=True) against sequential
+               decode_run(to_device=True) calls (PCM, consumed, absolute
+               next_pos, byte for byte), both timed in turns; a fleet
+               checkpointed after run 1 (get_state, pickle) and restored
+               into a new fleet continues byte-identically.
+The launch counts of phases 4-5, of phase 8's and 13's timed calls, of
+each path of phase 10, of phase 14's DSP path and of phase 15's pipelined
+pass, each set to 0 just before and read just after, show that the main
+paths ran through the kernels; phases 8, 10, 13, 14 and 15 assert their
+exact counts. Every phase prints its seconds.
 The last three lines are the card line, one JSON object describing the
 kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -196,6 +216,27 @@ def library_time(x, Wt, starts):
     ms = cuda_time(lambda: torch.bmm(slabs, Wt))
     del slabs
     return ms
+
+
+def band_ranges_launcher(Wt):
+    """A function that launches band_ranges on ``Wt`` through the C entry
+    point eal_band_ranges, its scratch allocated once: the kernel alone, as
+    each banded contraction launch runs it first. Used only to time it."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    parts = pk._band_parts(Wt)
+    args = (Wt.data_ptr(), parts.data_ptr(), parts.shape[0], Wt.shape[1], Wt.stride(0),
+            torch.cuda.current_stream().cuda_stream)
+    lib = kernels.library()
+
+    def launch():
+        if lib.eal_band_ranges(*args) != 0:
+            fail("eal_band_ranges refused its arguments")
+        launch.keep = (Wt, parts)
+        return parts
+    return launch
 
 
 def ragged_operands(rng, M, L, nt, K, band, step, device):
@@ -1396,7 +1437,7 @@ def mp3_composed_phase(reps=5):
     if launches != want:
         fail(f"the composed mp3 chain launched {launches}, expected {want}")
     t0 = time.perf_counter()
-    BatchedMP3Decoder(B)._parse_run([np.frombuffer(s, np.uint8) for s in streams], F)
+    BatchedMP3Decoder(B)._parse_run([np.frombuffer(s, np.uint8) for s in streams], [0] * B, F)
     parse_s = time.perf_counter() - t0
     ndiff, clips = compare_stream(out_dev, make_resampler(44100.0, 16000.0, CMP_STREAMS, "cpu")
                                   .resample_stream(pcm_cpu.view(torch.uint8), samples, 1),
@@ -1424,6 +1465,269 @@ def mp3_phases():
     mp3_corpus_phase()
     entry["launches"] = mp3_composed_phase()["mp3_granules"]
     return entry
+
+
+# ------------------------------------------------------------------ DSP
+
+DOT_SHAPES = ((4096, 8192), (65536, 64))   # 2048 stereo streams x one 8192 chunk; 64-tap FIRs
+DSP_S, DSP_ROWS, DSP_CPU_ROWS = 4, 2048, 128   # mix_s16: S streams of [DSP_ROWS, 2 x 8192]
+DSP_SHIFTS = (0, 15, 31, 32, 40, -1)
+
+
+def sm_clock_under_load(launch, n=4000) -> float:
+    """The SM clock (MHz) nvidia-smi reads while ``n`` queued launches of
+    ``launch`` keep the card busy (nan if it reads none)."""
+    import torch
+    for _ in range(n):
+        launch()
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60).stdout.split()
+    torch.cuda.synchronize()
+    return float(clock[0]) if clock else float("nan")
+
+
+def dot_launcher(a, b, lib=None):
+    """A function that launches dotprod_exact on rows a, b ([R, n] f32,
+    contiguous) through the C entry point eal_dotprod_exact, its output
+    allocated once: the kernel alone. Used only to time the kernel; its
+    launches are not counted."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    R, n = a.shape
+    out = torch.empty(R, dtype=torch.float32, device=a.device)
+    args = (a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), out.data_ptr(), R, n,
+            torch.cuda.current_stream().cuda_stream)
+    lib = lib or kernels.library()
+
+    def launch():
+        if lib.eal_dotprod_exact(*args) != 0:
+            fail("eal_dotprod_exact refused its arguments")
+        launch.keep = (a, b, out)
+        return out
+    return launch
+
+
+def dot_work(R, n):
+    """(bytes, bound ms, bound_by) of one exact dot over [R, n]: a and b read
+    once and the R sums written once at 3.35 TB/s, against R * n multiplies
+    and R * n adds at PEAK_FP32 (each one FP32 op)."""
+    nbytes = 2 * R * n * 4 + R * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, 2.0 * R * n / PEAK_FP32 * 1e3
+    return (nbytes, t_bytes, "bytes") if t_bytes >= t_ops else (nbytes, t_ops, "operations")
+
+
+def dot_ragged_cases():
+    """(label, a, b) on the card: ragged n, rows past a block, an unaligned
+    row pitch and base (views), and products and sums in the subnormal
+    range."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    cases = [(f"n={n}", rnd(37, n), rnd(37, n)) for n in (0, 1, 17, 4099)]
+    wide = rnd(40, 131)
+    cases.append(("row pitch 131 floats, base +4 bytes", wide[:, 1:130], rnd(40, 129)))
+    tiny = rnd(65, 300, scale=1e-20)
+    tiny[0] = 1e-39
+    cases.append(("subnormal products and sums", tiny, rnd(65, 300, scale=1e-19)))
+    return cases
+
+
+def dsp_phase():
+    """Phase 14: the DSP layer (ops/dsp.py) on the card. The main path:
+    dotprod_f32 (exact) at both DOT_SHAPES, biquad_f32 (exact) at [4096,
+    8192] and the int16 ops at S = 4 x [2048, 2 x 8192], launches counted;
+    their outputs held to the plain versions (the dot bit for bit on the
+    card; the biquad and the int16 ops against a CPU run); the dot's ragged
+    cases; then the dot timed by direct launches beside one wrapper call,
+    the plain version, its bound, an estimated serial chain and
+    torch.linalg.vecdot (another rounding order). Returns the launches of
+    the counted path and the kernels-line entry of dotprod_exact."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import dsp
+    from esp_audio_libs_tpu_torch.ops import dsp_kernels as dk
+
+    g = torch.Generator(device="cuda").manual_seed(1400)
+    dots = [(torch.randn(shape, generator=g, device="cuda"),
+             torch.randn(shape, generator=g, device="cuda")) for shape in DOT_SHAPES]
+    x = torch.randn((DOT_SHAPES[0]), generator=g, device="cuda")
+    coef = torch.tensor([0.097631, 0.195262, 0.097631, -0.942809, 0.333333], device="cuda")
+    w = torch.randn((DOT_SHAPES[0][0], 2), generator=g, device="cuda") * 0.1
+    s16 = torch.randint(-32768, 32768, (DSP_S, DSP_ROWS, 2 * FRAMES), generator=g,
+                        device="cuda", dtype=torch.int32).to(torch.int16)
+    gains = torch.tensor([32767, 23170, -16384, 11585], dtype=torch.int16, device="cuda")
+    tshift = torch.randint(-2, 41, (2 * FRAMES,), generator=g, device="cuda", dtype=torch.int32)
+
+    # the main path, counted
+    dk.reset_launch_counts()
+    bk.reset_launch_counts()
+    sums = [dsp.dotprod_f32(a, b) for a, b in dots]
+    y, nw = dsp.biquad_f32(x, coef, w)
+    mixes = [dsp.mix_s16(s16, gains, sh) for sh in (*DSP_SHIFTS, tshift)]
+    adds = [dsp.add_s16(s16[0], s16[1], sh) for sh in (*DSP_SHIFTS, tshift)]
+    mulcs = [dsp.mulc_s16(s16[0], c) for c in (0, -1, 32767, -32768)]
+    torch.cuda.synchronize()
+    launches = {"dotprod_exact": dk.dotprod_exact_cuda.launches,
+                "biquad_exact (iir2)": bk.iir2_sequential_cuda.launches}
+    if launches != {"dotprod_exact": len(DOT_SHAPES), "biquad_exact (iir2)": 1}:
+        fail(f"the DSP path launched {launches}, expected one dot per call and one iir2 "
+             f"launch per biquad_f32 call")
+
+    for (a, b), got in zip(dots, sums):
+        if not same_bits(got, dk.dotprod_exact_plain(a, b)):
+            fail(f"dotprod_exact differs from its plain version at {tuple(a.shape)}")
+    for label, a, b in dot_ragged_cases():
+        if not same_bits(dk.dotprod_exact_cuda(a, b), dk.dotprod_exact_plain(a, b)):
+            fail(f"dotprod_exact differs from its plain version: {label}")
+    y_c, nw_c = dsp.biquad_f32(x[:CMP_STREAMS].cpu(), coef.cpu(), w[:CMP_STREAMS].cpu())
+    if not (same_bits(y[:CMP_STREAMS].cpu(), y_c) and same_bits(nw[:CMP_STREAMS].cpu(), nw_c)):
+        fail("biquad_f32 (exact) on the card differs from the CPU plain path")
+    rows = s16[:, :DSP_CPU_ROWS].cpu()
+    for sh, got_mix, got_add in zip((*DSP_SHIFTS, tshift), mixes, adds):
+        sh_c = sh.cpu() if isinstance(sh, torch.Tensor) else sh
+        if not (torch.equal(got_mix[:DSP_CPU_ROWS].cpu(), dsp.mix_s16(rows, gains.cpu(), sh_c))
+                and torch.equal(got_add[:DSP_CPU_ROWS].cpu(), dsp.add_s16(rows[0], rows[1], sh_c))):
+            fail(f"mix_s16 / add_s16 on the card differ from the CPU at shift {sh_c}")
+    for c, got in zip((0, -1, 32767, -32768), mulcs):
+        if not torch.equal(got[:DSP_CPU_ROWS].cpu(), dsp.mulc_s16(rows[0], c)):
+            fail(f"mulc_s16 on the card differs from the CPU at c = {c}")
+    print(f"dsp: dotprod_exact bit-identical to its plain version at {list(DOT_SHAPES)} and on "
+          f"{len(dot_ragged_cases())} ragged cases (n = 0, 1, 17, 4099, an unaligned pitch, "
+          f"subnormals); biquad_f32 (exact) at {list(x.shape)} bit-identical to the CPU plain "
+          f"path on {CMP_STREAMS} rows; add_s16 / mix_s16 (S = {DSP_S}) at shifts "
+          f"{list(DSP_SHIFTS)} and a tensor shift and mulc_s16 equal to the CPU on "
+          f"{DSP_CPU_ROWS} rows; launches {launches}")
+
+    bq_ms = cuda_time(lambda: dsp.biquad_f32(x, coef, w))
+    mix_ms = cuda_time(lambda: dsp.mix_s16(s16, gains, 1))
+    print(f"dsp: biquad_f32 (exact) {list(x.shape)} {bq_ms:.4f} ms per call (one iir2 launch "
+          f"and the output taps as torch ops); mix_s16 S = {DSP_S} x {list(s16.shape[1:])} "
+          f"{mix_ms:.4f} ms per call (torch ops)")
+
+    res = {}
+    for (a, b), (R, n) in zip(dots, DOT_SHAPES):
+        launch = dot_launcher(a, b)
+        ms = cuda_time(launch, iters=20)
+        ms_wrapper = cuda_time(lambda: dk.dotprod_exact_cuda(a, b))
+        plain_ms = cuda_time(lambda: dk.dotprod_exact_plain(a, b), iters=1, warmup=1)
+        vecdot_ms = cuda_time(lambda: torch.linalg.vecdot(a, b))
+        mhz = sm_clock_under_load(launch, n=max(200, int(200 / max(ms, 1e-3))))
+        chain_ms = n * OP_CYCLES / (mhz * 1e3)
+        nbytes, bound_ms, by = dot_work(R, n)
+        res[(R, n)] = dict(ms=ms, ms_wrapper=ms_wrapper, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=by, vecdot_ms=vecdot_ms, chain_ms_estimate=chain_ms,
+                           sm_mhz=mhz)
+        print(f"kernel dotprod_exact [{R}, {n}]: bit-identical; {ms:.4f} ms per direct launch "
+              f"(one wrapper call {ms_wrapper:.4f} ms; plain version {plain_ms:.2f} ms); bound "
+              f"{bound_ms:.4f} ms ({by}: {nbytes} B at 3.35 TB/s), {bound_ms / ms:.1%} of it; "
+              f"serial chain (an estimate, not measured: {n} dependent adds x {OP_CYCLES} "
+              f"cycles at {mhz:.0f} MHz, the SM clock under load) {chain_ms:.4f} ms; "
+              f"torch.linalg.vecdot {vecdot_ms:.4f} ms (not the same rounding order)")
+    main, second = res[DOT_SHAPES[0]], res[DOT_SHAPES[1]]
+    return launches, {"name": "dotprod_exact", "route": "cuda",
+            "source": "esp_audio_libs_tpu_torch/csrc/dotprod_exact.cu",
+            "replaces": "esp_audio_libs_tpu/ops/dsp.py:32",
+            "launches": launches["dotprod_exact"], "max_abs_err": 0, "bit_exact": True,
+            "ms": main["ms"], "ms_wrapper": main["ms_wrapper"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "vecdot_ms_other_rounding_order": main["vecdot_ms"],
+            "shape": list(DOT_SHAPES[0]),
+            "second_shape": {"shape": list(DOT_SHAPES[1]),
+                             **{k: second[k] for k in ("ms", "ms_wrapper", "plain_ms", "bound_ms",
+                                                       "bound_by")},
+                             "vecdot_ms_other_rounding_order": second["vecdot_ms"]}}
+
+
+# ------------------------------------------------------------- MP3 serving
+
+MP3_RUNS = 4
+
+
+def mp3_serving_phase():
+    """Phase 15: phase 13's 256 tonal streams lengthened to MP3_RUNS runs x
+    MP3_FRAMES frames: decode_run_pipelined(to_device=True) against
+    sequential decode_run(to_device=True) calls on a second fleet (PCM,
+    consumed and absolute next_pos byte for byte), both timed; then a fleet
+    checkpointed after run 1 (get_state, pickle), restored into a new fleet
+    whose run 2 equals the uninterrupted run 2. Returns the mp3_granules
+    launches of the timed pipelined pass."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedMP3Decoder
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+
+    B, F = MP3_STREAMS, MP3_FRAMES
+    streams = mp3_streams("tonal", B, MP3_RUNS * F, 9000)
+
+    def sequential():
+        bat, pos, out = BatchedMP3Decoder(B), [0] * B, []
+        for _ in range(MP3_RUNS):
+            pcm, con = r = bat.decode_run([s[p:] for s, p in zip(streams, pos)], F,
+                                          to_device=True)
+            pos = [p + q for p, q in zip(pos, r.next_pos)]
+            torch.cuda.synchronize()
+            out.append((pcm, list(con), list(pos)))
+        return out
+
+    def pipelined():
+        out = []
+        for r in BatchedMP3Decoder(B).decode_run_pipelined(streams, F, MP3_RUNS, to_device=True):
+            torch.cuda.synchronize()
+            out.append((r[0], list(r[1]), list(r.next_pos)))
+        return out
+
+    times = {"sequential": [], "pipelined": []}
+    runs = {}
+    for turn in ("sequential", "pipelined", "pipelined", "sequential"):
+        if turn == "pipelined":
+            mk.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[turn] = (sequential if turn == "sequential" else pipelined)()
+        times[turn].append(time.perf_counter() - t0)
+        if turn == "pipelined":
+            launches = mk.mp3_granules_cuda.launches
+    if launches != MP3_RUNS:
+        fail(f"decode_run_pipelined launched mp3_granules {launches} times, expected {MP3_RUNS}")
+    seq, pipe = runs["sequential"], runs["pipelined"]
+    if len(seq) != MP3_RUNS or len(pipe) != MP3_RUNS:
+        fail(f"{len(seq)} sequential and {len(pipe)} pipelined runs, expected {MP3_RUNS}")
+    for k, ((p_s, c_s, n_s), (p_p, c_p, n_p)) in enumerate(zip(seq, pipe)):
+        if not (p_p.is_cuda and torch.equal(p_s, p_p) and c_s == c_p and n_s == n_p):
+            fail(f"decode_run_pipelined run {k} differs from sequential decode_run")
+    if not int(seq[-1][0].abs().max()):
+        fail("the serving fleet decoded to silence")
+
+    first = BatchedMP3Decoder(B)
+    r1 = first.decode_run(streams, F, to_device=True)
+    blob = pickle.dumps(first.get_state())
+    restored = BatchedMP3Decoder(B)
+    restored.set_state(pickle.loads(blob))
+    pcm2, con2 = r2 = restored.decode_run([s[p:] for s, p in zip(streams, r1.next_pos)], F,
+                                          to_device=True)
+    if not (torch.equal(pcm2, seq[1][0]) and list(con2) == seq[1][1]
+            and [p + q for p, q in zip(r1.next_pos, r2.next_pos)] == seq[1][2]):
+        fail("a fleet restored after run 1 does not continue as the uninterrupted fleet")
+
+    n_in = B * MP3_RUNS * F * 1152 * 2
+    rate = {k: n_in / min(v) / 1e6 for k, v in times.items()}
+    print(f"mp3 serving {B} streams x {MP3_RUNS} runs x {F} frames (MPEG-1 44.1 kHz stereo, "
+          f"tonal): decode_run_pipelined(to_device) = sequential decode_run(to_device) calls "
+          f"(PCM, consumed, absolute next_pos), {launches} mp3_granules launches; sequential "
+          f"{rate['sequential']:.1f} decoded Msamples/s (passes "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times['sequential'])} ms), pipelined "
+          f"{rate['pipelined']:.1f} (passes "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times['pipelined'])} ms), the better pass of "
+          f"each, turns sequential, pipelined, pipelined, sequential; checkpoint after run 1 "
+          f"({len(blob)} pickled bytes) restored into a new fleet: run 2 byte-identical")
+    return launches
 
 
 def main() -> None:
@@ -1454,6 +1758,12 @@ def main() -> None:
     kernels.library()
     t2 = time.perf_counter()
     print(f"build: libeal_host.so {t1 - t0:.1f} s, CUDA kernels {t2 - t1:.1f} s")
+    clock = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"phase {label}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # 3. kernels against their plain versions at the slice's shapes
     rng = np.random.default_rng(0)
@@ -1463,6 +1773,14 @@ def main() -> None:
     M, L = xf.shape
     if not torch.equal(pk.band_ranges_cuda(Wt), pk.band_ranges(Wt)):
         fail("band_ranges disagrees with its plain version at the main shape")
+    ms_r = cuda_time(band_ranges_launcher(Wt), iters=20)
+    ms_rw = cuda_time(lambda: pk.band_ranges_cuda(Wt))
+    ms_rp = cuda_time(lambda: pk.band_ranges(Wt))
+    bound_r = (Wt[:1].numel() if Wt.stride(0) == 0 else Wt.numel()) * 4 / PEAK_BYTES * 1e3
+    print(f"kernel band_ranges (helper of both banded kernels) nt={Wt.shape[0]} K={Wt.shape[1]}: "
+          f"equal to its plain version; {ms_r:.4f} ms per direct launch (one wrapper call "
+          f"{ms_rw:.4f} ms; plain version {ms_rp:.4f} ms), bound {bound_r:.4f} ms (bytes: "
+          f"the weight tiles once), {bound_r / ms_r:.1%} of it")
     k = pk.polyphase_banded_cuda(xf, Wt, starts, T=out_max)
     p = polyphase_banded(xf, Wt, starts, T=out_max)
     torch.cuda.synchronize()
@@ -1532,6 +1850,8 @@ def main() -> None:
     del xf, x2, Wt, Wf, k, p, k2, p2, s_k, c_k, s_p, c_p, xe, down, up
     torch.cuda.empty_cache()
 
+    lap("3 kernels")
+
     # 4-5. the main path, counted
     pk.reset_launch_counts()
     os.environ.pop("EAL_RESAMPLE_FUSED16", None)
@@ -1548,8 +1868,12 @@ def main() -> None:
         if n == 0:
             fail(f"the main path never launched {name}")
 
+    lap("4-5 main path")
+
     # 6-8. FLAC
     flac = flac_phases()
+
+    lap("6-8 flac")
 
     # 9-10. exact mode
     exact_entries = exact_kernels_phase(data)
@@ -1564,9 +1888,26 @@ def main() -> None:
         "batched_resample": exact_other["batched_resample"]}
     print(f"launches on the exact path (6 resample_stream calls of 8 chunks): {exact_main}")
 
+    lap("9-10 exact mode")
+
     # 11-13. MP3
     torch.cuda.empty_cache()
     mp3 = mp3_phases()
+
+    lap("11-13 mp3")
+
+    # 14. DSP
+    torch.cuda.empty_cache()
+    dsp_launches, dot = dsp_phase()
+    exact_entries[0]["launches_other_paths"]["dsp_biquad_f32"] = dsp_launches["biquad_exact (iir2)"]
+
+    lap("14 dsp")
+
+    # 15. MP3 serving: pipelined runs and checkpoint/resume
+    torch.cuda.empty_cache()
+    mp3["launches_other_paths"] = {"decode_run_pipelined": mp3_serving_phase()}
+
+    lap("15 mp3 serving")
 
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",
@@ -1583,7 +1924,14 @@ def main() -> None:
          "launches": launches["polyphase_fused16"], "max_abs_err": err_fused,
          "ms": ms_f, "plain_ms": ms_fp, "bound_ms": bound_f, "bound_by": by_f,
          "library_ms": lib_f},
-        flac, *exact_entries, mp3]}
+        {"name": "band_ranges", "route": "cuda",
+         "source": "esp_audio_libs_tpu_torch/csrc/band_ranges.cu",
+         "replaces": "esp_audio_libs_tpu/ops/polyphase_pallas.py:155",
+         "helper_of": ["polyphase_banded", "polyphase_fused16"],
+         "launches": launches["polyphase_banded"] + launches["polyphase_fused16"],
+         "max_abs_err": 0, "ms": ms_r, "ms_wrapper": ms_rw, "plain_ms": ms_rp,
+         "bound_ms": bound_r, "bound_by": "bytes", "library_ms": None},
+        flac, *exact_entries, mp3, dot]}
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

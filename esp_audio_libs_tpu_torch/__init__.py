@@ -11,10 +11,12 @@ carries the same sub-package layout and module names:
 - ``ops``      PCM quantization, biquad design and application, the
                recurrence solvers, the banded and exact polyphase
                contractions, FLAC LPC restoration, the MP3 dequantizer,
-               IMDCT and subband synthesis, and their kernel wrappers
+               IMDCT and subband synthesis, the DSP primitives
+               (``ops.dsp``), and their kernel wrappers
 - ``models``   the user-facing ``Resampler`` (exact and fast mode),
                ``BatchedResample``, ``FLACDecoder``, ``BatchedFLACDecoder``,
                ``MP3Decoder``, ``BatchedMP3Decoder`` and the WAV parser
+- ``cli``      the file tools (``python -m esp_audio_libs_tpu_torch.cli.<name>``)
 - ``utils``    the WAV, FLAC and MP3 result enums
 
 It imports ``torch``, ``numpy`` and ``ctypes`` and never ``jax``. Kernel

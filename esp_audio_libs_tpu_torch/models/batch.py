@@ -195,6 +195,56 @@ class BatchedMP3Decoder:
         for a in self._state():
             a[s] = 0
 
+    # ---------------------------------------------------------- checkpoint
+    def get_state(self) -> dict:
+        """Serializable snapshot of the whole fleet, the JAX package's dict:
+        per-stream native front-end images (bit reservoirs included), the
+        batch-stacked device state as numpy (one synchronisation), the FIFO
+        phases and the reference-UB flags. Restore with :meth:`set_state`
+        into a ``BatchedMP3Decoder`` (of either package) of the same width;
+        decoding then continues byte-identically to an uninterrupted run."""
+        state = self._state()
+        pinned = self.device.type == "cuda"
+        host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=pinned) for a in state]
+        for h, a in zip(host, state):
+            h.copy_(a, non_blocking=pinned)
+        if pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+        over, pt, pws, npv, vbuf = (h.numpy().copy() for h in host)
+        return {"native": [d._native_snapshot() for d in self.decoders],
+                "over": over, "pt": pt, "pws": pws, "npv": npv, "vbuf": vbuf,
+                "vindex": list(self._vindex),
+                "ref_defined": list(self.last_frame_reference_defined)}
+
+    def set_state(self, state: dict) -> None:
+        """Load a :meth:`get_state` snapshot (of either package) and upload
+        its device state to ``self.device``. A snapshot of another width
+        raises ``ValueError``, a bad native image ``RuntimeError``. An f32
+        snapshot (the JAX package's ``fast`` tier mirrors the exact tier's
+        integer values in f32) is rounded to int32 by value, as JAX's
+        ``set_state`` rounds it."""
+        n = len(self.decoders)
+        if len(state["native"]) != n:
+            raise ValueError(f"state holds {len(state['native'])} streams, decoder has {n}")
+        for d, blob in zip(self.decoders, state["native"]):
+            d._native_restore(blob)
+
+        def upload(a, shape, by_value=False):
+            a = np.asarray(a)
+            if by_value and a.dtype.kind == "f":
+                a = np.rint(np.clip(a, -2 ** 31, 2 ** 31 - 1))
+            if a.shape != shape:
+                raise ValueError(f"state array of shape {a.shape}, expected {shape}")
+            return torch.as_tensor(a.astype(np.int32), device=self.device)
+
+        self._over = upload(state["over"], (n, 2, 288), by_value=True)
+        self._pt = upload(state["pt"], (n, 2))
+        self._pws = upload(state["pws"], (n, 2))
+        self._npv = upload(state["npv"], (n, 2))
+        self._vbuf = upload(state["vbuf"], (n, 2176), by_value=True)
+        self._vindex = [int(v) for v in state["vindex"]]
+        self.last_frame_reference_defined = [bool(v) for v in state["ref_defined"]]
+
     def _parse_batch(self, views, use_size=False):
         """The fleet's serial front-ends in one native call
         (``eal_mp3_parse_frame_batch``); outputs land batch-stacked.
@@ -337,26 +387,32 @@ class BatchedMP3Decoder:
         left as it was before the call.
         """
         views = [self._as_view(b) for b in buffers]
+        start = [0] * len(self.decoders)
         if not to_device:
-            return self._dispatch_run(self._parse_run(views, n_frames, use_size))
+            return self._dispatch_run(self._parse_run(views, start, n_frames, use_size))
         # the parse advances every native bit reservoir before the
         # conditions can be checked: snapshot, and roll back on failure
         snaps = [(d._native_snapshot(), d._last_frame) for d in self.decoders]
         try:
-            return self._dispatch_run(self._parse_run(views, n_frames, use_size), True)
+            return self._dispatch_run(self._parse_run(views, start, n_frames, use_size), True)
         except ValueError:
             for d, (blob, lf) in zip(self.decoders, snaps):
                 d._native_restore(blob)
                 d._last_frame = lf
             raise
 
-    def _parse_run(self, views, n_frames, use_size=False):
-        """Host phase of a run: parse up to n_frames per stream. Changes
-        only the native front-ends (reservoirs), never device state.
-        Returns the parses, per-stream frame plans and end positions."""
+    def _parse_run(self, views, pos, n_frames, use_size=False):
+        """Host phase of a run: parse up to n_frames per stream, stream s
+        from offset ``pos[s]`` of its view. Changes only the native
+        front-ends (reservoirs) and ``_last_frame`` of each decoder, never
+        the device state, the FIFO phases or ``last_frame_reference_defined``
+        (what ``_dispatch_run`` reads), so a worker thread can parse run
+        k + 1 while run k dispatches (:meth:`decode_run_pipelined`). It
+        touches no CUDA. Returns the parses, per-stream frame plans and the
+        end positions, absolute within the views."""
         n = len(self.decoders)
-        pos = [0] * n
-        active = [v is not None and v.size > 0 for v in views]
+        pos = list(pos)
+        active = [v is not None and v.size > pos[s] for s, v in enumerate(views)]
         fmt0 = [None] * n
         perstream = [[] for _ in range(n)]   # (parse index, err, clear, consumed, granules)
         parses = []
@@ -393,6 +449,39 @@ class BatchedMP3Decoder:
                 if active[s] and pos[s] >= views[s].size:
                     active[s] = False
         return {"parses": parses, "perstream": perstream, "pos": pos}
+
+    def decode_run_pipelined(self, buffers, n_frames, n_runs, use_size=False, to_device=False):
+        """Generator over up to ``n_runs`` successive :meth:`decode_run`
+        results with the host and device phases overlapped: one worker
+        thread parses run k + 1 (the native batch parse releases the GIL)
+        while run k dispatches.
+
+        Each run equals a sequential ``decode_run`` call (``to_device``
+        included) from where the last one stopped; ``next_pos`` is absolute
+        within the ``buffers`` given here. It stops early when no stream
+        has frames left. As in the JAX package, a consumer that stops early
+        leaves the run after its last one parsed (its native reservoirs
+        advanced), and a ``to_device`` run that breaks its conditions
+        raises ``ValueError`` without the rollback of ``decode_run``.
+        """
+        from concurrent.futures import ThreadPoolExecutor
+
+        # the worker's _parse_run writes only the native front-ends and
+        # _last_frame; _dispatch_run (with _run_groups, _run_group and the
+        # state gathers) reads and writes the device state, _vindex and
+        # last_frame_reference_defined and reads the parsed dict it is
+        # handed, never a front-end or _last_frame: no state is shared
+        views = [self._as_view(b) for b in buffers]
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(self._parse_run, views, [0] * len(self.decoders), n_frames,
+                            use_size)
+            for r in range(n_runs):
+                parsed = fut.result()
+                if not any(parsed["perstream"]):
+                    break
+                if r + 1 < n_runs:
+                    fut = ex.submit(self._parse_run, views, parsed["pos"], n_frames, use_size)
+                yield self._dispatch_run(parsed, to_device)
 
     def _run_groups(self, parsed):
         """Group a parsed run's streams by (format, FIFO phase, granules):
@@ -494,7 +583,7 @@ def parsed_runs(bat: BatchedMP3Decoder, buffers, n_frames: int):
     and the host operands of the group's kernel launch
     (``mp3_pipeline.run_operands``): real parsed runs for holding
     ``mp3_granules_cuda`` to its plain version."""
-    parsed = bat._parse_run([bat._as_view(b) for b in buffers], n_frames)
+    parsed = bat._parse_run([bat._as_view(b) for b in buffers], [0] * len(buffers), n_frames)
     for (_, _, _, vindex, G), streams in bat._run_groups(parsed).items():
         if G:
             fmt, huff_gs, side_gs = mp3_pipeline.run_operands(

@@ -404,6 +404,31 @@ class MP3Decoder:
         except Exception:
             pass
 
+    def get_state(self) -> dict:
+        """Serializable snapshot of all carried decode state, the JAX
+        package's dict: the native front-end image (bit reservoir included)
+        and the synthesis state (overlap, block types, FIFO). Restore with
+        :meth:`set_state` into an ``MP3Decoder`` of either package; decoding
+        then continues byte-identically to an uninterrupted run."""
+        return {"native": self._native_snapshot(),
+                "over": self._over.copy(),
+                "prev_type": self._prev_type.copy(),
+                "prev_win_switch": self._prev_win_switch.copy(),
+                "num_prev": self._num_prev.copy(),
+                "vbuf": self._vbuf.copy(),
+                "vindex": self._vindex}
+
+    def set_state(self, state: dict) -> None:
+        """Load a :meth:`get_state` snapshot; a bad or truncated native
+        image raises ``RuntimeError``."""
+        self._native_restore(state["native"])
+        self._over = np.array(state["over"], np.int32)
+        self._prev_type = np.array(state["prev_type"], np.int32)
+        self._prev_win_switch = np.array(state["prev_win_switch"], np.int32)
+        self._num_prev = np.array(state["num_prev"], np.int32)
+        self._vbuf = np.array(state["vbuf"], np.int32)
+        self._vindex = int(state["vindex"])
+
     def _native_snapshot(self) -> bytes:
         """The native front-end's image (bit reservoir, headers): the state
         a host parse changes, saved to roll back a parse whose results turn

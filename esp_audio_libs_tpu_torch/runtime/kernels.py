@@ -125,6 +125,7 @@ SIGNATURES = {
     "eal_mp3_consts_layout": (C.c_int, [_P]),
     "eal_mp3_granules": (C.c_int, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P]),
+    "eal_dotprod_exact": (C.c_int, [_P, _LL, _P, _LL, _P, _LL, _I, _P]),
 }
 
 

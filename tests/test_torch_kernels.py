@@ -17,6 +17,10 @@ csrc/polyphase_exact.cu) are held to their plain versions bit for bit
 (NaN positions equal, every other f32 bit pattern equal). The MP3 granule
 kernel (csrc/mp3_granules.cu) is held to its plain version byte for byte,
 new state included, on real parsed runs of tools/mp3frames.py streams.
+The exact dot kernel (csrc/dotprod_exact.cu) is held to its plain version
+bit for bit on ragged, unaligned and subnormal operands, and the DSP layer
+(ops/dsp.py) and the MP3 fleet's pipelined runs and checkpoints on the card
+to CPU runs.
 """
 
 import dataclasses
@@ -35,6 +39,8 @@ from esp_audio_libs_tpu_torch.models import mp3_pipeline
 from esp_audio_libs_tpu_torch.models.batch import BatchedMP3Decoder, parsed_runs
 from esp_audio_libs_tpu_torch.ops import biquad as tbq
 from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+from esp_audio_libs_tpu_torch.ops import dsp
+from esp_audio_libs_tpu_torch.ops import dsp_kernels as dk
 from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
 from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
@@ -345,6 +351,18 @@ def test_exact_wrappers_route_cpu_to_plain():
                      pk.polyphase_exact_plain(xe, fb, *grid, half=32, compute_second=second))
     assert bk.biquad_df1_cuda.launches == bk.iir2_sequential_cuda.launches == 0
     assert pk.polyphase_exact_cuda.launches == 0
+
+
+def test_dotprod_wrapper_routes_cpu_to_plain_and_refuses_other_devices():
+    rng = np.random.default_rng(8)
+    a = torch.as_tensor(rng.standard_normal((3, 5, 70)), dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal((5, 70)), dtype=torch.float32)
+    dk.reset_launch_counts()
+    assert same_bits(dk.dotprod_exact_cuda(a, b), dk.dotprod_exact_plain(a, b))
+    assert same_bits(dsp.dotprod_f32(a, b), dk.dotprod_exact_plain(a, b))
+    assert dk.dotprod_exact_cuda.launches == 0
+    with pytest.raises(ValueError, match="device"):
+        dk.dotprod_exact_cuda(torch.zeros((2, 8), device="meta"), torch.zeros(8, device="meta"))
 
 
 def test_exact_wrappers_refuse_other_devices():
@@ -1040,3 +1058,98 @@ def test_mp3_batched_decoder_on_card_equals_cpu(cuda, monkeypatch):
     assert card.last_frame_reference_defined == cpu.last_frame_reference_defined
     for a, b in zip(card._state(), cpu._state()):
         assert torch.equal(a.cpu(), b)
+
+
+def dot_cases(device):
+    """(label, a, b) operands of the exact dot: ragged n, rows past a
+    block, an unaligned row pitch and base (views), broadcasting, and
+    products and sums in the subnormal range."""
+    rng = np.random.default_rng(12)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    cases = [(f"n={n}", t(rng.standard_normal((37, n))), t(rng.standard_normal((37, n))))
+             for n in (0, 1, 17, 4099, 256)]
+    wide = t(rng.standard_normal((40, 131)))
+    cases.append(("pitch 131, base +1", wide[:, 1:130], t(rng.standard_normal((40, 129)))))
+    cases.append(("broadcast b", t(rng.standard_normal((3, 9, 300))),
+                  t(rng.standard_normal((300,)))))
+    tiny = rng.standard_normal((65, 300)) * 1e-20
+    tiny[0] = 1e-39
+    cases.append(("subnormal", t(tiny), t(rng.standard_normal((65, 300)) * 1e-19)))
+    return cases
+
+
+@pytest.mark.cuda
+def test_dotprod_exact_kernel_matches_plain(cuda):
+    dk.reset_launch_counts()
+    cases = dot_cases(cuda)
+    for label, a, b in cases:
+        got = dk.dotprod_exact_cuda(a, b)
+        torch.cuda.synchronize()
+        assert same_bits(got, dk.dotprod_exact_plain(a, b)), label
+    assert dk.dotprod_exact_cuda.launches == len(cases)
+
+
+@pytest.mark.cuda
+def test_dsp_ops_on_card_equal_cpu(cuda):
+    """biquad_f32 (exact: one iir2_sequential launch a call; fast) and the
+    int16 ops, shift edge values and a tensor shift included, on the card
+    bit for bit as on the CPU."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((6, 2, 2000)).astype(np.float32)
+    coef = np.array([0.097631, 0.195262, 0.097631, -0.942809, 0.333333], np.float32)
+    w = rng.standard_normal((6, 2, 2)).astype(np.float32) * 0.1
+    bk.reset_launch_counts()
+    y, nw = dsp.biquad_f32(*(torch.as_tensor(v, device=cuda) for v in (x, coef, w)))
+    assert bk.iir2_sequential_cuda.launches == 1
+    y_c, nw_c = dsp.biquad_f32(*(torch.as_tensor(v) for v in (x, coef, w)))
+    assert same_bits(y.cpu(), y_c) and same_bits(nw.cpu(), nw_c)
+    yf, _ = dsp.biquad_f32(*(torch.as_tensor(v, device=cuda) for v in (x, coef, w)), exact=False)
+    torch.testing.assert_close(yf.cpu(), y_c, rtol=2e-4, atol=2e-5)
+    a, b = (rng.integers(-32768, 32768, (4, 2, 3000), dtype=np.int16) for _ in range(2))
+    shifts = [0, 15, 31, 32, 40, -1, rng.integers(-2, 40, (2, 3000)).astype(np.int32)]
+    for sh in shifts:
+        sh_c = torch.as_tensor(sh) if isinstance(sh, np.ndarray) else sh
+        sh_g = torch.as_tensor(sh, device=cuda) if isinstance(sh, np.ndarray) else sh
+        got = dsp.add_s16(torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda), sh_g)
+        assert torch.equal(got.cpu(), dsp.add_s16(torch.as_tensor(a), torch.as_tensor(b), sh_c))
+        got = dsp.mix_s16(torch.as_tensor(a, device=cuda), torch.as_tensor(b[:, 0, 0], device=cuda),
+                          sh_g)
+        assert torch.equal(got.cpu(), dsp.mix_s16(torch.as_tensor(a), torch.as_tensor(b[:, 0, 0]),
+                                                  sh_c))
+    for c in (0, -1, 32767, -32768):
+        assert torch.equal(dsp.mulc_s16(torch.as_tensor(a, device=cuda), c).cpu(),
+                           dsp.mulc_s16(torch.as_tensor(a), c))
+
+
+@pytest.mark.cuda
+def test_mp3_pipelined_and_restored_fleet_on_card(cuda):
+    """decode_run_pipelined(to_device=True) on the card equals sequential
+    runs on the CPU, and a fleet restored on the card from a CPU fleet's
+    snapshot continues as the CPU fleet does."""
+    cfg = dict(ver_bits=3, bitrate_idx=9, sr_idx=0, mode=0)
+    streams = [mf.tonal_stream(cfg, 700 + i, 6) for i in range(3)]
+    cpu = BatchedMP3Decoder(3, device="cpu")
+    pos, want = [0] * 3, []
+    for _ in range(3):
+        r = cpu.decode_run([s[p:] for s, p in zip(streams, pos)], 2, to_device=True)
+        pos = [p + q for p, q in zip(pos, r.next_pos)]
+        want.append((r[0], list(r[1]), list(pos)))
+    got = list(BatchedMP3Decoder(3).decode_run_pipelined(streams, 2, 3, to_device=True))
+    assert len(got) == len(want)
+    for (pcm, con, nxt), g in zip(want, got):
+        assert g[0].is_cuda and torch.equal(g[0].cpu(), pcm)
+        assert list(g[1]) == con and g.next_pos == nxt
+    first = BatchedMP3Decoder(3, device="cpu")
+    r1 = first.decode_run(streams, 3)
+    card = BatchedMP3Decoder(3)
+    card.set_state(first.get_state())
+    rest = [s[p:] for s, p in zip(streams, r1.next_pos)]
+    got, want = card.decode_run(rest, 3), first.decode_run(rest, 3)
+    for rg, rw in zip(got, want):
+        for (eg, pg, cg), (ew, pw, cw) in zip(rg, rw):
+            assert (int(eg), cg) == (int(ew), cw)
+            np.testing.assert_array_equal(pg, pw)
+    for a, b in zip(card.get_state()["vbuf"], first.get_state()["vbuf"]):
+        np.testing.assert_array_equal(a, b)

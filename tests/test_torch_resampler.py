@@ -261,6 +261,13 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.models.wav\n"
             "import esp_audio_libs_tpu_torch.ops.mp3_kernels\n"
             "import esp_audio_libs_tpu_torch.runtime.tables\n"
+            "import esp_audio_libs_tpu_torch.ops.dsp\n"
+            "import esp_audio_libs_tpu_torch.ops.dsp_kernels\n"
+            "import esp_audio_libs_tpu_torch.cli.wav_io\n"
+            "import esp_audio_libs_tpu_torch.cli.flac_to_wav\n"
+            "import esp_audio_libs_tpu_torch.cli.resample_wav\n"
+            "import esp_audio_libs_tpu_torch.cli.mp3_to_wav\n"
+            "import esp_audio_libs_tpu_torch.cli.mix_wav\n"
             "sys.path.insert(0, 'tools')\n"
             "import mp3frames, profile_mp3_chain\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'esp_audio_libs_tpu.')))\n"

@@ -18,13 +18,19 @@
 //     warp's threads and trade values through a per-warp slot array, so all
 //     the warp's threads must call them together, as a full mask demands on
 //     the card;
-//   - atomicOr, atomicMax, __clz, __mulhi, int min and max, int4 and
-//     make_int4 are builtins with CUDA's results.
+//   - atomicOr, atomicMax, __clz, __mulhi, int min and max, int4,
+//     make_int4 and float4 are builtins with CUDA's results;
+//   - mul_ftz and add_ftz stand in for the inline-PTX mul/add.rn.ftz.f32
+//     helpers of csrc/exact_async.cuh: one IEEE f32
+//     op (compile with -ffp-contract=off) with subnormal operands and
+//     results flushed to a zero of their own sign. A test that builds such
+//     a kernel puts an exact_async.cuh beside it that includes this file.
 #pragma once
 
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <memory>
@@ -51,6 +57,19 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+
+inline float eal_shim_flush(float x) {
+  return std::fabs(x) < 0x1p-126f ? std::copysign(0.0f, x) : x;
+}
+inline float mul_ftz(float a, float b) {
+  return eal_shim_flush(eal_shim_flush(a) * eal_shim_flush(b));
+}
+inline float add_ftz(float a, float b) {
+  return eal_shim_flush(eal_shim_flush(a) + eal_shim_flush(b));
+}
 
 using cudaStream_t = void*;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
