@@ -120,11 +120,42 @@ Phases, each printing a line:
                next_pos, byte for byte), both timed in turns; a fleet
                checkpointed after run 1 (get_state, pickle) and restored
                into a new fleet continues byte-identically.
+ 16. serving  - the port's serve_fleet (cli/serve_fleet.py) in-process on the
+               card: (a) ragged MP3 with continuous batching, 2048 slots
+               serving 4096 tonal streams of 4-16 frames (stereo and mono
+               groups), runs of 8 frames, seed 7: 2048 slots recycled, every
+               stream's sample count and nonzero PCM, 64 sampled streams (32
+               admitted into recycled slots) byte for byte against
+               single-stream MP3Decoder decodes, and the whole --verify at 64
+               slots over 160 streams; (b) composed --rate 16000, 2048 streams
+               x 8 frames in runs of 4: 1 mp3_granules launch per run, the
+               banded launches per run printed, the PCM a card tensor between
+               the stages, run 1's output equal to a fresh Resampler's on the
+               same PCM; (c) the FLAC fleet, 256 flacgen streams (16-bit
+               stereo, order-8 LPC, 8-16 frames of 1024), all md5_ok. Each
+               mode prints its aggregate (samples, runs, msps,
+               realtime_streams) and its slowest and median run.
+ 17. soak    - tests/test_soak.py on the card: 40 serving cycles (64 MP3
+               slots reset and run, 8 FLAC streams) after 5 warm-up ones,
+               memory_allocated back to its post-warm-up value within 1 MiB,
+               live CUDA tensors within 4, RSS +64 MB at most; 300
+               FLACDecoder/MP3Decoder create/destroy cycles, RSS +16 MB at
+               most.
+ 18. conformance - the port's FLAC conformance runner (cli/
+               flac_conformance.py) over its generated 114-file corpus with a
+               WarmCliPool of 2 card workers: all pass, status, parity and md5
+               per file equal to build/test_results/test_report.json.
+Phase 18's corpus (minutes of Python) is built by a child process started
+before phase 2, on one CPU core while the card runs the phases before it;
+a phase that ends while it is still building says so in its seconds line.
+Phase 16's three corpora are built by three child processes started
+together after phase 15, and phase 16 starts when all are ready.
 The launch counts of phases 4-5, of phase 8's and 13's timed calls, of
-each path of phase 10, of phase 14's DSP path and of phase 15's pipelined
-pass, each set to 0 just before and read just after, show that the main
-paths ran through the kernels; phases 8, 10, 13, 14 and 15 assert their
-exact counts. Every phase prints its seconds.
+each path of phase 10, of phase 14's DSP path, of phase 15's pipelined
+pass and of each serving mode of phase 16, each set to 0 just before and
+read just after, show that the main paths ran through the kernels; phases
+8, 10, 13, 14, 15 and 16(b) assert their exact counts. Every phase prints
+its seconds.
 The last three lines are the card line, one JSON object describing the
 kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -152,6 +183,7 @@ CASCADE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_biquad.py:65, fast vs ex
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    stop_children()
     sys.exit(1)
 
 
@@ -1730,6 +1762,402 @@ def mp3_serving_phase():
     return launches
 
 
+# ------------------------------------------------------------ serving surface
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+SERVE_SLOTS, SERVE_TOTAL, SERVE_FRAMES, SERVE_RUN, SERVE_SEED = 2048, 4096, (4, 16), 8, 7
+SERVE_SAMPLE = 32                 # sampled streams from first-admitted and from recycled slots each
+VERIFY_SLOTS, VERIFY_TOTAL = 64, 160
+COMPOSED_FRAMES, COMPOSED_RUN, COMPOSED_RATE = 8, 4, 16000
+FLAC_SERVE_STREAMS, FLAC_SERVE_FRAMES, FLAC_SERVE_CALLS = 256, (8, 16), 3
+SOAK_MP3, SOAK_FLAC, SOAK_WARMUP, SOAK_CYCLES, SOAK_CHURN = 64, 8, 5, 40, 300
+SOAK_ALLOC_SLACK = 1 << 20        # bytes: under one 2 MiB segment of the caching allocator
+CONFORMANCE_WORKERS = 2
+CHILDREN = {}                     # corpus generators by kind, stopped by fail() and at exit
+# the arguments of each serving corpus (serve_fleet.mp3_corpus, .flac_corpus)
+SERVE_CORPORA = {"mp3_ragged": [SERVE_TOTAL, *SERVE_FRAMES, SERVE_SEED, False],
+                 "mp3_composed": [SERVE_SLOTS, COMPOSED_FRAMES, COMPOSED_FRAMES, SERVE_SEED, True],
+                 "flac": [FLAC_SERVE_STREAMS, *FLAC_SERVE_FRAMES, SERVE_SEED]}
+
+# Runs in a child process (``python -c``): builds one corpus into a
+# directory, importing only the port and tools/ (no JAX).
+CORPUS_JOB = """
+import json, pickle, sys, time
+from pathlib import Path
+from esp_audio_libs_tpu_torch.cli import flac_conformance as fc, serve_fleet as sf
+t0 = time.perf_counter()
+kind, out, spec = sys.argv[1], Path(sys.argv[2]), json.loads(sys.argv[3])
+if kind == "conformance":
+    fc.generate_corpus(out / "flac_corpus")
+    fc.install_independent_corpus(out / "flac_corpus")
+else:
+    make = sf.flac_corpus if kind == "flac" else sf.mp3_corpus
+    (out / f"{kind}.tmp").write_bytes(pickle.dumps(make(*spec)))
+    (out / f"{kind}.tmp").rename(out / f"{kind}.pkl")
+print(f"{kind} corpus built in {time.perf_counter() - t0:.1f} s")
+"""
+
+
+def stop_children() -> None:
+    for proc in CHILDREN.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def start_corpus(out_dir: str, kind: str, spec=None) -> None:
+    """Start the generator of ``kind`` in the background, one core: the
+    FLAC conformance corpus, or a serving corpus of ``SERVE_CORPORA``;
+    ``corpus`` waits for it."""
+    if not CHILDREN:
+        import atexit
+        atexit.register(stop_children)
+    CHILDREN[kind] = subprocess.Popen(
+        [sys.executable, "-c", CORPUS_JOB, kind, out_dir, json.dumps(spec)],
+        cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def corpus(out_dir: str, kind: str):
+    """Wait for the generator of ``kind``; the serving corpus, or the
+    conformance corpus's directory."""
+    import pickle
+    proc = CHILDREN[kind]
+    t0 = time.perf_counter()
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"building the {kind} corpus failed:\n{log}")
+    print(f"{log.strip()} (waited {time.perf_counter() - t0:.1f} s)")
+    if kind == "conformance":
+        return os.path.join(out_dir, "flac_corpus")
+    with open(os.path.join(out_dir, f"{kind}.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def serving_corpora(out_dir: str) -> dict:
+    """Phase 16's corpora, one generator each, all started together."""
+    for kind, spec in SERVE_CORPORA.items():
+        start_corpus(out_dir, kind, spec)
+    return {kind: corpus(out_dir, kind) for kind in SERVE_CORPORA}
+
+
+def serve_args(*argv):
+    from esp_audio_libs_tpu_torch.cli import serve_fleet
+    return serve_fleet.parser().parse_args([*map(str, argv), "--device", "cuda"])
+
+
+def run_times(runs) -> str:
+    import numpy as np
+    ms = [r["ms"] for r in runs]
+    return f"{len(ms)} runs, slowest {max(ms):.2f} ms, median {float(np.median(ms)):.2f} ms"
+
+
+def serving_phase(corp):
+    """Phase 16: the port's serve_fleet entry points in-process at full width.
+    (a) ragged MP3 with continuous batching: 2048 slots serving 4096 tonal
+    streams of 4-16 frames (every third one mono: two format groups), runs of
+    8 frames, seed 7; all 2048 slots recycle, each stream's PCM has its
+    frames x 1152 x channels samples and is nonzero, and a seeded sample of
+    64 streams (32 first-admitted, 32 admitted into recycled slots) equals
+    single-stream MP3Decoder decodes byte for byte; then the whole --verify at
+    64 slots over the corpus's first 160 streams. (b) composed --rate 16000:
+    2048 stereo streams x 8 frames in runs of 4; exactly 1 mp3_granules launch
+    per run, the PCM a card tensor between the stages, run 1's resampled
+    output equal to a fresh Resampler's on the same decoded PCM. (c) the FLAC
+    fleet: 256 flacgen streams (16-bit stereo, order-8 LPC, 8-16 frames of
+    1024), every one md5_ok, served 3 times. The MP3 PCM is read through
+    serve_mp3's on_run hook (the serve itself keeps none). Prints each
+    mode's aggregate and its slowest and median run. Returns the launch
+    counts of each mode."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.cli import serve_fleet as sf
+    from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+
+    launches = {}
+    # (a) ragged, continuous batching
+    streams, metas = corp["mp3_ragged"]
+    args = serve_args("--streams", SERVE_SLOTS, "--total-streams", SERVE_TOTAL,
+                      "--min-frames", SERVE_FRAMES[0], "--max-frames", SERVE_FRAMES[1],
+                      "--run-frames", SERVE_RUN, "--seed", SERVE_SEED)
+    rng = np.random.default_rng(SERVE_SEED)
+    sample = np.concatenate([rng.choice(SERVE_SLOTS, SERVE_SAMPLE, replace=False),
+                             SERVE_SLOTS + rng.choice(SERVE_TOTAL - SERVE_SLOTS, SERVE_SAMPLE,
+                                                      replace=False)])
+    kept = {int(i): [] for i in sample}
+    counts, nonzero = [0] * SERVE_TOTAL, [False] * SERVE_TOTAL
+
+    def gather(_r, slots, _bufs, res, _out):
+        for i, sid in enumerate(slots):
+            if sid is None:
+                continue
+            for _e, p, _c in res[i]:
+                if p is not None:
+                    counts[sid] += p.size
+                    nonzero[sid] = nonzero[sid] or bool(p.any())
+                    if sid in kept:
+                        kept[sid].append(p)
+
+    mk.reset_launch_counts()
+    _, runs, agg = sf.serve_mp3(args, streams, metas, gather)
+    launches["ragged"] = mk.mp3_granules_cuda.launches
+    recycled = sum(r["recycled"] for r in runs)
+    if recycled != SERVE_TOTAL - SERVE_SLOTS:
+        fail(f"serve_mp3 recycled {recycled} slots, expected {SERVE_TOTAL - SERVE_SLOTS}")
+    if agg["streams"] != SERVE_TOTAL or agg["slots"] != SERVE_SLOTS:
+        fail(f"serve_mp3 aggregate {agg}")
+    nch = [1 if cfg["mode"] == 3 else 2 for cfg, _ in metas]
+    for i, (cfg, n) in enumerate(metas):
+        if counts[i] != n * 1152 * nch[i]:
+            fail(f"served stream {i}: {counts[i]} samples, expected {n} x 1152 x {nch[i]}")
+    if not all(nonzero):
+        fail("a served stream decoded to silence")
+    if sum(counts) != agg["samples"]:
+        fail("the per-stream PCM does not add up to the aggregate's samples")
+    for i, got in kept.items():
+        want = [p for _e, p in sf.mp3_single_decode(streams[i], metas[i][1], "cuda")
+                if p is not None]
+        if not np.array_equal(np.concatenate(got), np.concatenate(want)):
+            fail(f"served stream {i} differs from its single-stream decode")
+    print(f"serve mp3 ragged: {SERVE_TOTAL} streams ({nch.count(1)} mono) of "
+          f"{SERVE_FRAMES[0]}-{SERVE_FRAMES[1]} frames on {SERVE_SLOTS} slots, runs of "
+          f"{SERVE_RUN} frames: {recycled} slots recycled, every stream's samples = frames x "
+          f"1152 x channels and nonzero, {len(sample)} sampled streams ({SERVE_SAMPLE} from "
+          f"recycled slots) = single-stream MP3Decoder(device='cuda') byte for byte; "
+          f"samples {agg['samples']}, runs {agg['runs']}, msps {agg['msps']}, realtime_streams "
+          f"{agg['realtime_streams']}; {run_times(runs)}; {launches['ragged']} mp3_granules "
+          f"launches")
+    print(json.dumps({"serve": "mp3_ragged", **agg, "run_ms": [r["ms"] for r in runs]}))
+
+    vargs = serve_args("--streams", VERIFY_SLOTS, "--total-streams", VERIFY_TOTAL,
+                       "--min-frames", SERVE_FRAMES[0], "--max-frames", SERVE_FRAMES[1],
+                       "--run-frames", SERVE_RUN, "--seed", SERVE_SEED, "--verify")
+    _, vruns, vagg = sf.serve_mp3(vargs, streams[:VERIFY_TOTAL], metas[:VERIFY_TOTAL])
+    if vagg["verified"] is not True:
+        fail(f"serve_mp3 --verify at {VERIFY_SLOTS} slots: {vagg}")
+    print(f"serve mp3 --verify: {VERIFY_TOTAL} streams on {VERIFY_SLOTS} slots, "
+          f"{sum(r['recycled'] for r in vruns)} recycled, verified {vagg['verified']}")
+
+    # (b) composed decode -> 16 kHz, the PCM on the card between the stages
+    cstreams, cmetas = corp["mp3_composed"]
+    cargs = serve_args("--streams", SERVE_SLOTS, "--min-frames", COMPOSED_FRAMES,
+                       "--max-frames", COMPOSED_FRAMES, "--run-frames", COMPOSED_RUN,
+                       "--rate", COMPOSED_RATE, "--seed", SERVE_SEED)
+    per_run, first, off_card = [], {}, []
+
+    def on_run(r, _slots, _bufs, res, out):
+        per_run.append((mk.mp3_granules_cuda.launches, pk.polyphase_banded_cuda.launches))
+        if not (res[0].is_cuda and out[0].is_cuda):
+            off_card.append(r)
+        if r == 0:
+            first["pcm"], first["out"] = res[0], out
+
+    mk.reset_launch_counts()
+    pk.reset_launch_counts()
+    _, cruns, cagg = sf.serve_mp3(cargs, cstreams, cmetas, on_run)
+    launches["composed"] = {"mp3_granules": mk.mp3_granules_cuda.launches,
+                            "polyphase_banded": pk.polyphase_banded_cuda.launches}
+    steps = [(a - pa, b - pb) for (a, b), (pa, pb) in zip(per_run, [(0, 0)] + per_run[:-1])]
+    if [m for m, _ in steps] != [1] * len(cruns):
+        fail(f"the composed serving runs launched mp3_granules {[m for m, _ in steps]} times, "
+             f"expected 1 per run")
+    if off_card:
+        fail(f"composed runs {off_card} left the card between the stages")
+    n_samples = SERVE_SLOTS * COMPOSED_FRAMES * 1152 * 2
+    if cagg["samples"] != n_samples or not int(first["pcm"].abs().max()):
+        fail(f"composed serving: {cagg['samples']} samples (expected {n_samples}) or silence")
+    fresh = Resampler(batch=SERVE_SLOTS, exact=False, device="cuda")
+    fresh.initialize(ResamplerConfiguration(44100.0, float(COMPOSED_RATE), 16, 16, 2, True, True,
+                                            64, 32))
+    pcm0 = first["pcm"]
+    want = fresh.resample_stream(pcm0.contiguous().view(torch.uint8), pcm0.shape[1] // 2, 1)
+    torch.cuda.synchronize()
+    got = first["out"]
+    if not (torch.equal(got[0], want[0]) and list(got[1]) == list(want[1])
+            and np.array_equal(got[2], want[2])):
+        fail("composed serving: run 1's output differs from a fresh Resampler's")
+    print(f"serve mp3 composed -> {COMPOSED_RATE} Hz: {SERVE_SLOTS} stereo streams x "
+          f"{COMPOSED_FRAMES} frames, runs of {COMPOSED_RUN}: PCM on the card between the "
+          f"stages, run 1 = a fresh Resampler on the same PCM (gens {list(got[1])}); samples "
+          f"{cagg['samples']}, runs {cagg['runs']}, msps {cagg['msps']}, realtime_streams "
+          f"{cagg['realtime_streams']}; {run_times(cruns)}; launches per run (mp3_granules, "
+          f"polyphase_banded) {steps}")
+    print(json.dumps({"serve": "mp3_composed", **cagg, "run_ms": [r["ms"] for r in cruns],
+                      "launches_per_run": steps}))
+
+    # (c) the FLAC fleet
+    fargs = serve_args("--codec", "flac", "--streams", FLAC_SERVE_STREAMS,
+                       "--min-frames", FLAC_SERVE_FRAMES[0], "--max-frames", FLAC_SERVE_FRAMES[1],
+                       "--seed", SERVE_SEED)
+    fk.reset_launch_counts()
+    calls = []
+    for _ in range(FLAC_SERVE_CALLS):
+        t0 = time.perf_counter()
+        results, fagg = sf.serve_flac(fargs, corp["flac"])
+        calls.append((time.perf_counter() - t0) * 1e3)
+        if not (fagg["verified"] and all(info["md5_ok"] is True for _, info in results)):
+            fail("serve_flac: a stream is not md5_ok")
+    launches["flac"] = fk.flac_frame_cuda.launches
+    print(f"serve flac: {FLAC_SERVE_STREAMS} streams (16-bit stereo, order-8 LPC, "
+          f"{FLAC_SERVE_FRAMES[0]}-{FLAC_SERVE_FRAMES[1]} frames of 1024), every stream md5_ok; "
+          f"samples {fagg['samples']}, msps {fagg['msps']}, realtime_streams "
+          f"{fagg['realtime_streams']} (last of {FLAC_SERVE_CALLS} calls); calls slowest "
+          f"{max(calls):.2f} ms, median {float(np.median(calls)):.2f} ms (whole serve_flac, "
+          f"the fleet's construction included); {launches['flac']} flac_frame launches")
+    print(json.dumps({"serve": "flac", **fagg, "call_ms": calls}))
+    return launches
+
+
+def soak_phase():
+    """Phase 17: the counterpart of tests/test_soak.py on the card. One MP3
+    fleet of 64 tonal streams and one FLAC fleet of 8 cycle (reset every MP3
+    slot, decode_run of 3 frames, decode_streams with MD5) 5 times to warm up,
+    then 40 times: torch.cuda.memory_allocated() returns to its post-warm-up
+    value within SOAK_ALLOC_SLACK, the live CUDA tensors (a gc scan) within 4,
+    and RSS grows less than 64 MB; then 300 create/destroy cycles of
+    FLACDecoder and MP3Decoder on the card (a header read, a frame decode)
+    grow RSS less than 16 MB."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import (BatchedFLACDecoder, BatchedMP3Decoder,
+                                                 FLACDecoder, MP3Decoder)
+    from esp_audio_libs_tpu_torch.utils.errors import FLACDecoderResult
+
+    mf = tools_import("mp3frames")
+    fg = tools_import("flacgen")
+    stereo = dict(ver_bits=3, bitrate_idx=9, sr_idx=0, mode=0)
+    mp3_bufs = []
+    for i in range(SOAK_MP3):
+        rng = np.random.default_rng(700 + i)
+        mp3_bufs.append(b"".join(mf.craft_tonal_frame(stereo, rng) for _ in range(6)))
+    plans = [[[fg.SubframePlan("lpc", order=8), fg.SubframePlan("fixed", order=2)]] * 2,
+             [[fg.SubframePlan("lpc", order=4), fg.SubframePlan("constant")]] * 2]
+    flac_bufs = [fg.make_flac(rng_seed=61 + i, depth=16, channels=2, block_size=1024, n_frames=2,
+                              plans=plans[i % 2])[0] for i in range(SOAK_FLAC)]
+
+    mp3 = BatchedMP3Decoder(SOAK_MP3, device="cuda")
+    flac = BatchedFLACDecoder(SOAK_FLAC, device="cuda")
+    if not all(h == FLACDecoderResult.SUCCESS for h in flac.read_headers(flac_bufs)):
+        fail("soak: FLAC header parse failed")
+    flac_frames = [b[d.get_bytes_index():] for b, d in zip(flac_bufs, flac.decoders)]
+
+    def cycle():
+        for s in range(SOAK_MP3):
+            mp3.reset_stream(s)
+        r = mp3.decode_run(mp3_bufs, 3)
+        if not all(len(frames) == 3 for frames in r):
+            fail("soak: a stream decoded fewer than 3 frames")
+        if not all(info["md5_ok"] for _, info in flac.decode_streams(flac_frames)):
+            fail("soak: a FLAC stream is not md5_ok")
+
+    def live_cuda():
+        return sum(1 for o in gc.get_objects()
+                   if issubclass(type(o), torch.Tensor) and o.is_cuda)
+
+    def settle():
+        torch.cuda.synchronize()
+        gc.collect()
+
+    for _ in range(SOAK_WARMUP):
+        cycle()
+    settle()
+    base = (torch.cuda.memory_allocated(), live_cuda(), rss_mb())
+    t0 = time.perf_counter()
+    for _ in range(SOAK_CYCLES):
+        cycle()
+    settle()
+    t_cycles = time.perf_counter() - t0
+    now = (torch.cuda.memory_allocated(), live_cuda(), rss_mb())
+    if now[0] - base[0] > SOAK_ALLOC_SLACK:
+        fail(f"soak: memory_allocated grew {base[0]} -> {now[0]} bytes over {SOAK_CYCLES} cycles")
+    if now[1] > base[1] + 4:
+        fail(f"soak: live CUDA tensors grew {base[1]} -> {now[1]} over {SOAK_CYCLES} cycles")
+    if now[2] - base[2] >= 64.0:
+        fail(f"soak: RSS grew {now[2] - base[2]:.1f} MB over {SOAK_CYCLES} cycles")
+
+    blob = flac_bufs[0]
+    mp3_blob = b"".join(mf.craft_tonal_frame(stereo, np.random.default_rng(700)) for _ in range(2))
+
+    def churn():
+        d = FLACDecoder(device="cuda")
+        if d.read_header(blob) != FLACDecoderResult.SUCCESS:
+            fail("churn: FLAC header parse failed")
+        m = MP3Decoder(device="cuda")
+        m.decode(mp3_blob)
+        del d, m
+
+    for _ in range(20):
+        churn()
+    settle()
+    rss0 = rss_mb()
+    t0 = time.perf_counter()
+    for _ in range(SOAK_CHURN):
+        churn()
+    settle()
+    t_churn = time.perf_counter() - t0
+    churn_mb = rss_mb() - rss0
+    if churn_mb >= 16.0:
+        fail(f"churn: RSS grew {churn_mb:.1f} MB over {SOAK_CHURN} create/destroy cycles")
+    print(f"soak: {SOAK_CYCLES} cycles after {SOAK_WARMUP} warm-up ({SOAK_MP3} MP3 slots reset "
+          f"and run 3 frames, {SOAK_FLAC} FLAC streams with MD5; {t_cycles:.1f} s): "
+          f"memory_allocated {base[0]} -> {now[0]} bytes (slack {SOAK_ALLOC_SLACK}), live CUDA "
+          f"tensors {base[1]} -> {now[1]}, RSS {base[2]:.1f} -> {now[2]:.1f} MB "
+          f"(+{now[2] - base[2]:.1f}, bound 64); churn: {SOAK_CHURN} FLACDecoder + MP3Decoder "
+          f"create/decode/destroy cycles ({t_churn:.1f} s), RSS +{churn_mb:.1f} MB (bound 16)")
+
+
+def rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    fail("no VmRSS in /proc/self/status")
+
+
+def conformance_phase(corpus_dir: str, out_dir: str):
+    """Phase 18: the port's FLAC conformance runner on the card over its
+    generated corpus (114 files: subset 64, uncommon 12, faulty 13,
+    independent 25), the flac_to_wav CLI driven through a WarmCliPool of 2
+    card workers. Every file passes, and its status, parity and md5 equal the
+    committed JAX report (build/test_results/test_report.json); its
+    reference_match (the C oracle's) is not compared."""
+    from pathlib import Path
+
+    from esp_audio_libs_tpu_torch.cli import flac_conformance as fc
+
+    with open(os.path.join(REPO_ROOT, "build", "test_results", "test_report.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    report = fc.run_suite(Path(corpus_dir), Path(out_dir), device="cuda", cli=True,
+                          workers=CONFORMANCE_WORKERS)
+    wall = time.perf_counter() - t0
+    s = report["summary"]
+    failed = [r["file"] for rs in report["categories"].values() for r in rs
+              if r["status"] != "pass"]
+    if failed or s["passed"] != s["total"] or s["total"] != want["summary"]["total"]:
+        fail(f"conformance: {s['passed']}/{s['total']} passed, failing {failed}")
+    for cat, rows in want["categories"].items():
+        got = {r["file"]: r for r in report["categories"].get(cat, [])}
+        if set(got) != {r["file"] for r in rows}:
+            fail(f"conformance: the {cat} files differ from the committed report's")
+        for r in rows:
+            for key in ("status", "parity", "md5"):
+                if got[r["file"]][key] != r[key]:
+                    fail(f"conformance {cat}/{r['file']}: {key} {got[r['file']][key]!r}, "
+                         f"the committed report has {r[key]!r}")
+    counts = {cat: len(rows) for cat, rows in report["categories"].items()}
+    print(f"flac conformance on the card: {s['passed']}/{s['total']} passed ({s['decode_parity']} "
+          f"decode-parity, {s['reject_parity']} reject-parity; {counts}), status, parity and md5 "
+          f"of every file = the committed JAX report; CLI through a WarmCliPool of "
+          f"{CONFORMANCE_WORKERS} workers; wall {wall:.1f} s (the pool's start included)")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1748,6 +2176,9 @@ def main() -> None:
         fail(f"the port is not importable ({e}): run from the repository root")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import tempfile
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    start_corpus(scratch.name, "conformance")    # phase 18's input, built on one core meanwhile
 
     # 2. build
     t0 = time.perf_counter()
@@ -1761,8 +2192,11 @@ def main() -> None:
     clock = [time.perf_counter()]
 
     def lap(label):
+        # a phase that ends while the conformance corpus is still building shared the host
         now = time.perf_counter()
-        print(f"phase {label}: {now - clock[0]:.1f} s")
+        busy = CHILDREN["conformance"].poll() is None
+        print(f"phase {label}: {now - clock[0]:.1f} s"
+              f"{' (the conformance corpus building meanwhile)' if busy else ''}")
         clock[0] = now
 
     # 3. kernels against their plain versions at the slice's shapes
@@ -1909,6 +2343,30 @@ def main() -> None:
 
     lap("15 mp3 serving")
 
+    # 16-18. the serving surface: serve_fleet, the soak, the conformance runner
+    torch.cuda.empty_cache()
+    corp = serving_corpora(scratch.name)
+    clock[0] = time.perf_counter()    # phase 16 proper starts after its corpora
+    serve_launches = serving_phase(corp)
+    mp3["launches_other_paths"]["serve_fleet_ragged"] = serve_launches["ragged"]
+    mp3["launches_other_paths"]["serve_fleet_composed"] = serve_launches["composed"]["mp3_granules"]
+    banded_serve = serve_launches["composed"]["polyphase_banded"]
+    flac["launches_other_paths"] = {"serve_fleet": serve_launches["flac"]}
+
+    lap("16 serving")
+
+    torch.cuda.empty_cache()
+    soak_phase()
+
+    lap("17 soak")
+
+    torch.cuda.empty_cache()
+    conformance_phase(corpus(scratch.name, "conformance"),
+                      os.path.join(scratch.name, "conformance_out"))
+    scratch.cleanup()
+
+    lap("18 conformance")
+
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",
          "source": "esp_audio_libs_tpu_torch/csrc/polyphase_banded.cu",
@@ -1916,6 +2374,7 @@ def main() -> None:
          "launches": launches["polyphase_banded"], "max_abs_err": err_banded,
          "ms": ms_b, "plain_ms": ms_bp, "bound_ms": bound_b, "bound_by": by_b,
          "library_ms": lib_b,
+         "launches_other_paths": {"serve_fleet_composed": banded_serve},
          "post_filter": {"ms": ms_b2, "plain_ms": ms_b2p, "bound_ms": bound_b2,
                          "bound_by": by_b2, "library_ms": lib_b2}},
         {"name": "polyphase_fused16", "route": "cuda",

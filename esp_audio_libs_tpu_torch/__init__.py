@@ -16,8 +16,10 @@ carries the same sub-package layout and module names:
 - ``models``   the user-facing ``Resampler`` (exact and fast mode),
                ``BatchedResample``, ``FLACDecoder``, ``BatchedFLACDecoder``,
                ``MP3Decoder``, ``BatchedMP3Decoder`` and the WAV parser
-- ``cli``      the file tools (``python -m esp_audio_libs_tpu_torch.cli.<name>``)
-- ``utils``    the WAV, FLAC and MP3 result enums
+- ``cli``      the file and serving tools (``python -m
+               esp_audio_libs_tpu_torch.cli.<name>``)
+- ``utils``    the WAV, FLAC and MP3 result enums, debug-mode NaN/Inf checks
+               and host staging pools
 
 It imports ``torch``, ``numpy`` and ``ctypes`` and never ``jax``. Kernel
 wrappers run their plain PyTorch version for CPU tensors only; a CUDA tensor

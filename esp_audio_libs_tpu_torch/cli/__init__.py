@@ -7,4 +7,12 @@ versions). Run each as ``python -m esp_audio_libs_tpu_torch.cli.<name>``:
 - ``mp3_to_wav``    MP3 -> WAV, bad frames zero-filled
 - ``resample_wav``  WAV -> WAV through the ``Resampler`` (exact or ``--fast``)
 - ``mix_wav``       N WAVs -> one, Q15 volume and left-fold sum (``ops.dsp``)
+
+and the serving tools:
+
+- ``serve_fleet``   an MP3 or FLAC fleet served with slot recycling, or
+                    decoded into the resampler on the device
+- ``cli_worker``    warm ``flac_to_wav`` / ``mp3_to_wav`` workers (``WarmCliPool``)
+- ``flac_conformance``  the FLAC conformance corpus through the decoder and CLI
+- ``profile_serve_flac``  where the time of ``serve_fleet``'s FLAC fleet goes, by stage
 """

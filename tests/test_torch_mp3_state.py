@@ -9,7 +9,9 @@ two copies disagree; ``decode_run_pipelined`` against sequential
 and the retry recipe after a transport failure mid-run.
 
 Contracts: tests/test_checkpoint.py (``test_mp3_save_restore_with_reservoir``,
-``test_batched_mp3_save_restore``, ``test_bad_state_blob_rejected``),
+``test_batched_mp3_save_restore``, ``test_bad_state_blob_rejected``; the
+``port_to_port`` cases are those contracts on the port, and
+tests/test_torch_checkpoint.py holds the others),
 tests/test_mp3_fast.py (``test_fast_tier_checkpoint_interconverts``) and
 tests/test_batch.py (``test_mp3_pipelined_runs_match_sequential``,
 ``test_mp3_pipelined_to_device_matches_sequential``,
@@ -97,14 +99,20 @@ def single_streams():
     return out
 
 
+DIRECTIONS = ["jax_to_port", "port_to_jax", "port_to_port"]
+
+
 @pytest.mark.parametrize("kind", ["reservoir", "tonal"])
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("direction", DIRECTIONS)
 def test_mp3_decoder_state_exchange(single_streams, kind, direction):
     """Decode 3 frames in one package, pass the state (pickled) to a fresh
-    decoder of the other, decode 3 more: equal to JAX's uninterrupted run."""
+    decoder of the other (or of the port again: the checkpoint contract),
+    decode 3 more: equal to JAX's uninterrupted run."""
     stream, want = single_streams[kind]
-    first, second = ((JaxMP3(), MP3Decoder(device="cpu")) if direction == "jax_to_port"
-                     else (MP3Decoder(device="cpu"), JaxMP3()))
+    first, second = {"jax_to_port": (JaxMP3(), MP3Decoder(device="cpu")),
+                     "port_to_jax": (MP3Decoder(device="cpu"), JaxMP3()),
+                     "port_to_port": (MP3Decoder(device="cpu"),
+                                      MP3Decoder(device="cpu"))}[direction]
     head, pos = _frames(first, stream, 0, SPLIT)
     second.set_state(pickle.loads(pickle.dumps(first.get_state())))
     tail, _ = _frames(second, stream, pos, FRAMES - SPLIT)
@@ -157,23 +165,28 @@ def _same_fleet_state(port, jax_dec):
 
 
 @pytest.mark.parametrize("kind", ["reservoir", "tonal"])
-@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("direction", DIRECTIONS)
 def test_fleet_state_exchange(fleet_runs, kind, direction):
     """A fleet snapshot after 3 frames, pickled, restored into a fresh fleet
-    of the other package: the next 3 frames equal JAX's uninterrupted run,
-    and the restored state equals the snapshot's."""
+    of the other package (or of the port again): the next 3 frames equal
+    JAX's uninterrupted run, and the restored state equals the snapshot's."""
     streams, want = fleet_runs[kind]
-    first, second = ((JaxBatched(B), BatchedMP3Decoder(B, device="cpu"))
-                     if direction == "jax_to_port"
-                     else (BatchedMP3Decoder(B, device="cpu"), JaxBatched(B)))
+    first, second = {"jax_to_port": (JaxBatched(B), BatchedMP3Decoder(B, device="cpu")),
+                     "port_to_jax": (BatchedMP3Decoder(B, device="cpu"), JaxBatched(B)),
+                     "port_to_port": (BatchedMP3Decoder(B, device="cpu"),
+                                      BatchedMP3Decoder(B, device="cpu"))}[direction]
     head, pos = _fleet_frames(first, streams, [0] * B, SPLIT)
     snap = pickle.loads(pickle.dumps(first.get_state()))
     assert all(isinstance(snap[k], np.ndarray) for k in ("over", "pt", "pws", "npv", "vbuf"))
     second.set_state(snap)
     if direction == "jax_to_port":
         _same_fleet_state(second, first)
-    else:
+    elif direction == "port_to_jax":
         _same_fleet_state(first, second)
+    else:
+        for a, b in zip(first._state(), second._state()):
+            assert torch.equal(a, b)
+        assert second._vindex == first._vindex
     tail, _ = _fleet_frames(second, streams, pos, FRAMES - SPLIT)
     _same(head + tail, want, f"{kind} {direction}")
 

@@ -268,6 +268,12 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.cli.resample_wav\n"
             "import esp_audio_libs_tpu_torch.cli.mp3_to_wav\n"
             "import esp_audio_libs_tpu_torch.cli.mix_wav\n"
+            "import esp_audio_libs_tpu_torch.utils.debug\n"
+            "import esp_audio_libs_tpu_torch.utils.buffers\n"
+            "import esp_audio_libs_tpu_torch.cli.serve_fleet\n"
+            "import esp_audio_libs_tpu_torch.cli.cli_worker\n"
+            "import esp_audio_libs_tpu_torch.cli.flac_conformance\n"
+            "import esp_audio_libs_tpu_torch.cli.profile_serve_flac\n"
             "sys.path.insert(0, 'tools')\n"
             "import mp3frames, profile_mp3_chain\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'esp_audio_libs_tpu.')))\n"
