@@ -145,6 +145,37 @@ Phases, each printing a line:
                flac_conformance.py) over its generated 114-file corpus with a
                WarmCliPool of 2 card workers: all pass, status, parity and md5
                per file equal to build/test_results/test_report.json.
+ 19. mesh    - the multi-device surface (parallel/mesh.py, parallel/
+               sequence.py) on one card named 4 times,
+               stream_mesh(["cuda:0"] * 4): (a) polyphase_banded_sharded and
+               polyphase_fused16_sharded at phase 3's main shape (4 shards x
+               1024 rows), each shard bit for bit equal to the single-device
+               launch on its rows, held to the plain versions, each shard's
+               launch timed (CUDA events) beside its bound and the library
+               call; (b) Resampler(2048, mesh) at the bench configuration,
+               fast (fused tier off and on) and exact, against the
+               single-device Resampler (exact byte-equal, fast: differing
+               samples counted, more than 1 LSB fails), 4 launches per
+               contraction per chunk, and stream_mesh() (the visible cards;
+               one card: the single-device route); (c) phase 8's composed
+               FLAC chain over the mesh (md5_ok, split PCM, output equal to
+               the unsharded chain); (d) phase 13's MP3 chain over the mesh,
+               4 mp3_granules launches a run, equal to the unsharded chain;
+               (e) sequence parallelism: sequence_parallel_resample of 4
+               stereo streams x 120 s at 44.1 kHz within TOL_BANDED of the
+               single-device contraction, sequence_parallel_iir2 on [64, 4 x
+               2^20] and lpc_companion_scan on [16, 2^18] (whole and split,
+               against lpc_restore(shift=0) run on the CPU by a child process)
+               bit for bit; (f) serve_mp3 composed over the mesh at 2048
+               slots x 8 frames, runs of 4, --verify. Its launches are
+               counted drive by drive (each count set to 0 just before a
+               mesh drive and read just after) and go into the kernels
+               line: two entries for the sharded wrappers and
+               launches_other_paths["mesh"] for the others (for the two
+               single-device contraction entries net of the launches made
+               through their sharded wrappers, so each launch counts once). A second card,
+               which would show that each launch runs on its tensors' card,
+               is not needed: one card runs every split.
 Phase 18's corpus (minutes of Python) is built by a child process started
 before phase 2, on one CPU core while the card runs the phases before it;
 a phase that ends while it is still building says so in its seconds line.
@@ -154,8 +185,8 @@ The launch counts of phases 4-5, of phase 8's and 13's timed calls, of
 each path of phase 10, of phase 14's DSP path, of phase 15's pipelined
 pass and of each serving mode of phase 16, each set to 0 just before and
 read just after, show that the main paths ran through the kernels; phases
-8, 10, 13, 14, 15 and 16(b) assert their exact counts. Every phase prints
-its seconds.
+8, 10, 13, 14, 15, 16(b) and 19 assert their exact counts. Every phase
+prints its seconds.
 The last three lines are the card line, one JSON object describing the
 kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -681,12 +712,13 @@ def flac_composed_phase(composed_blob, reps=5):
 
 
 def flac_phases():
-    """Phases 6-8; returns the kernels-line entry of flac_frame."""
+    """Phases 6-8; returns the kernels-line entry of flac_frame and the
+    composed stream (phase 19 serves it again over a mesh)."""
     composed_blob = flac_stream(8)
     entry = flac_kernel_phase(composed_blob)
     flac_corpus_phase()
     entry["launches"] = flac_composed_phase(composed_blob)["flac_frame"]
-    return entry
+    return entry, composed_blob
 
 
 def same_bits(a, b) -> bool:
@@ -2158,6 +2190,547 @@ def conformance_phase(corpus_dir: str, out_dir: str):
           f"{CONFORMANCE_WORKERS} workers; wall {wall:.1f} s (the pool's start included)")
 
 
+MESH_SHARDS = 4                     # phase 19: one card named 4 times (stream_mesh(["cuda:0"] * 4))
+SEQ_STREAMS, SEQ_SECONDS = 4, 120   # sequence parallelism: 4 stereo streams x 120 s at 44.1 kHz
+IIR_ROWS, IIR_T = 64, 4 << 20
+LPC_ROWS, LPC_T, LPC_SEED = 16, 1 << 18, 19
+LPC_FIXED = {1: [1], 2: [-1, 2], 3: [1, -3, 3], 4: [-1, 4, -6, 4]}
+
+# Runs in a child process (``python -c``) while the card runs phase 19's
+# first checks: the sequential LPC restoration of the lpc_companion_scan
+# check on the CPU (ops/lpc.py::lpc_restore, shift 0), a loop over 2^18 steps.
+LPC_JOB = """
+import sys, numpy as np, torch
+torch.set_num_threads(1)
+import chip_smoke
+from esp_audio_libs_tpu_torch.ops.lpc import lpc_restore
+data, coeffs, order = (torch.from_numpy(a) for a in chip_smoke.lpc_operands())
+out = lpc_restore(data, coeffs, order, torch.zeros_like(order), use64=True, max_order=4)
+np.save(sys.argv[1], out.numpy())
+"""
+
+
+def lpc_operands():
+    """The lpc_companion_scan check's shift-0 subframes: int32 [16, 2^18]
+    residuals (seeded), the fixed predictors of orders 1-4 in turn."""
+    import numpy as np
+    rng = np.random.default_rng(LPC_SEED)
+    data = rng.integers(-3000, 3000, (LPC_ROWS, LPC_T)).astype(np.int32)
+    order = (1 + np.arange(LPC_ROWS) % 4).astype(np.int32)
+    coeffs = np.zeros((LPC_ROWS, 32), np.int32)
+    for b, o in enumerate(order):
+        coeffs[b, :o] = LPC_FIXED[int(o)]
+    return data, coeffs, order
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count (the sharded wrappers' per-shard ones too)."""
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import dsp_kernels as dk
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    return {"polyphase_banded": pk.polyphase_banded_cuda.launches,
+            "polyphase_fused16": pk.polyphase_fused16_cuda.launches,
+            "polyphase_banded_sharded": pk.polyphase_banded_sharded.launches,
+            "polyphase_fused16_sharded": pk.polyphase_fused16_sharded.launches,
+            "polyphase_exact": pk.polyphase_exact_cuda.launches,
+            "biquad_exact": bk.biquad_df1_cuda.launches + bk.iir2_sequential_cuda.launches,
+            "flac_frame": fk.flac_frame_cuda.launches,
+            "mp3_granules": mk.mp3_granules_cuda.launches,
+            "dotprod_exact": dk.dotprod_exact_cuda.launches}
+
+
+def reset_all_counts() -> None:
+    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
+    from esp_audio_libs_tpu_torch.ops import dsp_kernels as dk
+    from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    for mod in (bk, dk, fk, mk, pk):
+        mod.reset_launch_counts()
+
+
+class MeshPath:
+    """Phase 19's drives of the mesh path: each ``run(fn)`` sets every launch
+    count to 0 just before ``fn``, reads them just after, and adds them to
+    the phase's totals. Launches that make the single-device references
+    run outside it and are not counted."""
+
+    def __init__(self):
+        self.total = {}
+
+    def run(self, fn):
+        import torch
+        reset_all_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        for k, v in counts.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return out, counts, ms
+
+
+def mesh_kernels(m, data):
+    """Phase 19(a): the two sharded wrappers at phase 3's main shape (the
+    first chunk of the bench configuration: 2048 x 2 rows, 4 shards of 1024)
+    against the single-device launches on the same rows (bit for bit) and
+    their plain versions; each shard's launch timed with CUDA events beside
+    its plain version, its bound and the library call on the same rows.
+    Returns the two kernels-line entries (launches filled in later)."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops.polyphase import polyphase_banded
+    from esp_audio_libs_tpu_torch.parallel.mesh import shard_streams
+
+    t0 = time.perf_counter()
+    down = make_resampler(44100.0, 16000.0, BATCH, "cuda")
+    xf, x2, Wt, starts, out_max, factor = chunk_operands(down, torch.as_tensor(data, device="cuda"))
+    M = xf.shape[0]
+    Ms = M // m.size
+    entries = []
+    for name, x, W in (("polyphase_banded_sharded", xf, Wt),
+                       ("polyphase_fused16_sharded", x2, Wt * factor)):
+        fused = name == "polyphase_fused16_sharded"
+        if fused:
+            got = pk.polyphase_fused16_sharded(x, W, starts, mesh=m)
+            one = pk.polyphase_fused16_cuda(x, W, starts)
+            per = [pk.polyphase_fused16_cuda(p, W, starts) for p in shard_streams(x, m).parts]
+            torch.cuda.synchronize()
+            for i in range(m.size):
+                s, c = got[0].parts[i], got[1].parts[i]
+                if not (torch.equal(s, per[i][0]) and torch.equal(c, per[i][1])):
+                    fail(f"{name}: shard {i} differs from the single-device launch on its rows")
+            s_all, c_all = got[0].gather(), got[1].gather()
+            err = int((s_all.int() - one[0].int()).abs().max())
+            same_whole = torch.equal(s_all, one[0]) and torch.equal(c_all, one[1])
+            err_plain = check_fused(s_all, c_all, *pk.polyphase_fused16_plain(x, W, starts),
+                                    f"{name} vs plain")
+        else:
+            got = pk.polyphase_banded_sharded(x, W, starts, T=out_max, mesh=m)
+            one = pk.polyphase_banded_cuda(x, W, starts, T=out_max)
+            per = [pk.polyphase_banded_cuda(p, W, starts, T=out_max)
+                   for p in shard_streams(x, m).parts]
+            torch.cuda.synchronize()
+            for i in range(m.size):
+                if not same_bits(got.parts[i], per[i]):
+                    fail(f"{name}: shard {i} differs from the single-device launch on its rows")
+            y = got.gather()
+            err = float((y - one).abs().max())
+            same_whole = same_bits(y, one)
+            torch.testing.assert_close(y, one, **TOL_BANDED)
+            p = polyphase_banded(x, W, starts, T=out_max)
+            torch.testing.assert_close(y, p, **TOL_BANDED)
+            err_plain = float((y - p).abs().max())
+        xs = shard_streams(x, m).parts
+        if fused:
+            shard_ms = [cuda_time(lambda p=p: pk.polyphase_fused16_cuda(p, W, starts)) for p in xs]
+            call_ms = cuda_time(lambda: pk.polyphase_fused16_sharded(x, W, starts, mesh=m))
+            plain_ms = cuda_time(lambda: pk.polyphase_fused16_plain(xs[0], W, starts))
+            bnd, by = contraction_bound(Ms, xs[0], W, Ms * W.shape[0] * 128 * 3)
+        else:
+            shard_ms = [cuda_time(lambda p=p: pk.polyphase_banded_cuda(p, W, starts, T=out_max))
+                        for p in xs]
+            call_ms = cuda_time(lambda: pk.polyphase_banded_sharded(x, W, starts, T=out_max,
+                                                                    mesh=m))
+            plain_ms = cuda_time(lambda: polyphase_banded(xs[0], W, starts, T=out_max))
+            bnd, by = contraction_bound(Ms, xs[0], W, Ms * out_max * 4)
+        lib_ms = library_time(xs[0], W, starts)
+        ms = sum(shard_ms) / len(shard_ms)
+        print(f"mesh (a) {name}: {m.size} shards x {Ms} rows (L={x.shape[1]}, nt={W.shape[0]}, "
+              f"K={W.shape[1]}), each shard equal bit for bit to the single-device launch on its "
+              f"rows; whole output {'equal bit for bit to' if same_whole else 'within tolerance of'} "
+              f"one launch on all {M} rows (max|d| {err:.3g}), plain version max|d| "
+              f"{err_plain:.3g}; per-shard launch {ms:.4f} ms (shards {', '.join(f'{t:.4f}' for t in shard_ms)}), "
+              f"one sharded call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+              f"ms, bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of it; "
+              f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+        entries.append({"name": name, "route": "cuda",
+                        "source": "esp_audio_libs_tpu_torch/csrc/" + (
+                            "polyphase_fused16.cu" if fused else "polyphase_banded.cu"),
+                        "split": "esp_audio_libs_tpu_torch/ops/polyphase_kernels.py",
+                        "replaces": "esp_audio_libs_tpu/ops/polyphase_pallas.py:" + (
+                            "319" if fused else "201"),
+                        "launches": 0, "launches_of": (
+                            "polyphase_fused16" if fused else "polyphase_banded") + (
+                            " made through this wrapper, one per shard; not counted again in "
+                            "that entry's launches_other_paths.mesh"),
+                        "shards": m.size, "max_abs_err": err,
+                        "max_abs_err_plain": err_plain, "ms": ms, "ms_sharded_call": call_ms,
+                        "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                        "library_ms": lib_ms})
+        del got, one, per
+    del xf, x2, Wt, down
+    torch.cuda.empty_cache()
+    return entries
+
+
+def mesh_resampler(m, data, path):
+    """Phase 19(b): Resampler(2048, mesh=m) at the bench configuration, fast
+    mode with the fused tier off and on and exact mode, against the
+    single-device Resampler on the same bytes (exact byte-equal; fast: the
+    count of differing samples printed, more than 1 LSB fails), with 4
+    launches per contraction per chunk; then stream_mesh() (the visible
+    cards) with one card takes the single-device route."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+    from esp_audio_libs_tpu_torch.parallel.mesh import Sharded, stream_mesh
+
+    cfg = ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, 32)
+    data_dev = torch.as_tensor(data, device="cuda")
+    S = m.size
+    for label, exact, fused in (("fast", False, False), ("fast fused", False, True),
+                                ("exact", True, False)):
+        if fused:
+            os.environ["EAL_RESAMPLE_FUSED16"] = "1"
+        else:
+            os.environ.pop("EAL_RESAMPLE_FUSED16", None)
+        one = Resampler(BATCH, exact=exact, device="cuda")
+        one.initialize(cfg)
+        t0 = time.perf_counter()
+        want = one.resample_stream(data_dev, FRAMES, CHUNKS)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        msh = Resampler(BATCH, exact=exact, device="cuda", mesh=m)
+        msh.initialize(cfg)
+        got, counts, ms = path.run(lambda: msh.resample_stream(data_dev, FRAMES, CHUNKS))
+        expect = ({"polyphase_exact": S * CHUNKS, "biquad_exact": 2 * S * CHUNKS} if exact else
+                  {"polyphase_fused16": S * CHUNKS, "polyphase_fused16_sharded": S * CHUNKS}
+                  if fused else
+                  {"polyphase_banded": S * CHUNKS, "polyphase_banded_sharded": S * CHUNKS})
+        if {k: counts[k] for k in expect} != expect or sum(counts.values()) != sum(expect.values()):
+            fail(f"mesh resampler {label}: launches {counts}, expected {expect}")
+        if not (isinstance(got[0], Sharded) and got[0].axis == 1
+                and isinstance(msh.history, Sharded)):
+            fail(f"mesh resampler {label}: output or history not split over the mesh")
+        a = got[0].gather().cpu().numpy().view(np.int16).astype(np.int32)
+        b = want[0].cpu().numpy().view(np.int16).astype(np.int32)
+        d = np.abs(a - b)
+        ndiff = int((d > 0).sum())
+        if got[1] != want[1] or d.max() > (0 if exact else 1):
+            fail(f"mesh resampler {label}: {ndiff} samples differ (max {d.max()} LSB)")
+        if exact and not np.array_equal(got[2], want[2]):
+            fail(f"mesh resampler {label}: clip counts differ")
+        if not torch.equal(msh.history.gather(), one.history):
+            fail(f"mesh resampler {label}: carried history differs")
+        t0 = time.perf_counter()
+        msh.resample_stream(data_dev, FRAMES, CHUNKS)
+        torch.cuda.synchronize()
+        ms2 = (time.perf_counter() - t0) * 1e3
+        print(f"mesh (b) Resampler({BATCH}, {label}) over {S} shards: {ndiff} samples differ "
+              f"from the single-device Resampler (max {d.max()} LSB), gens and history equal; "
+              f"launches {expect}; {ms:.2f} ms first call, {ms2:.2f} ms second (single device "
+              f"first call {one_ms:.2f} ms)")
+    os.environ.pop("EAL_RESAMPLE_FUSED16", None)
+    visible = stream_mesh()
+    r1 = Resampler(BATCH, exact=False, device="cuda", mesh=visible)
+    r1.initialize(cfg)
+    one = Resampler(BATCH, exact=False, device="cuda")
+    one.initialize(cfg)
+    want = one.resample_stream(data_dev, FRAMES, CHUNKS)
+    got, counts, ms = path.run(lambda: r1.resample_stream(data_dev, FRAMES, CHUNKS))
+    if visible.size == 1 and (counts["polyphase_banded"] != CHUNKS
+                              or counts["polyphase_banded_sharded"] != 0
+                              or isinstance(got[0], Sharded) or not torch.equal(got[0], want[0])):
+        fail(f"stream_mesh() of one card did not take the single-device route: {counts}")
+    print(f"mesh (b) Resampler over stream_mesh() ({visible.size} visible card(s)): "
+          f"{'the single-device route, ' if visible.size == 1 else ''}launches {counts}; "
+          f"{ms:.2f} ms")
+    del data_dev
+    torch.cuda.empty_cache()
+
+
+def mesh_flac(m, composed_blob, path):
+    """Phase 19(c): phase 8's composed FLAC -> 16 kHz chain (256 streams) over
+    m: decode_streams md5_ok and equal to the single-device fleet's, the
+    device PCM split over the mesh and equal to the unsharded PCM, the
+    resampled output equal to the unsharded chain's; 4 flac_frame launches
+    (the one bucket, whole, split in 4) and 4 banded launches."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedFLACDecoder, Resampler
+    from esp_audio_libs_tpu_torch.models import ResamplerConfiguration
+    from esp_audio_libs_tpu_torch.parallel.mesh import Sharded
+
+    frames = FLAC_FRAMES * FLAC_BLOCK
+    cfg = ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, 32)
+    one = BatchedFLACDecoder(FLAC_STREAMS, device="cuda")
+    one.read_headers([composed_blob] * FLAC_STREAMS)
+    bodies = [composed_blob[d.get_bytes_index():] for d in one.decoders]
+    host1 = one.decode_streams(bodies)
+    pcm1, _ = one.decode_streams_to_device(bodies)
+    r1 = Resampler(FLAC_STREAMS, exact=False, device="cuda")
+    r1.initialize(cfg)
+    out1 = r1.resample_stream(pcm1, frames, 1)
+
+    msh = BatchedFLACDecoder(FLAC_STREAMS, device="cuda", mesh=m)
+    msh.read_headers([composed_blob] * FLAC_STREAMS)
+    hostm, counts_h, ms_h = path.run(lambda: msh.decode_streams(bodies))
+    if not all(r["md5_ok"] is True for _, r in hostm) or [p for p, _ in hostm] != \
+            [p for p, _ in host1]:
+        fail("mesh flac: decode_streams over the mesh is not md5_ok or differs")
+    rm = Resampler(FLAC_STREAMS, exact=False, device="cuda", mesh=m)
+    rm.initialize(cfg)
+
+    def chain():
+        pcm, _ = msh.decode_streams_to_device(bodies)
+        return pcm, rm.resample_stream(pcm, frames, 1)
+
+    (pcmm, outm), counts, ms = path.run(chain)
+    want = {"flac_frame": m.size, "polyphase_banded": m.size}
+    if counts_h["flac_frame"] != m.size or {k: counts[k] for k in want} != want:
+        fail(f"mesh flac: launches {counts_h} / {counts}, expected {want}")
+    if not isinstance(pcmm, Sharded) or not torch.equal(pcmm.gather(), pcm1):
+        fail("mesh flac: the device PCM is not split over the mesh or differs")
+    if outm[1] != out1[1] or not torch.equal(outm[0].gather(), out1[0]) or \
+            not np.array_equal(outm[2], out1[2]):
+        fail("mesh flac: the resampled chain differs from the unsharded chain")
+    n_in = FLAC_STREAMS * frames * 2
+    print(f"mesh (c) flac->16k composed {FLAC_STREAMS} streams over {m.size} shards: md5_ok all, "
+          f"host decode, device PCM (split) and resampled output equal to the unsharded chain "
+          f"byte for byte; launches decode {counts_h['flac_frame']} flac_frame, chain {counts}; "
+          f"decode_streams {ms_h:.2f} ms, chain {ms:.2f} ms ({n_in / ms / 1e3:.1f} decoded "
+          f"Msamples/s, one call)")
+
+
+def mesh_mp3(m, path):
+    """Phase 19(d): phase 13's 256 x 8 tonal frames, decode_run(to_device)
+    over m then the mesh Resampler: PCM and output byte-equal to the
+    unsharded chain, 4 mp3_granules launches per run."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedMP3Decoder, Resampler
+    from esp_audio_libs_tpu_torch.models import ResamplerConfiguration
+    from esp_audio_libs_tpu_torch.parallel.mesh import Sharded
+
+    B, F = MP3_STREAMS, MP3_FRAMES
+    streams = mp3_streams("tonal", B, F, 9000)
+    samples = F * 1152
+    cfg = ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, 32)
+    pcm1, con1 = BatchedMP3Decoder(B).decode_run(streams, F, to_device=True)
+    r1 = Resampler(B, exact=False, device="cuda")
+    r1.initialize(cfg)
+    out1 = r1.resample_stream(pcm1.view(torch.uint8), samples, 1)
+    msh = BatchedMP3Decoder(B, mesh=m)
+    rm = Resampler(B, exact=False, device="cuda", mesh=m)
+    rm.initialize(cfg)
+
+    def chain():
+        pcm, con = msh.decode_run(streams, F, to_device=True)
+        return pcm, con, rm.resample_stream(pcm.map(lambda p: p.view(torch.uint8)), samples, 1)
+
+    (pcmm, conm, outm), counts, ms = path.run(chain)
+    want = {"mp3_granules": m.size, "polyphase_banded": m.size}
+    if {k: counts[k] for k in want} != want:
+        fail(f"mesh mp3: launches {counts}, expected {want}")
+    if not (isinstance(pcmm, Sharded) and isinstance(msh._vbuf, Sharded)) or conm != con1 \
+            or not torch.equal(pcmm.gather(), pcm1):
+        fail("mesh mp3: the device PCM or state is not split, or the PCM differs")
+    if outm[1] != out1[1] or not torch.equal(outm[0].gather(), out1[0]) or \
+            not np.array_equal(outm[2], out1[2]):
+        fail("mesh mp3: the resampled chain differs from the unsharded chain")
+    print(f"mesh (d) mp3->16k composed {B} streams x {F} frames over {m.size} shards: PCM, "
+          f"consumed and resampled output equal to the unsharded chain byte for byte, state "
+          f"split; launches {counts}; chain {ms:.2f} ms ({B * samples * 2 / ms / 1e3:.1f} "
+          f"decoded Msamples/s, one call)")
+
+
+def mesh_sequence(m, path, lpc_ref_path):
+    """Phase 19(e): sequence parallelism over m read as a time mesh:
+    sequence_parallel_resample of 4 stereo streams x 120 s at 44.1 kHz (the
+    bench configuration's folded filterbank) against the single-device
+    banded contraction of the whole chunk (TOL_BANDED); sequence_parallel_iir2
+    on f32 [64, 4 x 2^20] bit for bit against one sequential solve;
+    lpc_companion_scan on int32 [16, 2^18], orders 1-4, whole and split over
+    the time mesh, bit for bit against ops/lpc.py::lpc_restore(shift=0)
+    (run on the CPU by a child process meanwhile)."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops.polyphase import banded_weights_device
+    from esp_audio_libs_tpu_torch.ops.scan import iir2_sequential
+    from esp_audio_libs_tpu_torch.parallel.mesh import shard_streams
+    from esp_audio_libs_tpu_torch.parallel.sequence import (lpc_companion_scan,
+                                                            sequence_parallel_iir2,
+                                                            sequence_parallel_resample)
+    from esp_audio_libs_tpu_torch.runtime.phase_grid import PhaseState, phase_grid
+
+    r = make_resampler(44100.0, 16000.0, 1, "cuda")
+    filt, direct = r._filters.cpu().numpy(), r._direct.cpu().numpy()
+    taps_p, K, off, halo = r._taps_p, r._K, r._fold_offset, r._taps_p + 8
+    T_in = SEQ_SECONDS * 44100
+    st = PhaseState.initial(64)
+    st.advance(32.0)
+    grid = phase_grid(st, 32, r.bank_flags, r.sample_ratio, T_in,
+                      int(T_in * float(r.sample_ratio)) + 8)
+    gen = int(grid.output_generated)
+
+    class G:                       # the grid with the fold offset applied to win0
+        win0 = grid.win0 - off
+        idx1, idx2, weight, mode = grid.idx1, grid.idx2, grid.weight, grid.mode
+        output_generated = gen
+
+    gen_t = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn((SEQ_STREAMS, 2, T_in), generator=gen_t, device="cuda") * 0.3
+    (y, counts_d), counts, ms = path.run(lambda: sequence_parallel_resample(
+        x, filt, direct, G, m, taps_p=taps_p, K=K, halo=halo))
+    if counts["polyphase_banded"] != m.size:
+        fail(f"sequence_parallel_resample launched {counts}, expected {m.size} banded")
+    To = y.shape[-1] // m.size
+    got = torch.cat([p[..., :int(c)] for p, c in zip(y.parts, counts_d)], dim=-1)
+    if got.shape[-1] != gen or any(bool(p[..., int(c):].any()) for p, c in zip(y.parts, counts_d)):
+        fail("sequence_parallel_resample: output count or nonzero padded slots")
+    del y
+    L = -(-max(halo + T_in, K) // 128) * 128
+    T_pad = -(-gen // 128) * 128
+    win0x = np.zeros(T_pad, np.int32)
+    win0x[:gen] = G.win0[:gen] + halo
+    win0x[gen:] = win0x[gen - 1]
+    pad = lambda a: torch.as_tensor(np.pad(np.asarray(a)[:gen], (0, T_pad - gen)), device="cuda")
+    Wt, starts = banded_weights_device(
+        r._filters, r._direct, torch.as_tensor(win0x, device="cuda"), pad(G.idx1), pad(G.idx2),
+        pad(G.weight), pad(G.mode.astype(np.int32)), gen, K=K, taps_p=taps_p, L=L)
+    xp = torch.nn.functional.pad(x, (halo, L - halo - T_in))
+    ref = pk.polyphase_banded_cuda(xp, Wt, starts, T=gen)
+    torch.cuda.synchronize()
+    del Wt, xp
+    torch.testing.assert_close(got, ref, **TOL_BANDED)
+    err = float((got - ref).abs().max())
+    del got, ref
+    torch.cuda.empty_cache()
+    print(f"mesh (e) sequence_parallel_resample {SEQ_STREAMS} stereo streams x {SEQ_SECONDS} s "
+          f"({T_in} frames, {gen} outputs) over {m.size} segments (To={To}, halo {halo}): within "
+          f"TOL_BANDED of the single-device contraction (max|d| {err:.3g}), padded slots zero; "
+          f"{counts['polyphase_banded']} banded launches; {ms:.2f} ms")
+
+    f = torch.randn((IIR_ROWS, IIR_T), generator=gen_t, device="cuda")
+    p1 = torch.tensor(float(r.lowpass_coeffs[3]), device="cuda")
+    p2 = torch.tensor(float(r.lowpass_coeffs[4]), device="cuda")
+    z = torch.zeros(IIR_ROWS, device="cuda")
+    (ys, (a, b)), counts, ms = path.run(lambda: sequence_parallel_iir2(f, p1, p2, z, z, m))
+    ref, (ra, rb) = iir2_sequential(f, p1, p2, z, z)
+    torch.cuda.synchronize()
+    if counts["biquad_exact"] != m.size:
+        fail(f"sequence_parallel_iir2 launched {counts}, expected {m.size} iir2")
+    if not (same_bits(ys.gather(), ref) and same_bits(a, ra) and same_bits(b, rb)):
+        fail("sequence_parallel_iir2 differs from one sequential solve")
+    print(f"mesh (e) sequence_parallel_iir2 f32 [{IIR_ROWS}, {IIR_T}] over {m.size} segments: "
+          f"output and final state bit for bit equal to one sequential solve; "
+          f"{counts['biquad_exact']} iir2 launches; {ms:.2f} ms")
+    del f, ys, ref
+    torch.cuda.empty_cache()
+
+    data, coeffs, order = (torch.as_tensor(a, device="cuda") for a in lpc_operands())
+    whole, _, ms_w = path.run(lambda: lpc_companion_scan(data, coeffs, order))
+    split, _, ms_s = path.run(lambda: lpc_companion_scan(shard_streams(data, m, axis=1), coeffs,
+                                                         order))
+    t0 = time.perf_counter()
+    proc = CHILDREN["lpc"]
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"the lpc_restore reference failed:\n{log}")
+    want = torch.as_tensor(np.load(lpc_ref_path), device="cuda")
+    if not (torch.equal(whole, want) and torch.equal(split.gather(), want)):
+        fail("lpc_companion_scan differs from lpc_restore(shift=0)")
+    print(f"mesh (e) lpc_companion_scan int32 [{LPC_ROWS}, {LPC_T}] orders 1-4: whole and split "
+          f"over {m.size} segments bit for bit equal to lpc_restore(shift=0) on the CPU (waited "
+          f"{time.perf_counter() - t0:.1f} s for it); {ms_w:.2f} ms whole, {ms_s:.2f} ms split")
+    del data, whole, split
+    torch.cuda.empty_cache()
+
+
+def mesh_serving(m, corp, path):
+    """Phase 19(f): serve_fleet's serve_mp3, composed, in-process over m at
+    2048 slots x 8 frames in runs of 4 with --verify: verified, the PCM and
+    the output split over the mesh in every run, 4 mp3_granules and 4 banded
+    launches a run, run 1's output equal to a single-device Resampler's on
+    the same PCM."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.cli import serve_fleet as sf
+    from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.parallel.mesh import Sharded
+
+    cstreams, cmetas = corp["mp3_composed"]
+    cargs = serve_args("--streams", SERVE_SLOTS, "--min-frames", COMPOSED_FRAMES,
+                       "--max-frames", COMPOSED_FRAMES, "--run-frames", COMPOSED_RUN,
+                       "--rate", COMPOSED_RATE, "--seed", SERVE_SEED, "--verify")
+    per_run, first, bad = [], {}, []
+
+    def on_run(r, _slots, _bufs, res, out):
+        per_run.append((mk.mp3_granules_cuda.launches, pk.polyphase_banded_cuda.launches))
+        if not (isinstance(res[0], Sharded) and isinstance(out[0], Sharded)):
+            bad.append(r)
+        if r == 0:
+            first["pcm"], first["out"] = res[0], out
+
+    (_, runs, agg), counts, ms = path.run(lambda: sf.serve_mp3(cargs, cstreams, cmetas, on_run,
+                                                                mesh=m))
+    steps = [(a - pa, b - pb) for (a, b), (pa, pb) in zip(per_run, [(0, 0)] + per_run[:-1])]
+    # --verify's single-stream decodes (MP3Decoder on one device) are not the mesh path
+    verify = counts["mp3_granules"] - sum(a for a, _ in steps)
+    path.total["mp3_granules"] -= verify
+    if agg["verified"] is not True or bad or steps != [(m.size, m.size)] * len(runs):
+        fail(f"mesh serving: verified {agg['verified']}, runs not split {bad}, launches per "
+             f"run {steps}")
+    fresh = Resampler(batch=SERVE_SLOTS, exact=False, device="cuda")
+    fresh.initialize(ResamplerConfiguration(44100.0, float(COMPOSED_RATE), 16, 16, 2, True, True,
+                                            64, 32))
+    pcm0 = first["pcm"].gather()
+    want = fresh.resample_stream(pcm0.view(torch.uint8), pcm0.shape[1] // 2, 1)
+    got = first["out"]
+    if not (torch.equal(got[0].gather(), want[0]) and np.array_equal(got[2], want[2])):
+        fail("mesh serving: run 1's output differs from a single-device Resampler's")
+    print(f"mesh (f) serve mp3 composed -> {COMPOSED_RATE} Hz over {m.size} shards: "
+          f"{SERVE_SLOTS} streams x {COMPOSED_FRAMES} frames, runs of {COMPOSED_RUN}, --verify "
+          f"{agg['verified']}, PCM and output split in every run, run 1 = a single-device "
+          f"Resampler on the same PCM; launches per run (mp3_granules, polyphase_banded) "
+          f"{steps}; samples {agg['samples']}, msps {agg['msps']}, realtime_streams "
+          f"{agg['realtime_streams']}; {run_times(runs)}; {ms:.0f} ms with the verify (its "
+          f"{verify} single-stream mp3_granules launches not counted as the mesh path's)")
+
+
+def mesh_phase(data, composed_blob, corp, scratch_dir):
+    """Phase 19: the multi-device surface on one card, split 4 ways
+    (stream_mesh(["cuda:0"] * 4)). Returns (the two sharded wrappers'
+    kernels-line entries, the mesh path's launch counts)."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.parallel.mesh import stream_mesh
+
+    lpc_ref = os.path.join(scratch_dir, "lpc_restore.npy")
+    CHILDREN["lpc"] = subprocess.Popen([sys.executable, "-c", LPC_JOB, lpc_ref], cwd=REPO_ROOT,
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    m = stream_mesh(["cuda:0"] * MESH_SHARDS)
+    entries = mesh_kernels(m, data)
+    path = MeshPath()
+    mesh_resampler(m, data, path)
+    mesh_flac(m, composed_blob, path)
+    mesh_mp3(m, path)
+    mesh_sequence(m, path, lpc_ref)
+    torch.cuda.empty_cache()
+    mesh_serving(m, corp, path)
+    for e in entries:
+        e["launches"] = path.total[e["name"]]
+    print(f"launches on the mesh path: {path.total}")
+    for name in ("polyphase_banded_sharded", "polyphase_fused16_sharded", "polyphase_exact",
+                 "biquad_exact", "flac_frame", "mp3_granules"):
+        if not path.total.get(name):
+            fail(f"the mesh path never launched {name}")
+    return entries, path.total
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2305,7 +2878,7 @@ def main() -> None:
     lap("4-5 main path")
 
     # 6-8. FLAC
-    flac = flac_phases()
+    flac, composed_blob = flac_phases()
 
     lap("6-8 flac")
 
@@ -2363,9 +2936,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     conformance_phase(corpus(scratch.name, "conformance"),
                       os.path.join(scratch.name, "conformance_out"))
-    scratch.cleanup()
 
     lap("18 conformance")
+
+    # 19. the multi-device surface, split 4 ways on the card
+    torch.cuda.empty_cache()
+    sharded_entries, mesh_launches = mesh_phase(data, composed_blob, corp, scratch.name)
+    scratch.cleanup()
+
+    lap("19 mesh")
 
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",
@@ -2386,11 +2965,21 @@ def main() -> None:
         {"name": "band_ranges", "route": "cuda",
          "source": "esp_audio_libs_tpu_torch/csrc/band_ranges.cu",
          "replaces": "esp_audio_libs_tpu/ops/polyphase_pallas.py:155",
-         "helper_of": ["polyphase_banded", "polyphase_fused16"],
+         "helper_of": ["polyphase_banded", "polyphase_fused16", "polyphase_banded_sharded",
+                       "polyphase_fused16_sharded"],
          "launches": launches["polyphase_banded"] + launches["polyphase_fused16"],
          "max_abs_err": 0, "ms": ms_r, "ms_wrapper": ms_rw, "plain_ms": ms_rp,
          "bound_ms": bound_r, "bound_by": "bytes", "library_ms": None},
-        flac, *exact_entries, mp3, dot]}
+        flac, *exact_entries, mp3, dot, *sharded_entries]}
+    for e in kernels_line["kernels"][:-len(sharded_entries)]:
+        n = mesh_launches.get(e["name"], 0)
+        if e["name"] == "band_ranges":
+            n = mesh_launches["polyphase_banded"] + mesh_launches["polyphase_fused16"]
+        elif e["name"] in ("polyphase_banded", "polyphase_fused16"):
+            # net of the launches made through the sharded wrapper: those
+            # are its entry's launches, each counted once in this line
+            n -= mesh_launches[e["name"] + "_sharded"]
+        e.setdefault("launches_other_paths", {})["mesh"] = n
     print(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,9 @@ carries the same sub-package layout and module names:
 - ``models``   the user-facing ``Resampler`` (exact and fast mode),
                ``BatchedResample``, ``FLACDecoder``, ``BatchedFLACDecoder``,
                ``MP3Decoder``, ``BatchedMP3Decoder`` and the WAV parser
+- ``parallel`` the stream mesh (the batch axis split over devices, one
+               kernel launch per shard) and sequence parallelism (one long
+               stream's time axis split over devices)
 - ``cli``      the file and serving tools (``python -m
                esp_audio_libs_tpu_torch.cli.<name>``)
 - ``utils``    the WAV, FLAC and MP3 result enums, debug-mode NaN/Inf checks
@@ -28,4 +31,4 @@ launches the kernel or raises.
 
 __version__ = "0.1.0"
 
-from . import models, ops, runtime, utils  # noqa: F401
+from . import models, ops, parallel, runtime, utils  # noqa: F401

@@ -25,6 +25,10 @@ Optional:
               MP3Decoder decode with the reference caller protocol.
   --device    cuda (the default: the hand kernels; raises without a card) or
               cpu (their plain versions).
+  --mesh N    serve over an N-device stream mesh (parallel/mesh.py): every
+              visible device of the --device type, which must number N, as
+              in the JAX original. serve_mp3 and serve_flac also take a
+              StreamMesh in-process, which may name a device more than once.
 
 Prints one metrics JSON line per run and one aggregate line, as the JAX
 original does:
@@ -38,6 +42,7 @@ spectra) from tools/mp3frames.py, FLAC streams from tools/flacgen.py.
 Usage: python -m esp_audio_libs_tpu_torch.cli.serve_fleet [--codec mp3|flac]
          [--streams N] [--total-streams M] [--min-frames a] [--max-frames b]
          [--run-frames r] [--rate HZ] [--verify] [--seed S] [--device cuda|cpu]
+         [--mesh N]
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel.mesh import Sharded, stream_mesh, to_numpy
 from ..runtime.kernels import entry_device
 
 TOOLS = Path(__file__).resolve().parent.parent.parent / "tools"
@@ -64,9 +70,25 @@ def _tools():
         sys.path.insert(0, str(TOOLS))
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(device, mesh=None) -> None:
+    """Wait for the work queued on ``device`` (on every device of ``mesh``)."""
+    for dev in (mesh.distinct() if mesh is not None else [torch.device(device)]):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _mesh(n, device):
+    """The stream mesh of ``--mesh n``: every visible device of ``device``'s
+    type (one for the CPU), which must number ``n``; None without ``n``.
+    Raises ``ValueError`` otherwise, as the JAX original exits."""
+    if not n:
+        return None
+    dev = entry_device(device, "serve_fleet")
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if visible != n:
+        raise ValueError(f"--mesh {n} but {visible} {dev.type} device(s) visible")
+    return stream_mesh([torch.device(dev.type, i) for i in range(n)] if dev.type == "cuda"
+                       else ["cpu"])
 
 
 # ----------------------------------------------------------------- MP3 fleet
@@ -111,9 +133,12 @@ def mp3_single_decode(data, n_frames: int, device="cuda"):
     return out
 
 
-def serve_mp3(args, streams, metas, on_run=None):
+def serve_mp3(args, streams, metas, on_run=None, mesh=None):
     """Serve the MP3 streams of :func:`mp3_corpus` (``streams``, ``metas``)
-    on a fleet of ``args.streams`` slots, with the options of :func:`main`.
+    on a fleet of ``args.streams`` slots, with the options of :func:`main`,
+    over the stream ``mesh`` if one is given (a ``StreamMesh`` of
+    ``args.device``'s type; the composed mode's PCM then stays split over it
+    between the stages).
 
     ``on_run(run, slots, bufs, res, out)``, when given, sees each run as it
     ends: the stream in each slot (None for an idle slot), the per-slot input
@@ -135,13 +160,13 @@ def serve_mp3(args, streams, metas, on_run=None):
     if total < slots or (uniform and total != slots):
         raise ValueError(f"{total} streams for {slots} slots: the composed --rate mode "
                          "serves one stream per slot, the ragged mode at least as many")
-    fleet = BatchedMP3Decoder(slots, device=args.device)
+    fleet = BatchedMP3Decoder(slots, device=args.device, mesh=mesh)
 
     resampler = None
     if uniform:
         from ..models.resampler import Resampler, ResamplerConfiguration
 
-        resampler = Resampler(batch=slots, exact=False, device=args.device)
+        resampler = Resampler(batch=slots, exact=False, device=args.device, mesh=mesh)
         if not resampler.initialize(ResamplerConfiguration(
                 44100.0, float(args.rate), 16, 16, 2, True, True, 64, 32)):
             raise ValueError(f"the resampler refused 44100 -> {args.rate} Hz")
@@ -179,13 +204,17 @@ def serve_mp3(args, streams, metas, on_run=None):
             res = fleet.decode_run(bufs, args.run_frames, to_device=True)
             pcm_dev = res[0]
             nb = pcm_dev.shape[1] * 2
-            pcm_u8 = pcm_dev.contiguous().view(torch.uint8)   # little-endian, no copy
+
+            def as_bytes(p):
+                return p.contiguous().view(torch.uint8)   # little-endian, no copy
+
+            pcm_u8 = pcm_dev.map(as_bytes) if isinstance(pcm_dev, Sharded) else as_bytes(pcm_dev)
             out = resampler.resample_stream(pcm_u8, nb // 4, 1)
-            _sync(args.device)
+            _sync(args.device, mesh)
             samples = int(pcm_dev.shape[0]) * int(pcm_dev.shape[1])
             audio_seconds += samples / (44100.0 * 2)   # uniform = stereo
             if args.verify:
-                host = pcm_dev.cpu().numpy()
+                host = to_numpy(pcm_dev)
                 for i in range(slots):
                     per_stream_pcm[slot_of[i]].append(host[i])
         else:
@@ -263,16 +292,16 @@ def flac_corpus(n_streams, min_frames, max_frames, seed):
     return blobs
 
 
-def serve_flac(args, blobs):
+def serve_flac(args, blobs, mesh=None):
     """Decode the FLAC streams ``blobs`` (:func:`flac_corpus`) as one fleet
-    on ``args.device``: headers, then one ``decode_streams`` call with MD5
-    checks. Returns ``(results, aggregate)``: per stream ``(pcm_bytes,
-    info)`` as ``BatchedFLACDecoder.decode_streams`` gives it, and the
-    aggregate dict."""
+    on ``args.device`` (over the stream ``mesh`` if one is given): headers,
+    then one ``decode_streams`` call with MD5 checks. Returns ``(results,
+    aggregate)``: per stream ``(pcm_bytes, info)`` as
+    ``BatchedFLACDecoder.decode_streams`` gives it, and the aggregate dict."""
     from ..models.batch import BatchedFLACDecoder
     from ..utils.errors import FLACDecoderResult
 
-    fleet = BatchedFLACDecoder(len(blobs), device=args.device)
+    fleet = BatchedFLACDecoder(len(blobs), device=args.device, mesh=mesh)
     t0 = time.perf_counter()
     hdrs = fleet.read_headers(blobs)
     if not all(h == FLACDecoderResult.SUCCESS for h in hdrs):
@@ -311,6 +340,8 @@ def parser() -> argparse.ArgumentParser:
                     help="check the fleet PCM against single-stream decodes")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", type=int, default=None,
+                    help="serve over an N-device stream mesh (N visible devices)")
     return ap
 
 
@@ -330,15 +361,20 @@ def main(argv=None) -> int:
               "(composed --rate fleets run in lockstep)")
         return 1
     entry_device(args.device, "serve_fleet")
+    try:
+        mesh = _mesh(args.mesh, args.device)
+    except ValueError as e:
+        print(f"ERROR: {e}")
+        return 1
     if args.codec == "flac":
         blobs = flac_corpus(args.streams, args.min_frames, args.max_frames, args.seed)
-        _results, aggregate = serve_flac(args, blobs)
+        _results, aggregate = serve_flac(args, blobs, mesh)
         print(json.dumps(aggregate))
         return 0 if aggregate["verified"] else 1
     total = max(args.total_streams or args.streams, args.streams)
     streams, metas = mp3_corpus(total, args.min_frames, args.max_frames, args.seed,
                                 uniform=args.rate is not None)
-    _pcm, runs, aggregate = serve_mp3(args, streams, metas)
+    _pcm, runs, aggregate = serve_mp3(args, streams, metas, mesh=mesh)
     for line in runs:
         print(json.dumps(line))
     print(json.dumps(aggregate))

@@ -7,6 +7,11 @@ host, and every stream's numeric work folds into the lane axis of the shared
 kernels, so one launch decodes a whole group of streams: FLAC frames are
 bucketed by block size x depth x channels, MP3 streams grouped by version x
 samplerate x channels x FIFO phase.
+
+Both fleets take an optional stream ``mesh`` (parallel/mesh.py): a dispatch
+whose size divides the mesh splits into contiguous blocks, one kernel launch
+per device, and the MP3 fleet keeps its carried device state split along the
+stream axis; other dispatches run on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import ctypes as C
 import numpy as np
 import torch
 
+from ..parallel.mesh import Sharded, is_split, place, shard_streams
 from ..runtime import transport
 from ..runtime.kernels import entry_device
 from ..runtime.native import host_lib
@@ -62,6 +68,17 @@ class MP3DeviceRunResult(tuple):
         return self
 
 
+def _fleet_device(device, mesh, what: str) -> torch.device:
+    """The fleet's device: ``device``, or the first device of ``mesh``,
+    whose type must be ``device``'s."""
+    dev = entry_device(device, what)
+    if mesh is None:
+        return dev
+    if mesh.type != dev.type:
+        raise ValueError(f"{what}(device={str(dev)!r}) on a {mesh.type} mesh")
+    return mesh.devices[0]
+
+
 class BatchedFLACDecoder:
     """Decode many independent FLAC streams with shared batched kernels.
 
@@ -74,11 +91,16 @@ class BatchedFLACDecoder:
     Args:
       n_streams: number of stream slots.
       device: ``"cuda"`` (the default) or ``"cpu"``; ``"cuda"`` without a
-        usable card raises. There is no mesh: one device decodes the fleet.
+        usable card raises.
+      mesh: optional stream mesh of ``device``'s type: a bucket whose frame
+        count divides its size splits over it, one frame-kernel launch per
+        shard, each with its own escape sideband; other buckets run on its
+        first device (``models.flac._run_frame_bucket``).
     """
 
-    def __init__(self, n_streams: int, *, device="cuda"):
-        self.device = entry_device(device, "BatchedFLACDecoder")
+    def __init__(self, n_streams: int, *, device="cuda", mesh=None):
+        self.device = _fleet_device(device, mesh, "BatchedFLACDecoder")
+        self.mesh = mesh
         self.decoders = [FLACDecoder(device=self.device) for _ in range(n_streams)]
 
     def read_headers(self, blobs):
@@ -100,18 +122,23 @@ class BatchedFLACDecoder:
         Returns: per-stream (pcm_bytes, results-dict) like
           ``FLACDecoder.decode_stream``.
         """
-        return _decode_streams(self.decoders, buffers, verify_md5, device=self.device)
+        return _decode_streams(self.decoders, buffers, verify_md5, device=self.device,
+                               mesh=self.mesh)
 
     def decode_streams_to_device(self, buffers):
         """Uniform-fleet decode leaving the packed PCM on the device: the
         composition path for decode -> resample chains (see
-        ``models.flac.decode_streams_to_device``)."""
-        return decode_streams_to_device(self.decoders, buffers, device=self.device)
+        ``models.flac.decode_streams_to_device``). With a mesh the PCM comes
+        back split along the stream axis, ready for a ``Resampler`` on the
+        same mesh."""
+        return decode_streams_to_device(self.decoders, buffers, device=self.device,
+                                        mesh=self.mesh)
 
     def decode_streams_to_device_grouped(self, buffers):
         """Mixed-fleet decode leaving PCM on the device, grouped by
         frame-shape signature (``models.flac.decode_streams_to_device_grouped``)."""
-        return decode_streams_to_device_grouped(self.decoders, buffers, device=self.device)
+        return decode_streams_to_device_grouped(self.decoders, buffers, device=self.device,
+                                                mesh=self.mesh)
 
     # ---------------------------------------------------------- checkpoint
     def get_state(self) -> dict:
@@ -149,16 +176,25 @@ class BatchedMP3Decoder:
     Args:
       n_streams: number of stream slots.
       device: ``"cuda"`` (the default) or ``"cpu"``; ``"cuda"`` without a
-        usable card raises. There is no mesh: one device decodes the fleet.
+        usable card raises.
+      mesh: optional stream mesh of ``device``'s type; ``n_streams`` must be
+        a multiple of its size. The carried device state stays split along
+        the stream axis over it, and a dispatch group whose size divides it
+        runs one granule-kernel launch per shard (``_group_mesh``); other
+        groups run on its first device.
     """
 
-    def __init__(self, n_streams: int, *, device="cuda"):
-        self.device = entry_device(device, "BatchedMP3Decoder")
+    def __init__(self, n_streams: int, *, device="cuda", mesh=None):
+        self.device = _fleet_device(device, mesh, "BatchedMP3Decoder")
+        if mesh is not None and n_streams % mesh.size:
+            raise ValueError(f"n_streams={n_streams} must be a multiple of the mesh size "
+                             f"({mesh.size}) for an even stream split")
+        self.mesh = mesh
         self.decoders = [MP3Decoder(device=self.device) for _ in range(n_streams)]
         self.last_frame_reference_defined = [True] * n_streams
 
         def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+            return place(torch.zeros(shape, dtype=torch.int32, device=self.device), mesh)
 
         N = n_streams
         self._over = zeros(N, 2, 288)
@@ -171,29 +207,58 @@ class BatchedMP3Decoder:
     def _state(self):
         return (self._over, self._pt, self._pws, self._npv, self._vbuf)
 
+    def _group_mesh(self, n_group: int):
+        """The mesh for a dispatch group of ``n_group`` streams, or None when
+        the group cannot split evenly (it then runs on the first device)."""
+        if is_split(self.mesh) and n_group % self.mesh.size == 0:
+            return self.mesh
+        return None
+
     def _gather_state(self, streams):
         if streams == list(range(len(self.decoders))):
             return self._state()              # the whole fleet: no gather
         idx = torch.as_tensor(streams, device=self.device)
-        return tuple(a.index_select(0, idx) for a in self._state())
+        picked = tuple((a.gather(self.device) if isinstance(a, Sharded) else a).index_select(0, idx)
+                       for a in self._state())
+        gmesh = self._group_mesh(len(streams))
+        if gmesh is not None:   # a sub-fleet that divides the mesh stays split
+            picked = tuple(shard_streams(a, gmesh) for a in picked)
+        return picked
 
     def _scatter_state(self, streams, new_state):
         if streams == list(range(len(self.decoders))):
             self._over, self._pt, self._pws, self._npv, self._vbuf = new_state
             return
-        idx = torch.as_tensor(streams, device=self.device)
+        if not is_split(self.mesh):
+            idx = torch.as_tensor(streams, device=self.device)
+            for a, new in zip(self._state(), new_state):
+                a.index_copy_(0, idx, new)
+            return
+        # each new row goes into the block of the shard that holds its stream
+        rows = np.asarray(streams)
         for a, new in zip(self._state(), new_state):
-            a.index_copy_(0, idx, new)
+            new = new.gather(self.device) if isinstance(new, Sharded) else new
+            for part, (lo, hi) in zip(a.parts, a.block_rows()):
+                mine = np.flatnonzero((rows >= lo) & (rows < hi))
+                if mine.size:
+                    src = new.index_select(0, torch.as_tensor(mine, device=new.device))
+                    part.index_copy_(0, torch.as_tensor(rows[mine] - lo, device=part.device),
+                                     src.to(part.device))
 
     def reset_stream(self, s: int) -> None:
         """Recycle slot ``s`` for a new stream: a fresh native front-end (bit
         reservoir, sync state), a zeroed device state row and FIFO phase 0;
-        the other slots are untouched."""
+        the other slots are untouched, and a split state stays split."""
         self.decoders[s] = MP3Decoder(device=self.device)
         self.last_frame_reference_defined[s] = True
         self._vindex[s] = 0
         for a in self._state():
-            a[s] = 0
+            if isinstance(a, Sharded):
+                for part, (lo, hi) in zip(a.parts, a.block_rows()):
+                    if lo <= s < hi:
+                        part[s - lo] = 0
+            else:
+                a[s] = 0
 
     # ---------------------------------------------------------- checkpoint
     def get_state(self) -> dict:
@@ -203,7 +268,8 @@ class BatchedMP3Decoder:
         phases and the reference-UB flags. Restore with :meth:`set_state`
         into a ``BatchedMP3Decoder`` (of either package) of the same width;
         decoding then continues byte-identically to an uninterrupted run."""
-        state = self._state()
+        state = tuple(a.gather(self.device) if isinstance(a, Sharded) else a
+                      for a in self._state())
         pinned = self.device.type == "cuda"
         host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=pinned) for a in state]
         for h, a in zip(host, state):
@@ -218,7 +284,9 @@ class BatchedMP3Decoder:
 
     def set_state(self, state: dict) -> None:
         """Load a :meth:`get_state` snapshot (of either package) and upload
-        its device state to ``self.device``. A snapshot of another width
+        its device state to ``self.device`` (split over the mesh, if the
+        fleet has one: a snapshot moves between fleets with and without a
+        mesh). A snapshot of another width
         raises ``ValueError``, a bad native image ``RuntimeError``. An f32
         snapshot (the JAX package's ``fast`` tier mirrors the exact tier's
         integer values in f32) is rounded to int32 by value, as JAX's
@@ -235,7 +303,7 @@ class BatchedMP3Decoder:
                 a = np.rint(np.clip(a, -2 ** 31, 2 ** 31 - 1))
             if a.shape != shape:
                 raise ValueError(f"state array of shape {a.shape}, expected {shape}")
-            return torch.as_tensor(a.astype(np.int32), device=self.device)
+            return place(torch.as_tensor(a.astype(np.int32), device=self.device), self.mesh)
 
         self._over = upload(state["over"], (n, 2, 288), by_value=True)
         self._pt = upload(state["pt"], (n, 2))
@@ -303,7 +371,7 @@ class BatchedMP3Decoder:
         device state; commits the state and the FIFO phase. Returns (pcm,
         ref_undef) on the device."""
         pcm, new_state, ref_undef = mp3_pipeline.decode_granules_run(
-            *arrays, self._gather_state(streams), vindex)
+            *arrays, self._gather_state(streams), vindex, mesh=self._group_mesh(len(streams)))
         self._scatter_state(streams, new_state)
         new_vindex = mp3_pipeline._advance_vindex(vindex, arrays[0].shape[1])
         for s in streams:
@@ -382,7 +450,9 @@ class BatchedMP3Decoder:
         error-free fleet: one format group holding every stream) returns
         :class:`MP3DeviceRunResult`, ``(pcm_dev, consumed_list)`` with
         ``pcm_dev`` int16 ``[n_streams, run_samples]`` left on the device
-        for composition (``pcm_dev.view(torch.uint8)`` is the packed PCM).
+        for composition (``pcm_dev.view(torch.uint8)`` is the packed PCM;
+        with a mesh, :class:`~..parallel.mesh.Sharded` along the stream
+        axis, one block per device).
         A fleet that breaks those conditions raises ``ValueError`` and is
         left as it was before the call.
         """
@@ -549,8 +619,10 @@ class BatchedMP3Decoder:
             # stream-axis slices of about MP3_SLICE_PCM_BYTES of PCM each:
             # the host packs and uploads a slice while the card runs the last
             B = len(streams)
-            n_sl = max(1, -(-B * G * 576 * nch * 2 // transport.MP3_SLICE_PCM_BYTES))
-            per = -(-B // n_sl)
+            per = B   # under a mesh a group dispatches whole, as in the JAX package
+            if not is_split(self.mesh):
+                n_sl = max(1, -(-B * G * 576 * nch * 2 // transport.MP3_SLICE_PCM_BYTES))
+                per = -(-B // n_sl)
             for c0 in range(0, B, per):
                 chunk = streams[c0:c0 + per]
                 pcm, ref_undef = self._run_group(chunk, tuple(a[c0:c0 + per] for a in arrays),

@@ -21,6 +21,14 @@ Entry points take ``device``, ``"cuda"`` by default; without a card that
 raises, and nothing falls back. A slice uploads from pinned host memory
 with ``non_blocking=True`` on the current stream and, on the host-returning
 path, downloads into pinned memory; slices dispatch serially.
+
+With a stream ``mesh`` of more than one device (parallel/mesh.py) a bucket
+whose frame count divides the mesh size splits its frame axis into
+contiguous blocks, one per device, with one escape sideband per block
+(positions local to the block), and runs one frame-kernel launch per shard:
+the JAX package's ``_frame_kernel_esc_sharded``. Other buckets run on the
+mesh's first device, and the device-resident PCM of a stream group that
+divides the mesh comes back split along the stream axis.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.flac_kernels import ORDER_CLASSES, flac_frame_cuda
+from ..parallel.mesh import Sharded, _put, is_split, shard_streams, to_numpy as _to_host
 from ..runtime import transport
 from ..runtime.kernels import entry_device
 from ..runtime.native import host_lib
@@ -46,25 +55,6 @@ _i32p = C.POINTER(C.c_int32)
 # escape-density ceiling for choosing the int8 + sideband transport tier
 # (runtime/transport.py); tests force it to 0.0 / 1.0
 ESC_MAX_DENSITY = transport.ESC_MAX_DENSITY
-
-
-def _put(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``: on the card, through pinned
-    memory with a non-blocking copy on the current stream."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> numpy, downloading into pinned memory."""
-    if t.device.type == "cpu":
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
-    return host.numpy()
 
 
 def _order_class(orders) -> int:
@@ -299,7 +289,7 @@ def _frame_shape_key(g, fi, m32):
             bool(g.use64[fi].any()), m32)
 
 
-def _bucket_operands(g, rows, frs, bkey):
+def _bucket_operands(g, rows, frs, bkey, n_blocks: int = 1):
     """Host operands of one shape bucket: ``(arrays, kw)`` with arrays the
     residual plane ``[F, C, bs]`` and coeffs, order, shift, wasted, chan
     assignment, and kw the frame kernel's keyword arguments.
@@ -307,7 +297,10 @@ def _bucket_operands(g, rows, frs, bkey):
     int16 buckets whose words are int8-sized except for rare escapes take
     the int8 + escape-sideband transport tier: the plane ships at half
     width, and kw carries the sorted escape positions and values that the
-    kernel puts back."""
+    kernel puts back, one row ``[n_blocks, cap]`` per contiguous block of
+    frames (``F`` divisible by ``n_blocks``), positions local to the block
+    (``transport.escape_sideband_blocked``): block ``i`` is the sideband of
+    the launch on frames ``[i F/n, (i+1) F/n)``."""
     ((nch, mbs), bs, depth, wide, acc64, m32) = bkey
     src = (g.data8, g.data16, g.data32)[wide]
     data = src[rows] if bs == mbs else src[rows][:, :, :bs]
@@ -318,21 +311,30 @@ def _bucket_operands(g, rows, frs, bkey):
         narrow = data.astype(np.int8)          # wraps exactly where a word escapes
         esc_mask = narrow != data
         if np.count_nonzero(esc_mask) <= ESC_MAX_DENSITY * data.size:
-            flat = np.flatnonzero(esc_mask)
-            kw["esc_pos"], kw["esc_val"] = transport.escape_sideband(
-                flat, data.reshape(-1)[flat], oob_index=data.size, val_dtype=np.int32)
+            kw["esc_pos"], kw["esc_val"] = transport.escape_sideband_blocked(
+                esc_mask.reshape(n_blocks, -1), data.reshape(n_blocks, -1), np.int32)
             arrays[0] = narrow
     return arrays, kw
 
 
-def _run_frame_bucket(g, rows, frs, bkey, device):
+def _run_frame_bucket(g, rows, frs, bkey, device, mesh=None):
     """Dispatch one shape bucket through the frame kernel on ``device``;
-    returns the packed PCM ``[len(rows), bytes]`` there."""
-    arrays, kw = _bucket_operands(g, rows, frs, bkey)
-    for name in ("esc_pos", "esc_val"):
-        if name in kw:
-            kw[name] = _put(kw[name], device)
-    return flac_frame_cuda(*(_put(a, device) for a in arrays), **kw)
+    returns the packed PCM ``[len(rows), bytes]`` there.
+
+    Under a mesh that splits (``is_split``) and a frame count that divides
+    its size, the frames split into contiguous blocks, each with its own
+    escape sideband, and the kernel launches once per shard on the shard's
+    device: the result is :class:`Sharded` along the frame axis. Otherwise
+    the bucket is one block on ``device``."""
+    split = is_split(mesh) and len(rows) % mesh.size == 0
+    devices = mesh.devices if split else (device,)
+    arrays, kw = _bucket_operands(g, rows, frs, bkey, n_blocks=len(devices))
+    esc = {name: kw.pop(name) for name in ("esc_pos", "esc_val") if name in kw}
+    blk = len(rows) // len(devices)
+    parts = [flac_frame_cuda(*(_put(a[i * blk:(i + 1) * blk], dev) for a in arrays), **kw,
+                             **{name: _put(v[i], dev) for name, v in esc.items()})
+             for i, dev in enumerate(devices)]
+    return Sharded(parts, 0, mesh) if split else parts[0]
 
 
 def parsed_buckets(decoders, buffers):
@@ -349,12 +351,20 @@ def parsed_buckets(decoders, buffers):
     for bkey, frs in buckets.items():
         g = groups[bkey[0]]
         frs = np.asarray(frs, np.int64)
-        yield (bkey, *_bucket_operands(g, g.slot[frs], frs, bkey))
+        arrays, kw = _bucket_operands(g, g.slot[frs], frs, bkey)
+        for name in ("esc_pos", "esc_val"):
+            if name in kw:
+                kw[name] = kw[name][0]      # the one block's sideband
+        yield bkey, arrays, kw
 
 
-def _decode_streams(decoders, buffers, verify_md5: bool = True, device="cuda"):
+def _decode_streams(decoders, buffers, verify_md5: bool = True, device="cuda", mesh=None):
     """Shared end-to-end path for 1..N streams: native batched host parse,
     cross-stream shape-bucketed device kernels, per-stream reassembly.
+
+    ``mesh``: an optional stream mesh (see :func:`_run_frame_bucket`). Under
+    a mesh of more than one device the buckets stay whole (no slicing), as
+    in the JAX package, so that each can split over the mesh.
 
     The host parse signals per completed stream (overlapped with dispatch
     for fleets); the main thread buckets each completed stream's frames by
@@ -367,6 +377,7 @@ def _decode_streams(decoders, buffers, verify_md5: bool = True, device="cuda"):
     ``FLACDecoder.decode_stream`` / ``BatchedFLACDecoder.decode_streams``.
     """
     dev = entry_device(device, "FLAC decode")
+    split = is_split(mesh)
     n = len(decoders)
     assert len(buffers) == n
     groups: dict = {}
@@ -382,7 +393,7 @@ def _decode_streams(decoders, buffers, verify_md5: bool = True, device="cuda"):
         g = groups[bkey[0]]
         rows = np.fromiter((g.slot[fi] for _, _, fi in sl), np.int64, len(sl))
         frs = np.fromiter((fi for _, _, fi in sl), np.int64, len(sl))
-        packed_np = _to_host(_run_frame_bucket(g, rows, frs, bkey, dev))
+        packed_np = _to_host(_run_frame_bucket(g, rows, frs, bkey, dev, mesh))
         for k, (s, j, _) in enumerate(sl):
             out_chunks[s][j] = packed_np[k]
 
@@ -397,12 +408,14 @@ def _decode_streams(decoders, buffers, verify_md5: bool = True, device="cuda"):
                 bkey = _frame_shape_key(groups[key], fi, m32)
                 sl = buckets.setdefault(bkey, [])
                 sl.append((s, j, fi))
+                if split:
+                    continue   # buckets stay whole, to split over the mesh
                 ((nch, _mbs), bs, depth, _wide, _acc64, bm32) = bkey
                 bps = 4 if bm32 else (depth + 7) // 8
                 if len(sl) * bs * nch * bps >= transport.SLICE_OUT_BYTES:
                     buckets[bkey] = []
                     _run_slice(bkey, sl)
-        for bkey, sl in buckets.items():   # tails
+        for bkey, sl in buckets.items():   # tails (and whole buckets under a mesh)
             if sl:
                 _run_slice(bkey, sl)
 
@@ -432,21 +445,22 @@ class _FleetSig:
 
     __slots__ = ("keys", "bucket_js", "chunk_outs", "ready", "chunk_n", "stream_ids")
 
-    def __init__(self, keys):
+    def __init__(self, keys, n, split):
         self.keys = keys
         self.bucket_js = {}
         for bkey in dict.fromkeys(keys):
             self.bucket_js[bkey] = [j for j, k in enumerate(keys) if k == bkey]
         # chunk streams so each dispatch round moves about one transport
-        # slice of PCM bytes
+        # slice of PCM bytes; under a mesh the group dispatches whole
         stream_bytes = sum(k[1] * k[0][0] * (4 if k[5] else (k[2] + 7) // 8) for k in keys)
-        self.chunk_n = max(1, transport.SLICE_OUT_BYTES // max(1, stream_bytes))
+        self.chunk_n = n if split else max(
+            1, transport.SLICE_OUT_BYTES // max(1, stream_bytes))
         self.chunk_outs = {}   # bkey -> [chunk, len(js), bytes] device tensors
         self.ready = []        # parsed, not-yet-dispatched stream ids
         self.stream_ids = []   # all stream ids, dispatch order
 
 
-def decode_streams_to_device_grouped(decoders, buffers, device="cuda"):
+def decode_streams_to_device_grouped(decoders, buffers, device="cuda", mesh=None):
     """Fleet decode with the PCM left on ``device``, for an arbitrary
     (possibly mixed) fleet: the composition path (decode -> resample without
     a host round trip).
@@ -462,8 +476,15 @@ def decode_streams_to_device_grouped(decoders, buffers, device="cuda"):
       consumes).
     - ``results``: per-stream metadata (``decode_streams`` without
       ``md5_ok``: the bytes never reach the host).
+
+    With a ``mesh`` of more than one device each group dispatches whole,
+    its buckets split over the mesh (:func:`_run_frame_bucket`), and the
+    PCM of a group whose stream count divides the mesh size comes back
+    :class:`Sharded` along the stream axis, ready for a ``Resampler`` on the
+    same mesh; other groups' PCM lands on ``device``.
     """
     dev = entry_device(device, "FLAC decode")
+    split = is_split(mesh)
     n = len(decoders)
     groups: dict = {}
     codes = [[] for _ in buffers]
@@ -480,9 +501,15 @@ def decode_streams_to_device_grouped(decoders, buffers, device="cuda"):
                                np.int64, len(streams_chunk) * len(js))
             frs = np.fromiter((frames_of[s][j][1] for s in streams_chunk for j in js),
                               np.int64, len(streams_chunk) * len(js))
-            packed = _run_frame_bucket(g, rows, frs, bkey, dev)
-            st.chunk_outs.setdefault(bkey, []).append(
-                packed.reshape(len(streams_chunk), len(js), -1))
+            packed = _run_frame_bucket(g, rows, frs, bkey, dev, mesh)
+            if isinstance(packed, Sharded) and len(streams_chunk) % mesh.size == 0:
+                # each shard's block holds whole streams
+                packed = packed.map(lambda p: p.reshape(-1, len(js), p.shape[-1]))
+            else:
+                if isinstance(packed, Sharded):
+                    packed = packed.gather(dev)
+                packed = packed.reshape(len(streams_chunk), len(js), -1)
+            st.chunk_outs.setdefault(bkey, []).append(packed)
 
     with transport.overlapped_parse(_parse_call, n) as done_q:
         while True:
@@ -494,7 +521,7 @@ def decode_streams_to_device_grouped(decoders, buffers, device="cuda"):
             sig = (m32, tuple(keys))
             st = sigs.get(sig)
             if st is None:
-                st = sigs[sig] = _FleetSig(keys)
+                st = sigs[sig] = _FleetSig(keys, n, split)
             st.stream_ids.append(s)
             st.ready.append(s)
             if len(st.ready) >= st.chunk_n:
@@ -517,13 +544,21 @@ def decode_streams_to_device_grouped(decoders, buffers, device="cuda"):
             continue
         # stitch chunk rows (stream-major, dispatch order) and per-frame
         # segments back into stream x frame order on the device
-        segs = [None] * F
-        for bkey, js in st.bucket_js.items():
-            outs = st.chunk_outs[bkey]
-            blk = outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
-            for k, j in enumerate(js):
-                segs[j] = blk[:, k]
-        pcm_dev = torch.cat(segs, dim=1) if F > 1 else segs[0].contiguous()
+        def stitch(blocks):
+            segs = [None] * F
+            for bkey, js in st.bucket_js.items():
+                for k, j in enumerate(js):
+                    segs[j] = blocks[bkey][:, k]
+            return torch.cat(segs, dim=1) if F > 1 else segs[0].contiguous()
+
+        outs = {bkey: o[0] if len(o) == 1 else torch.cat(o, dim=0)
+                for bkey, o in st.chunk_outs.items()}
+        first = next(iter(outs.values()))
+        if isinstance(first, Sharded):   # every bucket split by whole streams
+            pcm_dev = Sharded([stitch({b: o.parts[i] for b, o in outs.items()})
+                               for i in range(mesh.size)], 0, mesh)
+        else:
+            pcm_dev = stitch(outs)
         group_list.append((st.stream_ids, pcm_dev))
 
     results = []
@@ -535,14 +570,16 @@ def decode_streams_to_device_grouped(decoders, buffers, device="cuda"):
     return group_list, results
 
 
-def decode_streams_to_device(decoders, buffers, device="cuda"):
+def decode_streams_to_device(decoders, buffers, device="cuda", mesh=None):
     """Uniform-fleet wrapper over :func:`decode_streams_to_device_grouped`:
     returns ``(pcm_dev, results)`` with ``pcm_dev`` one uint8 tensor
-    ``[n_streams, stream_bytes]`` on ``device`` (rows in stream order). A
-    fleet with more than one frame-shape signature raises: call the grouped
-    variant for a mixed fleet.
+    ``[n_streams, stream_bytes]`` on ``device`` (rows in stream order;
+    :class:`Sharded` along the stream axis when the fleet divides a mesh of
+    more than one device). A fleet with more than one frame-shape signature
+    raises: call the grouped variant for a mixed fleet.
     """
-    group_list, results = decode_streams_to_device_grouped(decoders, buffers, device=device)
+    group_list, results = decode_streams_to_device_grouped(decoders, buffers, device=device,
+                                                           mesh=mesh)
     if len(group_list) != 1:
         raise ValueError(
             "decode_streams_to_device requires a uniform fleet (same "
@@ -551,7 +588,9 @@ def decode_streams_to_device(decoders, buffers, device="cuda"):
             "decode_streams_to_device_grouped for per-group device PCM")
     ids, pcm_dev = group_list[0]
     if ids != list(range(len(decoders))):
-        pcm_dev = pcm_dev[torch.as_tensor(np.argsort(ids), device=pcm_dev.device)]
+        whole = pcm_dev.gather() if isinstance(pcm_dev, Sharded) else pcm_dev
+        whole = whole[torch.as_tensor(np.argsort(ids), device=whole.device)]
+        pcm_dev = shard_streams(whole, mesh) if isinstance(pcm_dev, Sharded) else whole
     return pcm_dev, results
 
 

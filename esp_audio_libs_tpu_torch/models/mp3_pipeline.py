@@ -11,6 +11,13 @@ hand-written kernel ``ops.mp3_kernels.mp3_granules_cuda``
 from granule to granule on the card. On CPU tensors the same call runs its
 plain version, a loop of :func:`_granule_body` over the granules.
 
+With a stream ``mesh`` of more than one device (parallel/mesh.py) a run's
+streams split into contiguous blocks, one per device: the spectra and side
+rows are cut along their stream axis (axis 1 of ``[G, B, ...]``), each
+block gets its own escape sideband with block-local positions
+(:func:`_pack_huff8_sharded`), the carried state stays split, and the
+granule kernel launches once per shard.
+
 The JAX package's relaxed-precision tiers (``fast``, ``mxu``) are not
 ported: they are within 1 LSB only and were slower than this tier.
 """
@@ -22,6 +29,7 @@ import torch
 
 from ..ops import mp3dsp, mp3imdct, mp3subband
 from ..ops.mp3_kernels import mp3_granules_cuda
+from ..parallel.mesh import Sharded, is_split, shard_streams, shard_streams_axis
 from ..runtime import transport
 from ..runtime.tables import mp3_tables
 from .flac import _put, _to_host
@@ -49,25 +57,39 @@ def _pack_huff16(huff_np: np.ndarray) -> np.ndarray:
     return (((h & 0x7FFF) | ((h >> 16) & 0x8000)).astype(np.uint16)).view(np.int16)
 
 
-def _pack_huff8(huff16: np.ndarray):
-    """Narrow an int16-packed spectral plane (see ``_pack_huff16``) to int8
-    plus a sparse escape sideband, if the escapes are rare enough.
+def _pack_huff8_sharded(huff16: np.ndarray, n_shards: int):
+    """Narrow a stacked int16-packed spectral plane ``[G, B, ...]`` (see
+    ``_pack_huff16``) to int8 plus sparse escape sidebands, if the escapes
+    are rare enough.
 
     The sign moves from bit 15 to bit 7; magnitudes above 127 ship as
-    (flat position, packed int16 value) pairs that :func:`_esc_fixup_flat`
-    puts back on the device. Returns ``(plane8, esc_pos, esc_val)``, or
-    ``None`` when the escape density exceeds ``ESC_MAX_DENSITY``.
-    """
+    (position, packed int16 value) pairs that :func:`_esc_fixup_flat` puts
+    back on the device. The stream axis (axis 1) splits into ``n_shards``
+    contiguous blocks, one per launch, and each block gets its own sideband
+    row with positions local to the block, in the block's granule-major
+    flat order, so that each launch's fixup touches its own block only (one
+    block: the plane's flat positions). Returns ``(plane8, pos [S, cap],
+    val [S, cap])``, or ``None`` when the escape density exceeds
+    ``ESC_MAX_DENSITY``."""
+    G, B = huff16.shape[:2]
     u = huff16.view(np.uint16)
     mag = u & 0x7FFF
     esc = mag > 127
     if int(np.count_nonzero(esc)) > ESC_MAX_DENSITY * huff16.size:
         return None
     plane8 = ((mag & 0x7F) | ((u >> 8) & 0x80)).astype(np.uint8).view(np.int8)
-    flat = np.flatnonzero(esc.reshape(-1))
-    pos, val = transport.escape_sideband(flat, huff16.reshape(-1)[flat],
-                                         oob_index=huff16.size, val_dtype=np.int16)
+    blk = (B // n_shards) * int(np.prod(huff16.shape[2:]))
+    mask2 = esc.reshape(G, n_shards, blk).swapaxes(0, 1).reshape(n_shards, -1)
+    vals2 = huff16.reshape(G, n_shards, blk).swapaxes(0, 1).reshape(n_shards, -1)
+    pos, val = transport.escape_sideband_blocked(mask2, vals2, np.int16)
     return plane8, pos, val
+
+
+def _pack_huff8(huff16: np.ndarray):
+    """:func:`_pack_huff8_sharded` of one block: ``(plane8, esc_pos [cap],
+    esc_val [cap])`` with flat positions, or ``None``."""
+    narrowed = _pack_huff8_sharded(huff16, 1)
+    return None if narrowed is None else (narrowed[0], narrowed[1][0], narrowed[2][0])
 
 
 def _granule_body(huff_g, nzb_in, compact, maps, over, prev_type, prev_win_switch, num_prev,
@@ -254,7 +276,7 @@ def run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g):
     return (ver, sr_idx, nch, cutoff), huff_gs, side_gs
 
 
-def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vindex):
+def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vindex, mesh=None):
     """Synthesize a run of G granules (any mix of frames) for B
     format-uniform streams: one upload and one scan.
 
@@ -263,23 +285,45 @@ def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vind
     Streams share (version, samplerate index, nChans) and the starting
     ``vindex``. The scan runs on ``dev_state``'s device.
 
+    Under a mesh that splits (``is_split``; B divisible by its size), block
+    ``i`` of the streams goes to ``mesh.devices[i]`` with its own escape
+    sideband and its block of the carried state, and the scan runs once per
+    shard: every result is :class:`Sharded` along the stream axis;
+    ``dev_state`` should already be split so (``BatchedMP3Decoder`` keeps
+    it so). Without one the run is one block on ``dev_state``'s device.
+
     Returns (pcm [B, G * 576 * nch], new dev_state, ref_undef bool [B]).
     """
     B, G = huff_g.shape[:2]
-    dev = dev_state[0].device
+    split = is_split(mesh)
     if G == 0:
+        dev = mesh.devices[0] if split else dev_state[0].device
         return (torch.zeros((B, 0), dtype=torch.int16, device=dev), tuple(dev_state),
                 torch.zeros(B, dtype=torch.bool, device=dev))
     fmt, huff_gs, side_gs = run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g)
-    side_dev = _put(side_gs, dev)
-    narrowed = _pack_huff8(huff_gs)
+    if split:   # block i of the streams (axis 1 of the run tensors) on devices[i]
+        devices = mesh.devices
+        blocks = lambda x: shard_streams_axis(x, 1, mesh).parts
+        split_state = tuple(shard_streams(t, mesh) for t in dev_state)
+        states = [tuple(t.parts[i] for t in split_state) for i in range(mesh.size)]
+    else:
+        devices = (dev_state[0].device,)
+        blocks = lambda x: [_put(x, devices[0])]
+        states = [tuple(dev_state)]
+    narrowed = _pack_huff8_sharded(huff_gs, len(devices))
     if narrowed is not None:
         plane8, esc_pos, esc_val = narrowed
-        pcm_gs, new_state, ref_undef = _granules_scan_esc_for(*fmt)(
-            _put(plane8, dev), _put(esc_pos, dev), _put(esc_val, dev), side_dev,
-            *dev_state, vindex)
+        scan = _granules_scan_esc_for(*fmt)
+        operands = [(p, _put(esc_pos[i], d), _put(esc_val[i], d), side) for i, (d, p, side)
+                    in enumerate(zip(devices, blocks(plane8), blocks(side_gs)))]
     else:
-        pcm_gs, new_state, ref_undef = _granules_scan_for(*fmt)(
-            _put(huff_gs, dev), side_dev, *dev_state, vindex)
-    # [G, B, 576 * nch] -> [B, G * 576 * nch]
-    return pcm_gs.transpose(0, 1).reshape(B, -1), new_state, ref_undef
+        scan = _granules_scan_for(*fmt)
+        operands = list(zip(blocks(huff_gs), blocks(side_gs)))
+    outs = [scan(*ops, *state, vindex) for ops, state in zip(operands, states)]
+    # [G, b, 576 * nch] -> [b, G * 576 * nch] per block
+    pcm = [o[0].transpose(0, 1).reshape(o[0].shape[1], -1) for o in outs]
+    if not split:
+        return pcm[0], outs[0][1], outs[0][2]
+    return (Sharded(pcm, 0, mesh), tuple(Sharded([o[1][k] for o in outs], 0, mesh)
+                                         for k in range(5)),
+            Sharded([o[2] for o in outs], 0, mesh))

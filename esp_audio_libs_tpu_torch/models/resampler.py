@@ -21,6 +21,15 @@ polyphase_banded_cuda) -> post-filter conv through the same kernel
 (``EAL_RESAMPLE_FUSED16=1``) swaps the f32 contraction and quantize for the
 fused int16 kernel.
 
+With a ``mesh`` of more than one device (parallel/mesh.py) every per-stream
+tensor (the packed input, the history, the biquad states, the post-filter
+tail, the outputs) is split along the stream axis, one block per device:
+the weight tiles are built once per chunk and each contraction launches once
+per shard through ``polyphase_banded_sharded`` /
+``polyphase_fused16_sharded``; exact mode runs its biquad and polyphase
+kernels per shard. The JAX package's ``mesh`` argument does the same with
+``jax.sharding``.
+
 The host runs only the f32 phase-grid control plane; all per-stream state
 lives in tensors on the Resampler's device.
 """
@@ -28,6 +37,7 @@ lives in tensors on the Resampler's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -38,7 +48,9 @@ from ..ops import biquad as bq
 from ..ops import quantization as q
 from ..ops import sinc
 from ..ops.polyphase import TILE, banded_K, banded_weights_device, polyphase_apply
-from ..ops.polyphase_kernels import polyphase_banded_cuda, polyphase_fused16_cuda
+from ..ops.polyphase_kernels import (polyphase_banded_cuda, polyphase_banded_sharded,
+                                     polyphase_fused16_cuda, polyphase_fused16_sharded)
+from ..parallel.mesh import Sharded, is_split, place, shard_streams, to_numpy
 from ..runtime.kernels import entry_device
 from ..runtime.native import design_filterbank_native
 from ..runtime.phase_grid import HISTORY_MARGIN, PhaseState, phase_grid, required_samples
@@ -75,9 +87,64 @@ class ResamplerResults:
     clipped_samples: np.ndarray  # uint32 [batch]
 
 
-def _clip_counts(per_stream: torch.Tensor) -> np.ndarray:
-    """int64 device counts -> uint32 numpy at the API edge."""
-    return per_stream.cpu().numpy().astype(np.uint32)
+def _clip_counts(per_stream) -> np.ndarray:
+    """int64 device counts (a tensor, or split over a mesh) -> uint32 numpy
+    at the API edge."""
+    return to_numpy(per_stream).astype(np.uint32)
+
+
+def _mesh_of(tree):
+    """The mesh of the first :class:`Sharded` leaf of nested lists and
+    tuples, or None."""
+    if isinstance(tree, Sharded):
+        return tree.mesh
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            m = _mesh_of(t)
+            if m is not None:
+                return m
+    return None
+
+
+def _shard_view(tree, i: int):
+    """Shard ``i`` of nested lists and tuples: each Sharded leaf becomes its
+    block ``i``; other leaves pass as they are."""
+    if isinstance(tree, Sharded):
+        return tree.parts[i]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_shard_view(t, i) for t in tree)
+    return tree
+
+
+def _join(per_shard: list, mesh):
+    """The inverse of :func:`_shard_view`: per-shard nested results, one
+    structure whose tensor leaves are Sharded along axis 0."""
+    first = per_shard[0]
+    if isinstance(first, torch.Tensor):
+        return Sharded(per_shard, 0, mesh)
+    if isinstance(first, (list, tuple)):
+        return type(first)(_join([p[k] for p in per_shard], mesh) for k in range(len(first)))
+    return first
+
+
+def _each(fn, *args):
+    """``fn`` on the stream blocks: once per shard when an argument holds a
+    :class:`Sharded` leaf (block ``i`` of every such leaf, other arguments
+    whole), the results joined along axis 0; a plain call otherwise."""
+    mesh = _mesh_of(args)
+    if mesh is None:
+        return fn(*args)
+    return _join([fn(*_shard_view(args, i)) for i in range(mesh.size)], mesh)
+
+
+def _stack_chunks(items):
+    """Per-chunk ``[B, ...]`` results -> ``[chunks, B, ...]``; split results
+    stay split, along the stream axis 1."""
+    if isinstance(items[0], Sharded):
+        mesh = items[0].mesh
+        return Sharded([torch.stack([it.parts[i] for it in items]) for i in range(mesh.size)],
+                       1, mesh)
+    return torch.stack(items)
 
 
 class Resampler:
@@ -90,13 +157,50 @@ class Resampler:
       device: where every stream's state lives and the work runs: ``"cuda"``
         (the default: the hand-written kernels) or ``"cpu"`` (their plain
         versions). ``"cuda"`` without a usable card raises; nothing falls back.
+      mesh: optional stream mesh (``parallel.mesh.stream_mesh``) of
+        ``device``'s type. With more than one device, every per-stream
+        tensor is split along the stream axis over it and each kernel
+        launches once per shard; ``batch`` must divide evenly over it. A
+        one-device mesh takes the single-device route on that device.
     """
 
-    def __init__(self, batch: int, *, exact: bool = True, device="cuda"):
+    def __init__(self, batch: int, *, exact: bool = True, device="cuda", mesh=None):
         self.device = entry_device(device, "Resampler")
+        if mesh is not None:
+            if mesh.type != self.device.type:
+                raise ValueError(f"Resampler(device={str(self.device)!r}) on a {mesh.type} mesh")
+            if batch % mesh.size:
+                raise ValueError(
+                    f"batch {batch} must divide evenly over the {mesh.size}-device mesh")
+            self.device = mesh.devices[0]
+        self.mesh = mesh
+        self._copies = {}
         self.batch = batch
         self.exact = exact
         self._initialized = False
+
+    def _on(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        """A constant tensor of this instance on ``dev``: itself on its own
+        device, else one copy per device, made once."""
+        if t.device == dev:
+            return t
+        hit = self._copies.get((id(t), dev))
+        if hit is None or hit[0] is not t:
+            hit = self._copies[id(t), dev] = (t, t.to(dev))
+        return hit[1]
+
+    def _poly(self):
+        """The banded contraction of this instance: the single-device kernel,
+        or its sharded form under a mesh of more than one device."""
+        if is_split(self.mesh):
+            return functools.partial(polyphase_banded_sharded, mesh=self.mesh)
+        return polyphase_banded_cuda
+
+    def _poly16(self):
+        """The fused int16 contraction, chosen as :meth:`_poly` chooses."""
+        if is_split(self.mesh):
+            return functools.partial(polyphase_fused16_sharded, mesh=self.mesh)
+        return polyphase_fused16_cuda
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -143,7 +247,8 @@ class Resampler:
                 # get_state/set_state keep the JAX package's checkpoint keys.
                 self._coeffs_dev = torch.as_tensor(self.lowpass_coeffs, device=self.device)
                 self._biquad_state = [
-                    bq.BiquadState.zeros((self.batch, self.channels), device=self.device)
+                    tuple(place(t, self.mesh) for t in
+                          bq.BiquadState.zeros((self.batch, self.channels), device=self.device))
                     for _ in range(2)]
 
             if self.sample_ratio < 1.0:
@@ -168,7 +273,7 @@ class Resampler:
             self.hist_len = taps + HISTORY_MARGIN + self._fold_offset
             self.phase = PhaseState.initial(taps)
             self.phase.advance(taps / 2.0)
-            self.history = self._zeros(self.batch, self.channels, self.hist_len)
+            self.history = place(self._zeros(self.batch, self.channels, self.hist_len), self.mesh)
 
         # True while the carried history was produced under gain_db == 0
         # (zeros qualify): the fused int16 tier reconstructs raw samples as
@@ -213,33 +318,35 @@ class Resampler:
             for j in range(TILE):
                 W2[j:j + Lh, j] = row
             self._post_W2 = torch.as_tensor(W2, device=self.device)
-            self._post_hist = self._zeros(self.batch, self.channels, self._post_Hlen)
+            self._post_hist = place(self._zeros(self.batch, self.channels, self._post_Hlen),
+                                    self.mesh)
 
     # -------------------------------------------------------- checkpointing
     def get_state(self) -> dict:
         """Serializable snapshot of the carried stream state, with the keys
         and dtypes of the JAX package's ``Resampler.get_state``. Restore into
-        an identically initialized Resampler (of either package) with
-        :meth:`set_state`."""
+        an identically initialized Resampler (of either package, with or
+        without a mesh) with :meth:`set_state`. Split state is gathered."""
         if not self._initialized:
             raise RuntimeError("Resampler.initialize() first")
+        host = to_numpy
         st = {}
         if self.requires_resampling:
             st["phase_offset"] = np.float32(self.phase.offset)
             st["phase_input_index"] = int(self.phase.input_index)
-            st["history"] = self.history.cpu().numpy()
+            st["history"] = host(self.history)
         if self.pre_filter or self.post_filter:
-            st["biquad"] = [tuple(s.cpu().numpy() for s in stage)
-                            for stage in self._biquad_state]
+            st["biquad"] = [tuple(host(s) for s in stage) for stage in self._biquad_state]
         if self._post_hist is not None:
-            st["post_hist"] = self._post_hist.cpu().numpy()
+            st["post_hist"] = host(self._post_hist)
         st["hist_gain_zero"] = bool(self._hist_gain_zero)
         return st
 
     def set_state(self, st: dict) -> None:
         if not self._initialized:
             raise RuntimeError("Resampler.initialize() first")
-        as_dev = lambda a: torch.as_tensor(np.array(a, np.float32), device=self.device)
+        as_dev = lambda a: place(torch.as_tensor(np.array(a, np.float32), device=self.device),
+                                 self.mesh)
         if self.requires_resampling:
             self.phase.offset = np.float32(st["phase_offset"])
             self.phase.input_index = int(st["phase_input_index"])
@@ -253,7 +360,15 @@ class Resampler:
         self._hist_gain_zero = bool(st.get("hist_gain_zero", False))
 
     # ------------------------------------------------------------------ core
-    def _to_device(self, input_bytes) -> torch.Tensor:
+    def _to_device(self, input_bytes):
+        """The packed input on the device, split over the mesh if there is
+        one (a :class:`Sharded` input split the same way stays as it is)."""
+        if is_split(self.mesh):
+            if not isinstance(input_bytes, Sharded):
+                input_bytes = torch.as_tensor(input_bytes, dtype=torch.uint8)
+            return shard_streams(input_bytes, self.mesh)
+        if isinstance(input_bytes, Sharded):
+            input_bytes = input_bytes.gather(self.device)
         return torch.as_tensor(input_bytes, dtype=torch.uint8, device=self.device)
 
     def resample(self, input_bytes, input_frames_available: int,
@@ -279,14 +394,15 @@ class Resampler:
 
         bps_in = q.bytes_per_sample(self.input_bits)
         factor = q.gain_factor(self.input_bits, gain_db)
-        data = self._to_device(input_bytes)[:, : frames * ch * bps_in]
+        data = _each(lambda d: d[:, : frames * ch * bps_in], self._to_device(input_bytes))
 
         if not self.requires_resampling:
-            x = q.int_to_float(q.unpack_pcm(data, self.input_bits), factor)
-            samples, clipped = q.float_to_int(x, self.output_bits)
-            per_stream = clipped.sum(-1, dtype=torch.int64)
-            return q.pack_pcm(samples, self.output_bits), ResamplerResults(
-                frames, frames, frames, _clip_counts(per_stream))
+            def passthrough(d):
+                x = q.int_to_float(q.unpack_pcm(d, self.input_bits), factor)
+                samples, clipped = q.float_to_int(x, self.output_bits)
+                return q.pack_pcm(samples, self.output_bits), clipped.sum(-1, dtype=torch.int64)
+            packed, per_stream = _each(passthrough, data)
+            return packed, ResamplerResults(frames, frames, frames, _clip_counts(per_stream))
 
         # compute the schedule on a SCRATCH phase and commit it only after
         # the device work was issued without error: phase_grid advances its
@@ -299,13 +415,17 @@ class Resampler:
         if self.exact:
             # gen is host-known: post-filter and quantize only the generated
             # samples, as the reference does
-            xc = self._unpack(data, factor, frames)
-            out, history, states = self._exact_chunk(
-                xc, self.history, self._biquad_states(),
-                self._exact_grids([grid], output_frames_free)[0], hist_from=grid.input_used)
-            if self.post_filter:
-                out, states = self._exact_post(out[..., :gen], states, None)
-            packed, per_stream = self._quantize(out[..., :gen], gen, gen)
+            grid_t = self._exact_grids([grid], output_frames_free)[0]
+
+            def step(d, hist, states):
+                out, hist, states = self._exact_chunk(self._unpack(d, factor, frames), hist,
+                                                      states, grid_t, hist_from=grid.input_used)
+                if self.post_filter:
+                    out, states = self._exact_post(out[..., :gen], states, None)
+                return (*self._quantize(out[..., :gen], gen, gen), hist, states)
+
+            packed, per_stream, history, states = _each(step, data, self.history,
+                                                        self._biquad_states())
             self.history = history
             if self.pre_filter or self.post_filter:
                 self._biquad_state = states
@@ -318,7 +438,7 @@ class Resampler:
         self.phase = phase
         self._hist_gain_zero = gain_db == 0.0
         bps_out = q.bytes_per_sample(self.output_bits)
-        return packed[:, : gen * ch * bps_out], ResamplerResults(
+        return _each(lambda p: p[:, : gen * ch * bps_out], packed), ResamplerResults(
             frames_used=grid.input_used,
             frames_generated=gen,
             predicted_frames_used=frames,
@@ -349,27 +469,32 @@ class Resampler:
         return list(self._biquad_state) if (self.pre_filter or self.post_filter) else []
 
     def _exact_chunk(self, xc, hist, states, grid_t, *, hist_from: int):
-        """One chunk of exact mode up to the polyphase output: the two exact
-        pre-filter stages (downsampling), then the ordered-dot kernel over
-        history + chunk. ``hist_from`` is the number of input frames
-        consumed. Returns (out f32 [B, ch, n], new history, biquad states)."""
+        """One chunk of exact mode up to the polyphase output, on one block
+        of streams: the two exact pre-filter stages (downsampling), then the
+        ordered-dot kernel over history + chunk, with the constants and the
+        grid on the block's device. ``hist_from`` is the number of input
+        frames consumed. Returns (out f32 [B, ch, n], new history, biquad
+        states)."""
+        dev = xc.device
         states = list(states)
         if self.pre_filter:
             for stage in range(2):
-                xc, states[stage] = bq.biquad_apply(xc, self._coeffs_dev, states[stage],
-                                                    exact=True)
+                xc, states[stage] = bq.biquad_apply(xc, self._on(self._coeffs_dev, dev),
+                                                    states[stage], exact=True)
         xext = torch.cat([hist, xc], dim=-1)
         new_hist = xext[..., hist_from:hist_from + self.hist_len].clone()
-        out = polyphase_apply(xext, self._filters, *grid_t, half=self.config.number_of_taps // 2,
-                              exact=True,
+        out = polyphase_apply(xext, self._on(self._filters, dev), *(g.to(dev) for g in grid_t),
+                              half=self.config.number_of_taps // 2, exact=True,
                               compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
         return out, new_hist, states
 
     def _exact_post(self, out, states, valid_len):
-        """The two exact post-filter stages (upsampling)."""
+        """The two exact post-filter stages (upsampling), on one block of
+        streams."""
         states = list(states)
+        coeffs = self._on(self._coeffs_dev, out.device)
         for stage in range(2):
-            out, states[stage] = bq.biquad_apply(out, self._coeffs_dev, states[stage],
+            out, states[stage] = bq.biquad_apply(out, coeffs, states[stage],
                                                  exact=True, valid_len=valid_len)
         return out, states
 
@@ -429,12 +554,15 @@ class Resampler:
         Hlen, K2 = self._post_Hlen, self._post_K
         nt2 = -(-out_max // TILE)
         L2 = _ceil_to(Hlen + out_max + K2, TILE)
-        xe = torch.cat([oh, out], dim=-1)
-        new_oh = xe[..., gen:gen + Hlen].clone()
-        xe = F.pad(xe, (0, L2 - Hlen - out_max))
+
+        def extend(o, h):
+            xe = torch.cat([h, o], dim=-1)
+            return F.pad(xe, (0, L2 - Hlen - out_max)), xe[..., gen:gen + Hlen].clone()
+
+        xe, new_oh = _each(extend, out, oh)
         starts2 = torch.arange(nt2, dtype=torch.int32, device=self.device) * TILE
         Wt2 = self._post_W2[None].expand(nt2, K2, TILE)
-        return polyphase_banded_cuda(xe, Wt2, starts2, T=out_max), new_oh
+        return self._poly()(xe, Wt2, starts2, T=out_max), new_oh
 
     def _fast_chunk(self, chunk, factor, hist, oh, grid_t, gen: int, *,
                     frames: int, out_max: int, hist_from: int):
@@ -443,16 +571,19 @@ class Resampler:
         Returns (packed, per-stream clip counts, new history, new post hist)."""
         hist_len = self.hist_len
         L = self._slab_len(frames)
-        xc = self._unpack(chunk, factor, frames)
-        xext = torch.cat([hist, xc], dim=-1)
-        new_hist = xext[..., hist_from:hist_from + hist_len].clone()
-        xext = F.pad(xext, (0, L - hist_len - frames))
+
+        def extend(c, h):
+            xext = torch.cat([h, self._unpack(c, factor, frames)], dim=-1)
+            return (F.pad(xext, (0, L - hist_len - frames)),
+                    xext[..., hist_from:hist_from + hist_len].clone())
+
+        xext, new_hist = _each(extend, chunk, hist)
         Wt, starts = banded_weights_device(
             self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
-        out = polyphase_banded_cuda(xext, Wt, starts, T=out_max)
+        out = self._poly()(xext, Wt, starts, T=out_max)
         if self.post_filter:
             out, oh = self._conv_post(out, oh, gen, out_max)
-        packed, per_stream = self._quantize(out, gen, out_max)
+        packed, per_stream = _each(lambda o: self._quantize(o, gen, out_max), out)
         return packed, per_stream, new_hist, oh
 
     # ------------------------------------------------------------ streaming
@@ -467,8 +598,11 @@ class Resampler:
 
         Args:
           input_bytes: uint8 ``[batch, >= num_chunks*chunk_frames*ch*bps]``,
-            numpy or a tensor (already on the device: no copy).
-        Returns: (packed uint8 tensor ``[num_chunks, batch, out_max*ch*bps_out]``,
+            numpy or a tensor (already on the device: no copy), or under a
+            mesh a :class:`~..parallel.mesh.Sharded` split along axis 0 (the
+            fleets' device PCM: no copy either).
+        Returns: (packed uint8 tensor ``[num_chunks, batch, out_max*ch*bps_out]``
+          (under a mesh, Sharded along the stream axis 1),
           list of per-chunk generated counts, uint32 numpy clip counts
           ``[num_chunks, batch]``). Output chunk i holds ``gen[i]*ch*bps_out``
           valid bytes.
@@ -494,8 +628,9 @@ class Resampler:
         bps_in = q.bytes_per_sample(self.input_bits)
         factor = q.gain_factor(self.input_bits, gain_db)
         chunk_bytes = chunk_frames * ch * bps_in
-        data = self._to_device(input_bytes)[:, : num_chunks * chunk_bytes]
-        chunks = [data[:, c * chunk_bytes:(c + 1) * chunk_bytes] for c in range(num_chunks)]
+        data = self._to_device(input_bytes)
+        chunks = [_each(lambda d, c=c: d[:, c * chunk_bytes:(c + 1) * chunk_bytes], data)
+                  for c in range(num_chunks)]
 
         # the fused int16 tier is exact only when the carried history shares
         # this call's gain factor; the flag commits only after the call
@@ -523,7 +658,7 @@ class Resampler:
         self.history = history
         self.phase = phase
         self._hist_gain_zero = gain_db == 0.0
-        return torch.stack(packed), gens, _clip_counts(torch.stack(clipped))
+        return _stack_chunks(packed), gens, _clip_counts(_stack_chunks(clipped))
 
     def _exact_stream(self, chunks, grids, gens, factor, frames: int, out_max: int):
         """Exact-mode chunk loop: each chunk consumes all its frames; the post
@@ -533,11 +668,14 @@ class Resampler:
         hist, states = self.history, self._biquad_states()
         packed, clipped = [], []
         for chunk, grid_t, gen in zip(chunks, grids, gens):
-            out, hist, states = self._exact_chunk(self._unpack(chunk, factor, frames), hist,
-                                                  states, grid_t, hist_from=frames)
-            if self.post_filter:
-                out, states = self._exact_post(out, states, gen)
-            p, c = self._quantize(out, gen, out_max)
+            def step(c, h, st):
+                out, h, st = self._exact_chunk(self._unpack(c, factor, frames), h, st, grid_t,
+                                               hist_from=frames)
+                if self.post_filter:
+                    out, st = self._exact_post(out, st, gen)
+                return (*self._quantize(out, gen, out_max), h, st)
+
+            p, c, hist, states = _each(step, chunk, hist, states)
             packed.append(p)
             clipped.append(c)
         if self.pre_filter or self.post_filter:
@@ -551,7 +689,13 @@ class Resampler:
         return (fused_ok
                 and os.environ.get("EAL_RESAMPLE_FUSED16", "") in ("1", "true")
                 and not self.post_filter and self.channels in (1, 2)
-                and self.input_bits == 16 and self.output_bits == 16)
+                and self.input_bits == 16 and self.output_bits == 16
+                # under a mesh the kernel runs per shard
+                # (polyphase_fused16_sharded): each shard's local
+                # [B*ch/mesh, L] block must meet the JAX kernel's 16-row
+                # minimum, so that both packages pick the same tier
+                and (not is_split(self.mesh)
+                     or (self.batch * self.channels // self.mesh.size) % 16 == 0))
 
     def _fused_stream(self, chunks, grids, gens, factor, frames: int, out_max: int):
         """Fused-tier chunk loop: samples stay RAW int16 end to end (int16
@@ -563,27 +707,34 @@ class Resampler:
         precondition), so f32 -> raw -> f32 round-trips to identical floats.
         Returns (packed chunks, clip counts, new f32 history)."""
         ch, hist_len = self.channels, self.hist_len
-        B = self.batch
         L = self._slab_len(frames)
         fac = torch.tensor(factor, dtype=torch.float32, device=self.device)
-        hist_raw = torch.clamp(torch.round(self.history / fac), -32768.0, 32767.0).to(torch.int16)
+        hist_raw = _each(lambda h: torch.clamp(torch.round(h / fac.to(h.device)),
+                                               -32768.0, 32767.0).to(torch.int16), self.history)
         packed, clipped = [], []
         for chunk, grid_t, gen in zip(chunks, grids, gens):
-            if ch == 2:
-                xc = q.unpack_pcm16_planar2_raw(chunk)
-            else:
-                xc = q.unpack_pcm16_raw(chunk)[:, None, :]
-            xext = torch.cat([hist_raw, xc], dim=-1)
-            hist_raw = xext[..., -hist_len:].clone()
-            xext = F.pad(xext, (0, L - hist_len - frames))
+            def extend(c, h):
+                if ch == 2:
+                    xc = q.unpack_pcm16_planar2_raw(c)
+                else:
+                    xc = q.unpack_pcm16_raw(c)[:, None, :]
+                xext = torch.cat([h, xc], dim=-1)
+                return (F.pad(xext, (0, L - hist_len - frames)).reshape(-1, L),
+                        xext[..., -hist_len:].clone())
+
+            def finish(s16, cmask):
+                s16 = s16.reshape(-1, ch, s16.shape[-1])[..., :out_max]
+                cmask = cmask.reshape(-1, ch, cmask.shape[-1])[..., :gen]
+                clip = (cmask > 0).sum((1, 2), dtype=torch.int64)
+                if ch == 2:
+                    return q.pack_pcm16_interleave2(s16.to(torch.int32)), clip
+                return q.pack_pcm(s16[:, 0, :].to(torch.int32), 16), clip
+
+            x2, hist_raw = _each(extend, chunk, hist_raw)
             Wt, starts = banded_weights_device(
                 self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
-            s16, cmask = polyphase_fused16_cuda(xext.reshape(B * ch, L), Wt * fac, starts)
-            s16 = s16.reshape(B, ch, -1)[..., :out_max]
-            cmask = cmask.reshape(B, ch, -1)[..., :gen]
-            clipped.append((cmask > 0).sum((1, 2), dtype=torch.int64))
-            if ch == 2:
-                packed.append(q.pack_pcm16_interleave2(s16.to(torch.int32)))
-            else:
-                packed.append(q.pack_pcm(s16[:, 0, :].to(torch.int32), 16))
-        return packed, clipped, hist_raw.to(torch.float32) * fac
+            p, c = _each(finish, *self._poly16()(x2, Wt * fac, starts))
+            packed.append(p)
+            clipped.append(c)
+        return packed, clipped, _each(lambda h: h.to(torch.float32) * fac.to(h.device),
+                                      hist_raw)

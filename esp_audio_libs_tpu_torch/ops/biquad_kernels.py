@@ -145,10 +145,11 @@ def biquad_df1_cuda(x, coeffs, state, *, first_order: bool = False, valid_len=No
     xc = x.contiguous()
     y = torch.empty_like(xc)
     st_out = torch.empty_like(st_in)
-    rc = kernels.library().eal_biquad_df1(
-        xc.data_ptr(), y.data_ptr(), coef.data_ptr(), coef_stride, st_in.data_ptr(),
-        st_out.data_ptr(), n, T, _valid_steps(valid_len, T), int(bool(first_order)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with kernels.launch_on(x.device) as lib:
+        rc = lib.eal_biquad_df1(
+            xc.data_ptr(), y.data_ptr(), coef.data_ptr(), coef_stride, st_in.data_ptr(),
+            st_out.data_ptr(), n, T, _valid_steps(valid_len, T), int(bool(first_order)),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "biquad_df1")
     biquad_df1_cuda.launches += 1
     return y, tuple(s.reshape(lead) for s in st_out)
@@ -170,9 +171,10 @@ def iir2_sequential_cuda(f, p1, p2, y1, y2):
     fc = f.contiguous()
     y = torch.empty_like(fc)
     st_out = torch.empty_like(st_in)
-    rc = kernels.library().eal_iir2_sequential(
-        fc.data_ptr(), y.data_ptr(), p.data_ptr(), st_in.data_ptr(), st_out.data_ptr(), n, T,
-        torch.cuda.current_stream(f.device).cuda_stream)
+    with kernels.launch_on(f.device) as lib:
+        rc = lib.eal_iir2_sequential(
+            fc.data_ptr(), y.data_ptr(), p.data_ptr(), st_in.data_ptr(), st_out.data_ptr(), n, T,
+            torch.cuda.current_stream(f.device).cuda_stream)
     _raise_on(rc, "iir2_sequential")
     iir2_sequential_cuda.launches += 1
     return y, (st_out[0].reshape(lead), st_out[1].reshape(lead))

@@ -68,9 +68,10 @@ def dotprod_exact_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"n = {n} does not fit int32")
     ra, lda = _rows(a, out.numel(), n)
     rb, ldb = _rows(b, out.numel(), n)
-    rc = kernels.library().eal_dotprod_exact(
-        ra.data_ptr(), lda, rb.data_ptr(), ldb, out.data_ptr(), out.numel(), n,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    with kernels.launch_on(a.device) as lib:
+        rc = lib.eal_dotprod_exact(
+            ra.data_ptr(), lda, rb.data_ptr(), ldb, out.data_ptr(), out.numel(), n,
+            torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(rc, "dotprod_exact")
     dotprod_exact_cuda.launches += 1
     return out

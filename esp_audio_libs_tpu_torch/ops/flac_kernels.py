@@ -88,7 +88,7 @@ def flac_frame_cuda(data, coeffs, order, shift, wasted, chan_assign, *, depth: i
     launch. Arguments and result as :func:`flac_frame_plain`. On the card,
     ``max_order`` must be one of ``ORDER_CLASSES`` and cover every order,
     the escape sideband needs an int8 plane and must be sorted by position
-    (as ``runtime.transport.escape_sideband`` builds it), and every tensor
+    (as a row of ``runtime.transport.escape_sideband_blocked`` is), and every tensor
     must be contiguous."""
     extra = () if esc_pos is None else (esc_pos, esc_val)
     if _route(data, coeffs, order, shift, wasted, chan_assign, *extra) == "cpu":
@@ -120,12 +120,13 @@ def flac_frame_cuda(data, coeffs, order, shift, wasted, chan_assign, *, depth: i
     out = torch.empty((F, T * C * nbytes), dtype=torch.uint8, device=data.device)
     if F == 0 or T == 0:
         return out
-    rc = kernels.library().eal_flac_frame(
-        data.data_ptr(), _RES_DTYPES.index(data.dtype),
-        esc_pos.data_ptr() if n_esc else None, esc_val.data_ptr() if n_esc else None, n_esc,
-        coeffs.data_ptr(), order.data_ptr(), shift.data_ptr(), wasted.data_ptr(),
-        chan_assign.data_ptr(), out.data_ptr(), F, C, T, nbytes, lshift, bias,
-        int(bool(use64)), int(max_order), torch.cuda.current_stream(data.device).cuda_stream)
+    with kernels.launch_on(data.device) as lib:
+        rc = lib.eal_flac_frame(
+            data.data_ptr(), _RES_DTYPES.index(data.dtype),
+            esc_pos.data_ptr() if n_esc else None, esc_val.data_ptr() if n_esc else None, n_esc,
+            coeffs.data_ptr(), order.data_ptr(), shift.data_ptr(), wasted.data_ptr(),
+            chan_assign.data_ptr(), out.data_ptr(), F, C, T, nbytes, lshift, bias,
+            int(bool(use64)), int(max_order), torch.cuda.current_stream(data.device).cuda_stream)
     _raise_on(rc, "flac_frame")
     flac_frame_cuda.launches += 1
     return out

@@ -144,10 +144,12 @@ def mp3_granules_cuda(huff_gs, side_gs, over, prev_type, prev_win_switch, num_pr
     undef = torch.zeros(B, dtype=torch.int32, device=huff_gs.device)
     if G and B:
         consts = format_consts(ver, sr_idx, huff_gs.device)
-        rc = kernels.library().eal_mp3_granules(
-            huff_gs.data_ptr(), side_gs.data_ptr(), consts.data_ptr(),
-            *(t.data_ptr() for t in state), pcm.data_ptr(), undef.data_ptr(), G, B, nch,
-            int(vindex) & 7, int(cutoff), torch.cuda.current_stream(huff_gs.device).cuda_stream)
+        with kernels.launch_on(huff_gs.device) as lib:
+            rc = lib.eal_mp3_granules(
+                huff_gs.data_ptr(), side_gs.data_ptr(), consts.data_ptr(),
+                *(t.data_ptr() for t in state), pcm.data_ptr(), undef.data_ptr(), G, B, nch,
+                int(vindex) & 7, int(cutoff),
+                torch.cuda.current_stream(huff_gs.device).cuda_stream)
         _raise_on(rc, "mp3_granules")
         mp3_granules_cuda.launches += 1
     return pcm.transpose(0, 1), state, undef != 0

@@ -9,6 +9,12 @@ For each kernel: the wrapper, its plain PyTorch version and a launch count.
 * ``polyphase_fused16_cuda`` (csrc/polyphase_fused16.cu) replaces
   ``polyphase_fused16_pallas``; its plain version is
   :func:`polyphase_fused16_plain`.
+* ``polyphase_banded_sharded`` and ``polyphase_fused16_sharded`` replace the
+  ``shard_map`` forms ``polyphase_banded_pallas_sharded`` and
+  ``polyphase_fused16_pallas_sharded`` over a stream mesh
+  (parallel/mesh.py): one launch of the single-device kernel per shard, on
+  the shard's block of rows, with the weight tiles and tile starts copied
+  once to each distinct device of the mesh.
 * ``polyphase_exact_cuda`` (csrc/polyphase_exact.cu) replaces the per-tap
   ``lax.scan`` of ``polyphase_apply(exact=True)``
   (esp_audio_libs_tpu/ops/polyphase.py:236-260), XLA there, not Pallas:
@@ -26,20 +32,24 @@ holds one).
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no fallback.
-Any other device raises. ``<wrapper>.launches`` counts kernel launches only.
+Any other device raises. ``<wrapper>.launches`` counts kernel launches only;
+a sharded wrapper's count is the number of its per-shard launches (each is
+also counted by the single-device wrapper that makes it).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import Sharded, StreamMesh, shard_streams
 from ..runtime import kernels
 from .polyphase import polyphase_banded
 from .scan import ftz
 
 __all__ = ["GROUP", "band_ranges", "band_ranges_cuda", "polyphase_banded_cuda",
-           "polyphase_exact_cuda", "polyphase_exact_plain", "polyphase_fused16_cuda",
-           "polyphase_fused16_plain", "reset_launch_counts"]
+           "polyphase_banded_sharded", "polyphase_exact_cuda", "polyphase_exact_plain",
+           "polyphase_fused16_cuda", "polyphase_fused16_plain", "polyphase_fused16_sharded",
+           "reset_launch_counts"]
 
 GROUP = 32   # columns of one band range in the plain version (csrc/banded_tile.cuh's GROUP)
 
@@ -111,9 +121,10 @@ def band_ranges_cuda(Wt: torch.Tensor) -> torch.Tensor:
         return band_ranges(Wt)
     tile_stride = _check_weights(Wt)
     parts = _band_parts(Wt)
-    rc = kernels.library().eal_band_ranges(
-        Wt.data_ptr(), parts.data_ptr(), parts.shape[0], Wt.shape[1], tile_stride,
-        torch.cuda.current_stream(Wt.device).cuda_stream)
+    with kernels.launch_on(Wt.device) as lib:
+        rc = lib.eal_band_ranges(
+            Wt.data_ptr(), parts.data_ptr(), parts.shape[0], Wt.shape[1], tile_stride,
+            torch.cuda.current_stream(Wt.device).cuda_stream)
     _raise_on(rc, "band_ranges")
     parts = parts.view(parts.shape[0], -1, 128 // GROUP, 2)      # [ntw, pieces, groups, 2]
     return torch.stack([parts[..., 0].amin(1), parts[..., 1].amax(1)], -1)
@@ -149,9 +160,10 @@ def polyphase_banded_cuda(xext: torch.Tensor, Wt: torch.Tensor, starts: torch.Te
     M = xext.numel() // L
     out = torch.empty((*lead, T), dtype=torch.float32, device=xext.device)
     parts = _band_parts(Wt)
-    rc = kernels.library().eal_polyphase_banded(
-        xext.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(), parts.data_ptr(),
-        M, L, nt, K, tile_stride, T, torch.cuda.current_stream(xext.device).cuda_stream)
+    with kernels.launch_on(xext.device) as lib:
+        rc = lib.eal_polyphase_banded(
+            xext.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(), parts.data_ptr(),
+            M, L, nt, K, tile_stride, T, torch.cuda.current_stream(xext.device).cuda_stream)
     _raise_on(rc, "polyphase_banded")
     polyphase_banded_cuda.launches += 1
     return out
@@ -205,16 +217,89 @@ def polyphase_fused16_cuda(x2: torch.Tensor, Wt: torch.Tensor, starts: torch.Ten
     out = torch.empty((M, nt * 128), dtype=torch.int16, device=x2.device)
     clip = torch.empty((M, nt * 128), dtype=torch.int8, device=x2.device)
     parts = _band_parts(Wt)
-    rc = kernels.library().eal_polyphase_fused16(
-        x2.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(), clip.data_ptr(),
-        parts.data_ptr(), M, L, nt, K, tile_stride,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+    with kernels.launch_on(x2.device) as lib:
+        rc = lib.eal_polyphase_fused16(
+            x2.data_ptr(), Wt.data_ptr(), starts.data_ptr(), out.data_ptr(), clip.data_ptr(),
+            parts.data_ptr(), M, L, nt, K, tile_stride,
+            torch.cuda.current_stream(x2.device).cuda_stream)
     _raise_on(rc, "polyphase_fused16")
     polyphase_fused16_cuda.launches += 1
     return out, clip
 
 
 polyphase_fused16_cuda.launches = 0
+
+
+def _replicated(mesh: StreamMesh, Wt: torch.Tensor, starts: torch.Tensor) -> list:
+    """Per shard, ``(Wt, starts)`` on the shard's device, copied once to each
+    distinct device (a tile stride of 0 stays one shared block)."""
+    copies = {}
+    for dev in mesh.distinct():
+        w = Wt[:1].to(dev).expand(Wt.shape) if Wt.stride(0) == 0 else Wt.to(dev)
+        copies[dev] = (w, starts.to(dev))
+    return [copies[dev] for dev in mesh.devices]
+
+
+def polyphase_banded_sharded(xext, Wt: torch.Tensor, starts: torch.Tensor, *, T: int,
+                             mesh: StreamMesh) -> Sharded:
+    """The banded contraction over a stream mesh: the counterpart of
+    ``polyphase_banded_pallas_sharded``
+    (esp_audio_libs_tpu/ops/polyphase_pallas.py:201).
+
+    ``xext`` ``[B, ..., L]`` (a tensor, or a :class:`Sharded` split along
+    axis 0 over ``mesh``) must have its leading dim divisible by the mesh
+    size (the serving classes' bucketing guarantees this). Each shard runs
+    :func:`polyphase_banded_cuda` on its local ``[B/S, ..., L]`` block, one
+    launch per shard, with ``Wt`` and ``starts`` replicated: no data moves
+    between shards. Returns the ``[B, ..., T]`` output split along axis 0.
+    """
+    B = xext.shape[0]
+    if B % mesh.size:
+        raise ValueError(f"leading dim {B} must divide over the {mesh.size}-device mesh")
+    xs = shard_streams(xext, mesh)
+    before = polyphase_banded_cuda.launches
+    parts = [polyphase_banded_cuda(x, w, st, T=T)
+             for x, (w, st) in zip(xs.parts, _replicated(mesh, Wt, starts))]
+    # the launches made through this wrapper: the inner wrapper counts each
+    # at its launch
+    polyphase_banded_sharded.launches += polyphase_banded_cuda.launches - before
+    return Sharded(parts, 0, mesh)
+
+
+polyphase_banded_sharded.launches = 0
+
+
+def polyphase_fused16_sharded(x2, Wt: torch.Tensor, starts: torch.Tensor, *,
+                              mesh: StreamMesh) -> tuple[Sharded, Sharded]:
+    """The fused int16 kernel over a stream mesh: the counterpart of
+    ``polyphase_fused16_pallas_sharded``
+    (esp_audio_libs_tpu/ops/polyphase_pallas.py:319).
+
+    Each shard runs :func:`polyphase_fused16_cuda` on its local ``[M/S, L]``
+    int16 block with the gain-folded weight tiles and tile starts
+    replicated, one launch per shard. Both outputs (int16 samples, int8 clip
+    mask) come back split along axis 0. ``x2``'s leading dim must divide by
+    the mesh size and leave a local block that is a multiple of 16 rows (the
+    JAX kernel's int16 sublane minimum, which the resampler's tier gate
+    checks before it picks this form, so that both packages pick the same
+    tier); ``ValueError`` otherwise.
+    """
+    M = x2.shape[0]
+    if M % mesh.size:
+        raise ValueError(f"leading dim {M} must divide over the {mesh.size}-device mesh")
+    if (M // mesh.size) % 16:
+        raise ValueError(
+            f"local block {M // mesh.size} below the fused kernel's 16-row "
+            f"int16 sublane minimum (M={M}, mesh={mesh.size})")
+    xs = shard_streams(x2, mesh)
+    before = polyphase_fused16_cuda.launches
+    outs = [polyphase_fused16_cuda(x, w, st)
+            for x, (w, st) in zip(xs.parts, _replicated(mesh, Wt, starts))]
+    polyphase_fused16_sharded.launches += polyphase_fused16_cuda.launches - before
+    return Sharded([o[0] for o in outs], 0, mesh), Sharded([o[1] for o in outs], 0, mesh)
+
+
+polyphase_fused16_sharded.launches = 0
 
 
 def polyphase_exact_plain(xext, filters, win0x, idx1, idx2, weight, mode, *, half: int,
@@ -288,10 +373,11 @@ def polyphase_exact_cuda(xext, filters, win0x, idx1, idx2, weight, mode, *, half
         return out
     x = xext.contiguous()
     fb = filters.contiguous()
-    rc = kernels.library().eal_polyphase_exact(
-        x.data_ptr(), fb.data_ptr(), grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(),
-        w.data_ptr(), grid[3].data_ptr(), out.data_ptr(), M, L, T, fb.shape[0], fb.shape[1],
-        half, int(bool(compute_second)), torch.cuda.current_stream(xext.device).cuda_stream)
+    with kernels.launch_on(xext.device) as lib:
+        rc = lib.eal_polyphase_exact(
+            x.data_ptr(), fb.data_ptr(), grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(),
+            w.data_ptr(), grid[3].data_ptr(), out.data_ptr(), M, L, T, fb.shape[0], fb.shape[1],
+            half, int(bool(compute_second)), torch.cuda.current_stream(xext.device).cuda_stream)
     _raise_on(rc, "polyphase_exact")
     polyphase_exact_cuda.launches += 1
     return out
@@ -303,4 +389,6 @@ polyphase_exact_cuda.launches = 0
 def reset_launch_counts() -> None:
     polyphase_banded_cuda.launches = 0
     polyphase_fused16_cuda.launches = 0
+    polyphase_banded_sharded.launches = 0
+    polyphase_fused16_sharded.launches = 0
     polyphase_exact_cuda.launches = 0

@@ -12,11 +12,14 @@ C interface, ``build/kernels/libeal_kernels.so``:
 The build runs the first time a kernel is launched (never at import), and
 again whenever a source is newer than the library. Each C entry point takes
 ``void*`` for every pointer and for the CUDA stream and returns
-``cudaGetLastError()``.
+``cudaGetLastError()``. Launches go through :func:`launch_on`, which makes
+the tensors' device current for PyTorch and for the library's own CUDA
+runtime (csrc/launch_device.cu).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes as C
 import functools
 import os
@@ -109,9 +112,26 @@ def library() -> C.CDLL:
     return bind(C.CDLL(str(build())))
 
 
+@contextlib.contextmanager
+def launch_on(device: torch.device):
+    """Yield the kernel library with ``device`` current for the launches made
+    in the block: PyTorch's current device (``torch.cuda.device``) and the
+    library's own (``eal_set_device``; nvcc links the CUDA runtime statically
+    into the library, so it keeps a current device apart from PyTorch's, and
+    its entry points set kernel attributes and read the SM count there)."""
+    lib = library()
+    with torch.cuda.device(device):
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        rc = lib.eal_set_device(index)
+        if rc != 0:
+            raise RuntimeError(f"eal_set_device({index}) failed: cudaError {rc}")
+        yield lib
+
+
 _P, _I, _LL = C.c_void_p, C.c_int, C.c_longlong
 # restype and argtypes of every C entry point of csrc/*.cu
 SIGNATURES = {
+    "eal_set_device": (C.c_int, [_I]),
     "eal_band_parts_len": (C.c_longlong, [_I]),
     "eal_band_ranges": (C.c_int, [_P, _P, _I, _I, _LL, _P]),
     "eal_polyphase_banded": (C.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _I, _P]),

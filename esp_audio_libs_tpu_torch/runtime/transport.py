@@ -17,7 +17,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["SLICE_OUT_BYTES", "MP3_SLICE_PCM_BYTES", "ESC_MAX_DENSITY", "escape_sideband",
+__all__ = ["SLICE_OUT_BYTES", "MP3_SLICE_PCM_BYTES", "ESC_MAX_DENSITY",
            "escape_sideband_blocked", "overlapped_parse"]
 
 # target PCM bytes per dispatch slice (the JAX package's value)
@@ -35,40 +35,25 @@ MP3_SLICE_PCM_BYTES = 8 << 20
 ESC_MAX_DENSITY = 1.0 / 64.0
 
 
-def escape_sideband(esc_flat_idx, flat_vals, oob_index: int, val_dtype):
-    """Sparse (position, value) escape sideband for an int8 transport plane,
-    sorted by position as ``esc_flat_idx`` is.
-
-    Padded to a power-of-two capacity (at least 16); padding slots carry the
-    out-of-range ``oob_index``, which the fixup ignores.
-    Returns ``(pos int32[cap], val val_dtype[cap])``.
-    """
-    n_esc = int(esc_flat_idx.size)
-    cap = max(16, 1 << int(n_esc - 1).bit_length()) if n_esc else 16
-    pos = np.full(cap, oob_index, np.int32)
-    val = np.zeros(cap, val_dtype)
-    pos[:n_esc] = esc_flat_idx
-    val[:n_esc] = flat_vals
-    return pos, val
-
-
 def escape_sideband_blocked(mask2d, vals2d, val_dtype):
-    """Block-local escape sidebands of an int8 plane cut into ``S`` blocks
-    along its leading axis: ``mask2d``/``vals2d`` are the escape mask and the
-    source values as ``[S, M]``, one row per block. Positions are local to
-    the row and padded to one shared power-of-two capacity (at least 16);
-    padding slots carry the out-of-range local index ``M``. The layout of
-    the JAX package's mesh paths, whose per-device split of the stream axis
-    is still to be ported.
+    """Sparse (position, value) escape sidebands of an int8 transport plane
+    cut into ``S`` blocks along its leading axis: ``mask2d``/``vals2d`` are
+    the escape mask and the source values as ``[S, M]``, one row per block.
+    Positions are sorted and local to the row, padded to one shared
+    power-of-two capacity (at least 16); padding slots carry the
+    out-of-range local index ``M``, which the fixup ignores. The FLAC and
+    MP3 paths build one row per launch with it: one row on a single device
+    (its positions are then the plane's flat ones), one per shard under a
+    mesh.
     Returns ``(pos int32[S, cap], val val_dtype[S, cap])``.
     """
     S, M = mask2d.shape
-    n_max = int(mask2d.sum(axis=1).max()) if S else 0
+    rows = [np.flatnonzero(m) for m in mask2d]     # one pass over the mask
+    n_max = max((idx.size for idx in rows), default=0)
     cap = max(16, 1 << int(n_max - 1).bit_length()) if n_max else 16
     pos = np.full((S, cap), M, np.int32)
     val = np.zeros((S, cap), val_dtype)
-    for s in range(S):
-        idx = np.flatnonzero(mask2d[s])
+    for s, idx in enumerate(rows):
         pos[s, :idx.size] = idx
         val[s, :idx.size] = vals2d[s, idx]
     return pos, val

@@ -133,8 +133,8 @@ def test_flac_frame_escape_tier_matches_jax():
     data = np.clip(data, -200, 200).astype(np.int16)
     mask = np.abs(data.astype(np.int32)) > 127
     flat = np.flatnonzero(mask)
-    pos, val = transport.escape_sideband(flat, data.reshape(-1)[flat], oob_index=data.size,
-                                         val_dtype=np.int32)
+    (pos,), (val,) = transport.escape_sideband_blocked(mask.reshape(1, -1),
+                                                       data.reshape(1, -1), np.int32)
     assert flat.size and pos.size > flat.size
     kw = dict(depth=16, nch=2, mode32=False, use64=False, max_order=12)
     params = (coeffs, order, shift, wasted, ca)
@@ -196,9 +196,10 @@ def test_flac_frame_plain_edges_match_jax(W, T):
     data = np.clip(data, -100, 100)
     edges = [t for t in (0, 47, 48, 63, 64, 65, 95, 96, 97, 128, T - 1) if t < T]
     data[..., edges] = (np.arange(len(edges)) * 257 - 1000)[None, None, :]
-    flat = np.flatnonzero(data.astype(np.int8) != data)
-    pos, val = transport.escape_sideband(flat, data.reshape(-1)[flat], oob_index=data.size,
-                                         val_dtype=np.int32)
+    mask = data.astype(np.int8) != data
+    flat = np.flatnonzero(mask)
+    (pos,), (val,) = transport.escape_sideband_blocked(mask.reshape(1, -1),
+                                                       data.reshape(1, -1), np.int32)
     assert flat.size
     kw = dict(depth=16, nch=2, mode32=False, use64=False, max_order=W)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
@@ -506,10 +507,13 @@ def test_pack_params_and_wrapper_routing():
 
 
 def test_transport_sideband_and_parse_threads(monkeypatch):
-    pos, val = transport.escape_sideband(np.array([3, 9, 40]), np.array([-300, 200, 999]),
-                                         oob_index=64, val_dtype=np.int32)
+    vals = np.zeros((1, 64), np.int32)
+    vals[0, [3, 9, 40]] = [-300, 200, 999]
+    (pos,), (val,) = transport.escape_sideband_blocked(vals != 0, vals, np.int32)
     assert pos.tolist() == [3, 9, 40] + [64] * 13 and val[:3].tolist() == [-300, 200, 999]
-    assert transport.escape_sideband(np.arange(17), np.arange(17), 99, np.int32)[0].size == 32
+    mask = np.zeros((1, 99), bool)
+    mask[0, :17] = True
+    assert transport.escape_sideband_blocked(mask, mask.astype(np.int32), np.int32)[0].size == 32
     monkeypatch.delenv("EAL_PARSE_THREADS", raising=False)
     monkeypatch.setattr(os, "cpu_count", lambda: 8)
     assert port_flac._parse_thread_count(10) == 1

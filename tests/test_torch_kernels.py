@@ -606,9 +606,8 @@ def _frame_planes(data, device):
     out = [("int32", torch.as_tensor(data, device=device), {})]
     if np.abs(data).max() < 32768:
         narrow = data.astype(np.int8)
-        flat = np.flatnonzero(narrow != data)
-        pos, val = transport.escape_sideband(flat, data.reshape(-1)[flat], oob_index=data.size,
-                                             val_dtype=np.int32)
+        (pos,), (val,) = transport.escape_sideband_blocked(
+            (narrow != data).reshape(1, -1), data.reshape(1, -1), np.int32)
         esc = {"esc_pos": torch.as_tensor(pos, device=device),
                "esc_val": torch.as_tensor(val, device=device)}
         out += [("int8+esc", torch.as_tensor(narrow, device=device), esc),
@@ -1153,3 +1152,75 @@ def test_mp3_pipelined_and_restored_fleet_on_card(cuda):
             np.testing.assert_array_equal(pg, pw)
     for a, b in zip(card.get_state()["vbuf"], first.get_state()["vbuf"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_every_kernel_launches_on_the_last_device(cuda):
+    """Every kernel launched on the last visible card (the second of a
+    two-card machine; the only one of a one-card machine) while PyTorch's
+    current device is card 0: each wrapper makes its tensors' device current
+    for PyTorch and for the kernel library's own CUDA runtime
+    (``runtime.kernels.launch_on``), so the kernel attributes, the SM count
+    and the stream all belong to that card. Each launch is counted and
+    equals its plain version there."""
+    from esp_audio_libs_tpu_torch.ops import sinc
+
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(5)
+
+    def counted(fn, *a, **k):
+        before = fn.launches
+        out = fn(*a, **k)
+        torch.cuda.synchronize(dev)
+        assert fn.launches == before + 1, fn.__name__
+        return out
+
+    Wt = torch.as_tensor(random_banded(rng, 3, 512, 300), device=dev)
+    x = torch.as_tensor(rng.standard_normal((37, 2176)), dtype=torch.float32, device=dev)
+    starts = torch.as_tensor([0, 301, 602], dtype=torch.int32, device=dev)
+    assert torch.equal(pk.band_ranges_cuda(Wt), pk.band_ranges(Wt))
+    torch.testing.assert_close(counted(pk.polyphase_banded_cuda, x, Wt, starts, T=300),
+                               tpoly.polyphase_banded(x, Wt, starts, T=300), rtol=RTOL, atol=ATOL)
+    x2, Wf, st = (torch.as_tensor(a, device=dev) for a in fused_inputs(3))
+    s_k, c_k = counted(pk.polyphase_fused16_cuda, x2, Wf, st)
+    s_p, _ = pk.polyphase_fused16_plain(x2, Wf, st)
+    assert int((s_k.int() - s_p.int()).abs().max()) <= 1
+
+    xe, fb, grid, second = exact_poly_operands(
+        64, 32, sinc.SUBSAMPLE_INTERPOLATE | sinc.BLACKMAN_HARRIS, 16000 / 44100, M=8,
+        n_in=2048, n_out=743)
+    xe, fb, grid = xe.to(dev), fb.to(dev), [g.to(dev) for g in grid]
+    assert same_bits(counted(pk.polyphase_exact_cuda, xe, fb, *grid, half=32,
+                             compute_second=second),
+                     pk.polyphase_exact_plain(xe, fb, *grid, half=32, compute_second=second))
+
+    f = torch.as_tensor(rng.standard_normal((37, 1000)), dtype=torch.float32, device=dev)
+    c = torch.as_tensor(tbq.biquad_init(tbq.biquad_lowpass(0.18), 1.0), device=dev)
+    state = tuple(torch.as_tensor(rng.standard_normal(37), dtype=torch.float32, device=dev)
+                  for _ in range(4))
+    y, s = counted(bk.biquad_df1_cuda, f, c, state)
+    y_p, s_p = bk.biquad_df1_plain(f, c, state)
+    assert same_bits(y, y_p) and all(same_bits(a, b) for a, b in zip(s, s_p))
+    y, (a, b) = counted(bk.iir2_sequential_cuda, f, c[3], c[4], state[0], state[1])
+    y_p, (a_p, b_p) = bk.iir2_sequential_plain(f, c[3], c[4], state[0], state[1])
+    assert same_bits(y, y_p) and same_bits(a, a_p) and same_bits(b, b_p)
+
+    arrays = synthetic_frames(9, 7, 2, 1000, 8)
+    params = [torch.as_tensor(a, device=dev) for a in arrays[1:]]
+    kw = dict(depth=16, nch=2, mode32=False, use64=True, max_order=8)
+    want = fk.flac_frame_plain(torch.as_tensor(arrays[0], device=dev), *params, **kw)
+    for label, plane, esc in _frame_planes(arrays[0], dev):
+        assert torch.equal(counted(fk.flac_frame_cuda, plane, *params, **kw, **esc), want), label
+
+    for fmt, vindex, ids, huff_gs, side_gs in mp3_runs(MP3_CFGS[0], 3, 2, False, 9)[0]:
+        n = len(ids)
+        zeros = tuple(torch.zeros(shape, dtype=torch.int32, device=dev)
+                      for shape in ((n, 2, 288), (n, 2), (n, 2), (n, 2), (n, 2176)))
+        before = mk.mp3_granules_cuda.launches
+        check_mp3_kernel(fmt, vindex, huff_gs, side_gs, zeros, dev, f"mp3 on {dev}")
+        assert mk.mp3_granules_cuda.launches == before + 1
+
+    for label, a, b in dot_cases(dev)[3:]:
+        assert same_bits(counted(dk.dotprod_exact_cuda, a, b), dk.dotprod_exact_plain(a, b)), label
+    assert torch.cuda.current_device() == 0

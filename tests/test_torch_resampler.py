@@ -274,6 +274,8 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.cli.cli_worker\n"
             "import esp_audio_libs_tpu_torch.cli.flac_conformance\n"
             "import esp_audio_libs_tpu_torch.cli.profile_serve_flac\n"
+            "import esp_audio_libs_tpu_torch.parallel.mesh\n"
+            "import esp_audio_libs_tpu_torch.parallel.sequence\n"
             "sys.path.insert(0, 'tools')\n"
             "import mp3frames, profile_mp3_chain\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'esp_audio_libs_tpu.')))\n"

@@ -6,7 +6,11 @@ examples/serve_fleet.py, and ``cli/cli_worker``'s ``WarmCliPool``.
   tests/test_serve_fleet_cli.py that run on one device (ragged MP3 with
   ``--verify``, continuous batching 4 -> 9 slots, the FLAC fleet) and the
   composed ``--rate 16000`` mode without a mesh. Every JSON line must be
-  equal except the timing keys, and ``verified`` must be true. The MP3
+  equal except the timing keys, and ``verified`` must be true. The composed
+  mode over a mesh: JAX's ``--mesh 8`` on its 8 virtual CPU devices against
+  the port's ``serve_mp3`` in-process over ``stream_mesh(["cpu"] * 8)``
+  (``--mesh N`` on the command line names N distinct devices, and the CPU is
+  one). The MP3
   corpora of the two (tools/mp3frames.py in the port, the JAX tests'
   frame maker in the original) are byte-identical. ``--device cuda`` without a
   card exits non-zero naming CUDA.
@@ -48,6 +52,8 @@ MODES = {
     "composed": ["--codec", "mp3", "--streams", "4", "--min-frames", "4", "--max-frames", "4",
                  "--run-frames", "2", "--rate", "16000", "--verify", "--seed", "9"],
 }
+MESH_COMPOSED = ["--codec", "mp3", "--streams", "8", "--min-frames", "4", "--max-frames", "4",
+                 "--run-frames", "2", "--rate", "16000", "--verify", "--seed", "9"]
 CORPUS_ARGS = [(6, 2, 5, 3, False), (4, 4, 4, 9, True)]   # (n, min, max, seed, uniform)
 JAX_CORPUS = """
 import hashlib, json, sys
@@ -74,8 +80,14 @@ def runs():
         cmds[mode, "port"] = [sys.executable, "-m", "esp_audio_libs_tpu_torch.cli.serve_fleet",
                               *args, "--device", "cpu"]
     cmds["corpus", "jax"] = [sys.executable, "-c", JAX_CORPUS, json.dumps(CORPUS_ARGS)]
+    cmds["composed_mesh", "jax"] = [sys.executable, str(REPO / "examples" / "serve_fleet.py"),
+                                    *MESH_COMPOSED, "--mesh", "8"]
+    env8 = _env()
+    env8["XLA_FLAGS"] = (env8.get("XLA_FLAGS", "")
+                         + " --xla_force_host_platform_device_count=8").strip()
     procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                                 env=_env(), cwd=REPO) for k, c in cmds.items()}
+                                 env=env8 if k[0] == "composed_mesh" else _env(), cwd=REPO)
+             for k, c in cmds.items()}
     out = {}
     try:
         for k, p in procs.items():
@@ -109,6 +121,33 @@ def test_serve_fleet_matches_jax(runs, mode):
         assert sum(r["recycled"] for r in got[:-1]) == 9 - 4
     if mode == "composed":
         assert agg["samples"] == 4 * 4 * 2 * 576 * 2   # B x frames x granules x 576 x ch
+
+
+def test_serve_fleet_mesh_matches_jax(runs):
+    """Port of tests/test_serve_fleet_cli.py::
+    test_serve_fleet_mp3_composed_mesh_verified: the composed mode over an
+    8-device mesh, the PCM split over it between the stages, every JSON line
+    equal to JAX's ``--mesh 8`` except the timing keys, verified."""
+    from esp_audio_libs_tpu_torch.parallel.mesh import stream_mesh
+
+    args = serve_fleet.parser().parse_args([*MESH_COMPOSED, "--device", "cpu"])
+    streams, metas = serve_fleet.mp3_corpus(8, 4, 4, 9, True)
+    split = []
+    _pcm, lines, agg = serve_fleet.serve_mp3(
+        args, streams, metas, mesh=stream_mesh(["cpu"] * 8),
+        on_run=lambda r, slots, bufs, res, out: split.append((res[0].axis, out[0].axis)))
+    want = _lines(runs["composed_mesh", "jax"])
+    got = [*lines, agg]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        assert {k: v for k, v in g.items() if k not in TIMING} == \
+               {k: v for k, v in w.items() if k not in TIMING}
+    assert agg["verified"] is True
+    assert agg["samples"] == 8 * 4 * 2 * 576 * 2      # B x frames x granules x 576 x ch
+    assert split == [(0, 1)] * len(lines)              # PCM [B, n], output [chunks, B, bytes]
+    # on the command line --mesh N needs N visible devices: the CPU is one
+    assert serve_fleet.main([*MESH_COMPOSED, "--device", "cpu", "--mesh", "8"]) == 1
 
 
 def test_mp3_corpus_matches_jax(runs):

@@ -63,7 +63,7 @@ def staged_call(bat, streams) -> dict:
     real = {"parse": (cls, "_parse_run", cls._parse_run),
             "run_arrays": (cls, "_group_arrays", cls.__dict__["_group_arrays"]),
             "operands": (mp, "run_operands", mp.run_operands),
-            "narrow": (mp, "_pack_huff8", mp._pack_huff8),
+            "narrow": (mp, "_pack_huff8_sharded", mp._pack_huff8_sharded),
             "uploads": (mp, "_put", mp._put),
             "kernel": (mp, "mp3_granules_cuda", mp.mp3_granules_cuda)}
 
