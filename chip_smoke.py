@@ -108,12 +108,15 @@ Phases, each printing a line:
                launches counted (one dotprod_exact per dot, one iir2 launch
                per biquad_f32); the dot bit for bit against its plain version
                on the card, there and on ragged n (0, 1, 17, 4099), an
-               unaligned row pitch and subnormal products; the biquad and the
-               int16 ops (shifts 0, 15, 31, 32, 40, -1 and a tensor shift)
-               against a CPU run on a few rows; then the dot timed by direct
-               launches through eal_dotprod_exact beside one wrapper call,
-               the plain version, its bytes bound, an estimated serial chain
-               and torch.linalg.vecdot (another rounding order).
+               unaligned row pitch, subnormal products, R = 1000, 5 and
+               20000, a tensor-copy box past R and n, and rows through each
+               copy path; the biquad and the int16 ops (shifts 0, 15, 31,
+               32, 40, -1 and a tensor shift) against a CPU run on a few
+               rows; then the dot timed by direct launches through
+               eal_dotprod_exact queued behind a sleeping kernel ([65536,
+               64] over 4 operand sets in turn, past L2) beside one wrapper
+               call, the plain version, its bytes bound, an estimated serial
+               chain and torch.linalg.vecdot (another rounding order).
  15. mp3 serving - phase 13's streams lengthened to 4 runs x 8 frames:
                decode_run_pipelined(to_device=True) against sequential
                decode_run(to_device=True) calls (PCM, consumed, absolute
@@ -240,6 +243,25 @@ def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_time_queued(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean milliseconds of fn() on the card, by CUDA events, with the
+    launches queued behind a sleeping kernel: the card runs them back to
+    back, whatever the host's time to enqueue one (which can exceed a short
+    kernel's own). The start event fires when the sleep ends."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(200e3 * iters))   # about 0.1 ms a launch at 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -1534,6 +1556,10 @@ def mp3_phases():
 # ------------------------------------------------------------------ DSP
 
 DOT_SHAPES = ((4096, 8192), (65536, 64))   # 2048 stereo streams x one 8192 chunk; 64-tap FIRs
+# operand sets a [65536, 64] timing rotates through: one set (33.8 MB) fits
+# in the card's 50 MB L2, so back-to-back launches on it could read faster
+# than device memory allows; four (135 MB) do not
+DOT_ROTATION = 4
 DSP_S, DSP_ROWS, DSP_CPU_ROWS = 4, 2048, 128   # mix_s16: S streams of [DSP_ROWS, 2 x 8192]
 DSP_SHIFTS = (0, 15, 31, 32, 40, -1)
 
@@ -1572,6 +1598,20 @@ def dot_launcher(a, b, lib=None):
     return launch
 
 
+def dot_rotated_launcher(sets, lib=None):
+    """A function that launches dotprod_exact through eal_dotprod_exact on
+    the operand sets ``sets`` ([(a, b), ...]) in turn, one set a call: its
+    timing reads device memory, not L2, when the sets together exceed L2."""
+    launchers = [dot_launcher(a, b, lib=lib) for a, b in sets]
+    turn = [0]
+
+    def launch():
+        out = launchers[turn[0] % len(launchers)]()
+        turn[0] += 1
+        return out
+    return launch
+
+
 def dot_work(R, n):
     """(bytes, bound ms, bound_by) of one exact dot over [R, n]: a and b read
     once and the R sums written once at 3.35 TB/s, against R * n multiplies
@@ -1582,9 +1622,14 @@ def dot_work(R, n):
 
 
 def dot_ragged_cases():
-    """(label, a, b) on the card: ragged n, rows past a block, an unaligned
-    row pitch and base (views), and products and sums in the subnormal
-    range."""
+    """(label, a, b) on the card: ragged n, rows past a row group, an
+    unaligned row pitch and base (views), products and sums in the
+    subnormal range; R not a multiple of the 32 rows of a group, R below
+    the SM count, more row groups than resident blocks (the persistent
+    blocks walk several), a tensor-copy box wider than the rows and taller
+    than R, rows that the tensor copies take, the same rows at an unaligned
+    base (4-byte copies), and a pitch that is not a multiple of 4 floats
+    (4-byte copies)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(14)
 
@@ -1596,6 +1641,19 @@ def dot_ragged_cases():
     tiny = rnd(65, 300, scale=1e-20)
     tiny[0] = 1e-39
     cases.append(("subnormal products and sums", tiny, rnd(65, 300, scale=1e-19)))
+    cases.append(("R = 1000 (31 groups and 8 rows)", rnd(1000, 256), rnd(1000, 256)))
+    cases.append(("R = 5, below the SM count", rnd(5, 777), rnd(5, 777)))
+    cases.append(("R = 5 x n = 20: one box past the rows and the columns", rnd(5, 20),
+                  rnd(5, 20)))
+    cases.append(("R = 20000 x n = 96: 625 groups", rnd(20000, 96), rnd(20000, 96)))
+    a, b = rnd(300, 1024), rnd(300, 1024)
+    cases.append(("tensor-copied rows [300, 1024]", a, b))
+    odd_a, odd_b = rnd(300, 1028), rnd(300, 1028)
+    odd_a[:, 1:1025], odd_b[:, 1:1025] = a, b
+    cases.append(("the same rows at base +4 bytes: 4-byte copies", odd_a[:, 1:1025],
+                  odd_b[:, 1:1025]))
+    mix_a, mix_b = rnd(300, 1026), rnd(300, 1026)
+    cases.append(("pitch 1026 floats: 4-byte copies", mix_a[:, :1024], mix_b[:, :1024]))
     return cases
 
 
@@ -1605,7 +1663,8 @@ def dsp_phase():
     8192] and the int16 ops at S = 4 x [2048, 2 x 8192], launches counted;
     their outputs held to the plain versions (the dot bit for bit on the
     card; the biquad and the int16 ops against a CPU run); the dot's ragged
-    cases; then the dot timed by direct launches beside one wrapper call,
+    cases; then the dot timed by queued direct launches ([65536, 64] over
+    DOT_ROTATION operand sets in turn, past L2) beside one wrapper call,
     the plain version, its bound, an estimated serial chain and
     torch.linalg.vecdot (another rounding order). Returns the launches of
     the counted path and the kernels-line entry of dotprod_exact."""
@@ -1645,7 +1704,8 @@ def dsp_phase():
     for (a, b), got in zip(dots, sums):
         if not same_bits(got, dk.dotprod_exact_plain(a, b)):
             fail(f"dotprod_exact differs from its plain version at {tuple(a.shape)}")
-    for label, a, b in dot_ragged_cases():
+    ragged = dot_ragged_cases()
+    for label, a, b in ragged:
         if not same_bits(dk.dotprod_exact_cuda(a, b), dk.dotprod_exact_plain(a, b)):
             fail(f"dotprod_exact differs from its plain version: {label}")
     y_c, nw_c = dsp.biquad_f32(x[:CMP_STREAMS].cpu(), coef.cpu(), w[:CMP_STREAMS].cpu())
@@ -1661,8 +1721,9 @@ def dsp_phase():
         if not torch.equal(got[:DSP_CPU_ROWS].cpu(), dsp.mulc_s16(rows[0], c)):
             fail(f"mulc_s16 on the card differs from the CPU at c = {c}")
     print(f"dsp: dotprod_exact bit-identical to its plain version at {list(DOT_SHAPES)} and on "
-          f"{len(dot_ragged_cases())} ragged cases (n = 0, 1, 17, 4099, an unaligned pitch, "
-          f"subnormals); biquad_f32 (exact) at {list(x.shape)} bit-identical to the CPU plain "
+          f"{len(ragged)} ragged cases (n = 0, 1, 17, 4099, an unaligned pitch, subnormals, "
+          f"R = 1000, 5 and 20000, a box past R and n, tensor-copied and 4-byte-copied rows); "
+          f"biquad_f32 (exact) at {list(x.shape)} bit-identical to the CPU plain "
           f"path on {CMP_STREAMS} rows; add_s16 / mix_s16 (S = {DSP_S}) at shifts "
           f"{list(DSP_SHIFTS)} and a tensor shift and mulc_s16 equal to the CPU on "
           f"{DSP_CPU_ROWS} rows; launches {launches}")
@@ -1673,21 +1734,31 @@ def dsp_phase():
           f"and the output taps as torch ops); mix_s16 S = {DSP_S} x {list(s16.shape[1:])} "
           f"{mix_ms:.4f} ms per call (torch ops)")
 
+    # [65536, 64] is timed over DOT_ROTATION operand sets in turn, so that
+    # device memory serves it and not L2; [4096, 8192] (268 MB) needs none.
+    # Both queued behind a sleep: a launch through ctypes takes the host
+    # longer to enqueue than the card takes to run [65536, 64]
+    rotation = [dots[1]] + [tuple(torch.randn(DOT_SHAPES[1], generator=g, device="cuda")
+                                  for _ in range(2)) for _ in range(DOT_ROTATION - 1)]
     res = {}
     for (a, b), (R, n) in zip(dots, DOT_SHAPES):
         launch = dot_launcher(a, b)
-        ms = cuda_time(launch, iters=20)
+        rotated = (R, n) == DOT_SHAPES[1]
+        ms = cuda_time_queued(dot_rotated_launcher(rotation) if rotated else launch)
+        ms_one_set = cuda_time_queued(launch) if rotated else ms
         ms_wrapper = cuda_time(lambda: dk.dotprod_exact_cuda(a, b))
         plain_ms = cuda_time(lambda: dk.dotprod_exact_plain(a, b), iters=1, warmup=1)
         vecdot_ms = cuda_time(lambda: torch.linalg.vecdot(a, b))
         mhz = sm_clock_under_load(launch, n=max(200, int(200 / max(ms, 1e-3))))
         chain_ms = n * OP_CYCLES / (mhz * 1e3)
         nbytes, bound_ms, by = dot_work(R, n)
-        res[(R, n)] = dict(ms=ms, ms_wrapper=ms_wrapper, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=by, vecdot_ms=vecdot_ms, chain_ms_estimate=chain_ms,
-                           sm_mhz=mhz)
+        res[(R, n)] = dict(ms=ms, ms_one_set=ms_one_set, ms_wrapper=ms_wrapper,
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           vecdot_ms=vecdot_ms, chain_ms_estimate=chain_ms, sm_mhz=mhz)
+        how = (f"over {DOT_ROTATION} operand sets in turn; {ms_one_set:.4f} ms on one set, "
+               f"which L2 can hold" if rotated else "one operand set, 268 MB")
         print(f"kernel dotprod_exact [{R}, {n}]: bit-identical; {ms:.4f} ms per direct launch "
-              f"(one wrapper call {ms_wrapper:.4f} ms; plain version {plain_ms:.2f} ms); bound "
+              f"({how}; one wrapper call {ms_wrapper:.4f} ms; plain version {plain_ms:.2f} ms); bound "
               f"{bound_ms:.4f} ms ({by}: {nbytes} B at 3.35 TB/s), {bound_ms / ms:.1%} of it; "
               f"serial chain (an estimate, not measured: {n} dependent adds x {OP_CYCLES} "
               f"cycles at {mhz:.0f} MHz, the SM clock under load) {chain_ms:.4f} ms; "
@@ -1702,8 +1773,9 @@ def dsp_phase():
             "vecdot_ms_other_rounding_order": main["vecdot_ms"],
             "shape": list(DOT_SHAPES[0]),
             "second_shape": {"shape": list(DOT_SHAPES[1]),
-                             **{k: second[k] for k in ("ms", "ms_wrapper", "plain_ms", "bound_ms",
-                                                       "bound_by")},
+                             **{k: second[k] for k in ("ms", "ms_one_set", "ms_wrapper",
+                                                       "plain_ms", "bound_ms", "bound_by")},
+                             "rotated_sets": DOT_ROTATION,
                              "vecdot_ms_other_rounding_order": second["vecdot_ms"]}}
 
 

@@ -52,7 +52,8 @@ def _rows(t: torch.Tensor, R: int, n: int):
 def dotprod_exact_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The exact dot over the last axis. Arguments and result as
     :func:`dotprod_exact_plain`; on the card ``a`` and ``b`` must be f32.
-    Rows need no alignment (16-byte loads where every row allows them)."""
+    Rows need no alignment (tensor copies where every row of both operands
+    starts 16-byte aligned, 4-byte copies otherwise)."""
     if _route(a, b) == "cpu":
         return dotprod_exact_plain(a, b)
     if a.dtype != torch.float32 or b.dtype != torch.float32:

@@ -7,11 +7,15 @@ the block barrier; ``mul_ftz``/``add_ftz`` as flushed IEEE f32 ops in place
 of the PTX ``.rn.ftz`` helpers of ``exact_async.cuh``), and its C entry
 point ``eal_dotprod_exact`` is called through ctypes on numpy buffers. Its
 output is held bit for bit to ``dotprod_exact_plain`` on ragged shapes (n
-from 0 to several tiles, rows that do not fill a block), through both load
-widths (16-byte rows, and rows or bases that are not 16-byte aligned), on
-operands whose products fall into the subnormal range, and against a numpy
-left-to-right loop. Any undefined behaviour the sanitizer reports fails the
-test.
+from 0 to several tiles, rows that do not fill a row group), through both
+copy paths (tensor copies of 32-column boxes, zero past n and R, where every
+row starts 16-byte aligned; 4-byte copies where a pitch or a base is not
+aligned), with the ring wrapping (more tiles than stages) and persistent
+blocks walking several row groups (the shim's grid has at most two blocks),
+on operands whose products fall into the subnormal range, and against a
+numpy left-to-right loop. Any undefined behaviour the sanitizer reports
+fails the test, and an mbarrier that receives more arrivals than its phase
+expects, or whose waiter falls two phases behind, aborts the process.
 
 The test needs g++ (skipped without it) and no card.
 """
@@ -45,21 +49,36 @@ def dot_lib(gxx, tmp_path_factory):  # noqa: F811
     return kernels.bind(C.CDLL(str(lib)), ("eal_dotprod_exact",))
 
 
-def shim_dot(lib, a, b, offset=0):
+def shim_dot(lib, a, b, offset=0, pitch=None):
     """eal_dotprod_exact on rows of ``a`` and ``b`` ([R, n] f32), each
-    placed ``offset`` floats into its buffer (an unaligned base for odd
-    offsets), with the buffers' row pitches."""
+    placed ``offset`` floats into its buffer (an unaligned base for offsets
+    that are not multiples of 4), rows ``pitch`` floats apart (n by
+    default); the gaps between rows hold NaN, which no sum may reach."""
     R, n = a.shape
+    pitch = n if pitch is None else pitch
     bufs = []
     for x in (a, b):
-        buf = np.zeros(offset + x.size + 4, np.float32)
-        buf[offset:offset + x.size] = x.reshape(-1)
+        buf = np.full(offset + R * pitch + 4, np.nan, np.float32)
+        rows = buf[offset:offset + R * pitch].reshape(R, pitch)
+        rows[:, :n] = x
         bufs.append(buf)
     out = np.full(R, np.nan, np.float32)
-    rc = lib.eal_dotprod_exact(bufs[0].ctypes.data + 4 * offset, n, bufs[1].ctypes.data
-                               + 4 * offset, n, out.ctypes.data, R, n, None)
+    rc = lib.eal_dotprod_exact(bufs[0].ctypes.data + 4 * offset, pitch, bufs[1].ctypes.data
+                               + 4 * offset, pitch, out.ctypes.data, R, n, None)
     assert rc == 0
     return out
+
+
+def check_dot(lib, capfd, a, b, **layout):
+    """shim_dot bit for bit against the plain version and the numpy loop,
+    with no sanitizer report."""
+    capfd.readouterr()
+    got = shim_dot(lib, a, b, **layout)
+    err = capfd.readouterr().err
+    assert "runtime error" not in err, err
+    want = dotprod_exact_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(got.view(np.uint32), left_to_right(a, b).view(np.uint32))
 
 
 def left_to_right(a, b):
@@ -77,18 +96,34 @@ def left_to_right(a, b):
 ])
 def test_shim_dot_matches_plain(dot_lib, capfd, R, n, offset):
     """Ragged n (0, 1, 17, 4099), tiles exactly full (128, 256, 4100), rows
-    past a block's 32, both load widths: 16-byte loads where n % 4 == 0 and
-    the base is aligned, 4-byte loads for odd n or an odd base offset."""
+    past a group's 32, both copy paths: tensor copies where the pitch n is a
+    multiple of 4 and the base aligned, 4-byte copies for odd n or an odd
+    base offset."""
     rng = np.random.default_rng(R * 1000 + n + offset)
     a = rng.standard_normal((R, n)).astype(np.float32)
     b = rng.standard_normal((R, n)).astype(np.float32)
-    capfd.readouterr()
-    got = shim_dot(dot_lib, a, b, offset)
-    err = capfd.readouterr().err
-    assert "runtime error" not in err, err
-    want = dotprod_exact_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
-    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
-    np.testing.assert_array_equal(got.view(np.uint32), left_to_right(a, b).view(np.uint32))
+    check_dot(dot_lib, capfd, a, b, offset=offset)
+
+
+@pytest.mark.parametrize("R, n, offset, pitch", [
+    (5, 1280, 0, None),     # 10 tensor-copied tiles through a 4-stage ring: it wraps twice
+    (3, 1283, 0, None),     # 11 tiles of 4-byte copies: the ring wraps on that path too
+    (200, 100, 0, None),    # 7 row groups on the shim's 2 blocks, tensor copies
+    (161, 33, 0, None),     # 6 row groups (the last of 1 row), 4-byte copies
+    (70, 600, 0, 602),      # pitch 602, not a multiple of 4: 4-byte copies, 3 groups
+    (40, 262, 0, 264),      # tensor copies; a 6-column tail box, zero past n
+    (5, 20, 0, None),       # tensor copies: one box past the rows and the columns
+    (97, 300, 2, 301),      # odd pitch, unaligned base: 4-byte copies, 4 groups
+])
+def test_shim_dot_ring_and_groups(dot_lib, capfd, R, n, offset, pitch):
+    """The redesign's edges: a ring that wraps, persistent blocks that walk
+    several row groups (the ring running on across group boundaries), both
+    copy paths, tail boxes past n and R. The gaps between rows hold NaN, so
+    a copy past a row's n columns would show."""
+    rng = np.random.default_rng(R * 1000 + n + offset)
+    a = rng.standard_normal((R, n)).astype(np.float32)
+    b = rng.standard_normal((R, n)).astype(np.float32)
+    check_dot(dot_lib, capfd, a, b, offset=offset, pitch=pitch)
 
 
 def test_shim_dot_flushes_subnormals(dot_lib):
@@ -108,3 +143,21 @@ def test_shim_dot_flushes_subnormals(dot_lib):
     want = dotprod_exact_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert got[0] == 0 and got[2] == 0 and not np.signbit(got[2])
+
+
+def test_shim_dot_copy_paths_agree(dot_lib, capfd):
+    """The same 70 rows (three row groups) through the tensor copies (an
+    aligned contiguous [R, n]) and through the 4-byte copies (the same rows
+    one float past an aligned base) give the same bits as each other and as
+    the plain version."""
+    rng = np.random.default_rng(70)
+    a = rng.standard_normal((70, 200)).astype(np.float32)
+    b = rng.standard_normal((70, 200)).astype(np.float32)
+    capfd.readouterr()
+    tensor = shim_dot(dot_lib, a, b)
+    words = shim_dot(dot_lib, a, b, offset=1)
+    err = capfd.readouterr().err
+    assert "runtime error" not in err, err
+    np.testing.assert_array_equal(tensor.view(np.uint32), words.view(np.uint32))
+    want = dotprod_exact_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(tensor.view(np.uint32), want.view(np.uint32))

@@ -656,7 +656,7 @@ def test_flac_frame_kernel_dispatch_shape(cuda, F):
 
 
 @pytest.mark.parametrize("table", ["VARIANTS", "BIQUAD_VARIANTS", "EXACT_VARIANTS",
-                                   "FLAC_VARIANTS", "MP3_VARIANTS"])
+                                   "FLAC_VARIANTS", "MP3_VARIANTS", "DOT_VARIANTS"])
 def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     """Every text edit of tools/kernel_variants.py still matches the
     sources it edits exactly once (the tool stops on the card otherwise)."""
@@ -664,7 +664,7 @@ def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     monkeypatch.setattr(kv, "OUT", tmp_path)
     target = {"VARIANTS": "banded_tile.cuh", "BIQUAD_VARIANTS": "biquad_exact.cu",
               "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu",
-              "MP3_VARIANTS": "mp3_granules.cu"}[table]
+              "MP3_VARIANTS": "mp3_granules.cu", "DOT_VARIANTS": "dotprod_exact.cu"}[table]
     sources = sorted(kernels.CSRC.glob("*.cu*"))
     for name, edits in getattr(kv, table).items():
         assert (kv.make_variant(name, target, edits, sources) / target).exists()
@@ -1061,8 +1061,8 @@ def test_mp3_batched_decoder_on_card_equals_cpu(cuda, monkeypatch):
 
 def dot_cases(device):
     """(label, a, b) operands of the exact dot: ragged n, rows past a
-    block, an unaligned row pitch and base (views), broadcasting, and
-    products and sums in the subnormal range."""
+    row group, an unaligned row pitch and base (views), broadcasting,
+    products and sums in the subnormal range, and the redesign's edges."""
     rng = np.random.default_rng(12)
 
     def t(x):
@@ -1076,6 +1076,19 @@ def dot_cases(device):
     tiny = rng.standard_normal((65, 300)) * 1e-20
     tiny[0] = 1e-39
     cases.append(("subnormal", t(tiny), t(rng.standard_normal((65, 300)) * 1e-19)))
+    # the persistent ring's edges: R not a multiple of a group's 32 rows, R
+    # below the SM count, a tensor-copy box past R and n, more row groups
+    # than resident blocks; rows the tensor copies take, the same rows at an
+    # unaligned base (4-byte copies), and a pitch of 1026 floats (4-byte)
+    for R, n in ((1000, 256), (5, 777), (5, 20), (20000, 96)):
+        cases.append((f"R={R} n={n}", t(rng.standard_normal((R, n))),
+                      t(rng.standard_normal((R, n)))))
+    a, b = rng.standard_normal((2, 300, 1024))
+    cases.append(("tensor-copied rows", t(a), t(b)))
+    odd = t(np.pad(np.stack([a, b]), ((0, 0), (0, 0), (1, 3))))
+    cases.append(("base +4 bytes", odd[0, :, 1:1025], odd[1, :, 1:1025]))
+    mixed = t(rng.standard_normal((2, 300, 1026)))
+    cases.append(("pitch 1026", mixed[0, :, :1024], mixed[1, :, :1024]))
     return cases
 
 

@@ -18,13 +18,34 @@
 //     warp's threads and trade values through a per-warp slot array, so all
 //     the warp's threads must call them together, as a full mask demands on
 //     the card;
-//   - atomicOr, atomicMax, __clz, __mulhi, int min and max, int4,
-//     make_int4 and float4 are builtins with CUDA's results;
+//   - atomicOr, atomicMax, __clz, __mulhi, int min and max, long long min,
+//     int4, make_int4 and float4 are builtins with CUDA's results;
 //   - mul_ftz and add_ftz stand in for the inline-PTX mul/add.rn.ftz.f32
 //     helpers of csrc/exact_async.cuh: one IEEE f32
 //     op (compile with -ffp-contract=off) with subnormal operands and
 //     results flushed to a zero of their own sign. A test that builds such
-//     a kernel puts an exact_async.cuh beside it that includes this file.
+//     a kernel puts an exact_async.cuh beside it that includes this file;
+//   - the copy and hand-off helpers of exact_async.cuh that
+//     csrc/dotprod_exact.cu uses: an mbarrier (mbar_init, mbar_arrive,
+//     mbar_arrive_expect_tx, mbar_wait) is a phase bit, a pending arrival
+//     count and a transaction byte count, kept beside the kernel's uint64_t
+//     under one mutex; a phase completes when both counts reach 0, and
+//     mbar_wait(parity) spins with std::this_thread::yield until the phase
+//     of that parity has completed. More arrivals than a phase expects
+//     abort, and so does a thread that waits on a barrier which completed
+//     two phases since that thread's last wait on it (its parity would
+//     alias on the card; every wait of a ring pipeline consumes one phase).
+//     A CUtensorMap is the base, shape and pitch that tensor_map_2d stores;
+//     tensor_load_2d copies its box element by element into the 128-byte
+//     swizzled layout, zero past the map's columns and rows, then completes
+//     the box's bytes; cp_async4 is a 4-byte copy (zero-filled when !valid)
+//     and cp_async_arrive a plain arrival (the copies have landed already);
+//     __grid_constant__, mbar_init_fence and
+//     cp_async_wait_all are nothing. dynamic_smem() is one static 227 KB
+//     buffer (smem_u32 gives its address's low bits), cudaFuncSetAttribute
+//     succeeds, the occupancy query gives one block per SM and sm_count()
+//     is 2, so a persistent grid has at most two blocks and each walks many
+//     row groups.
 #pragma once
 
 #include <algorithm>
@@ -32,9 +53,13 @@
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 #define __global__
@@ -44,6 +69,7 @@
 #define __launch_bounds__(...)
 #define __shared__ static
 #define __constant__
+#define __grid_constant__
 #define __restrict__ __restrict
 
 struct dim3 {
@@ -72,11 +98,21 @@ inline float add_ftz(float a, float b) {
 }
 
 using cudaStream_t = void*;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+inline int sm_count() { return 2; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline long long min(long long a, long long b) { return a < b ? a : b; }
 
 inline int __clz(int x) { return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x)); }
 inline int __mulhi(int a, int b) {
@@ -141,6 +177,110 @@ inline T reduce(T v, F f) {
 }
 
 }  // namespace eal_shim
+
+namespace eal_shim {
+
+// An mbarrier: its phase bit, the arrivals its phase still expects, the
+// count it was made with, and the transaction bytes still outstanding.
+struct Mbar {
+  uint32_t count = 0, pending = 0, phase = 0;
+  long long tx = 0;
+  unsigned long long completed = 0;   // phases completed since init
+};
+inline std::mutex mbar_mutex;
+inline std::unordered_map<const void*, Mbar> mbars;
+
+// f(mbar) under the lock; then the phase completes if nothing is pending.
+template <class F>
+inline void mbar_update(uint64_t* bar, F f) {
+  std::lock_guard<std::mutex> lock(mbar_mutex);
+  Mbar& m = mbars.at(bar);
+  f(m);
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase ^= 1;
+    m.pending = m.count;
+    ++m.completed;
+  }
+}
+inline void mbar_fault(const char* what) {
+  std::fprintf(stderr, "cuda_cpu_shim: %s\n", what);
+  std::abort();
+}
+inline void mbar_arrival(Mbar& m) {
+  if (m.pending == 0) mbar_fault("more mbarrier arrivals than the phase expects");
+  --m.pending;
+}
+
+}  // namespace eal_shim
+
+inline void mbar_init(uint64_t* bar, uint32_t count) {
+  std::lock_guard<std::mutex> lock(eal_shim::mbar_mutex);
+  eal_shim::mbars[bar] = eal_shim::Mbar{count, count, 0, 0};
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) { eal_shim::mbar_update(bar, eal_shim::mbar_arrival); }
+inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  eal_shim::mbar_update(bar, [&](eal_shim::Mbar& m) {
+    m.tx += bytes;
+    eal_shim::mbar_arrival(m);
+  });
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  thread_local std::unordered_map<const void*, unsigned long long> seen;   // phases consumed
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> lock(eal_shim::mbar_mutex);
+      const eal_shim::Mbar& m = eal_shim::mbars.at(bar);
+      unsigned long long& done = seen[bar];
+      if (m.completed > done + 1)
+        eal_shim::mbar_fault("an mbarrier waiter fell two phases behind: its parity aliases");
+      if (m.phase != parity) {
+        done = m.completed;
+        return;
+      }
+    }
+    std::this_thread::yield();
+  }
+}
+inline void cp_async4(const float* dst, const float* src, bool valid) {
+  const float zero = 0.0f;
+  std::memcpy(const_cast<float*>(dst), valid ? src : &zero, 4);
+}
+inline void cp_async_arrive(uint64_t* bar) { mbar_arrive(bar); }
+inline void cp_async_wait_all() {}
+// A 2-D tensor map: what tensor_load_2d needs to copy a box.
+struct alignas(64) CUtensorMap {
+  const float* base;
+  long long cols, rows, pitch;
+  int box_rows;
+};
+inline bool tensor_map_2d(CUtensorMap* map, const float* base, long long cols, long long rows,
+                          long long pitch, int box_rows) {
+  *map = CUtensorMap{base, cols, rows, pitch, box_rows};
+  return true;
+}
+// The box of 32 columns x box_rows rows at (x, y), zero past the map's
+// columns and rows, stored with the 128-byte swizzle (16-byte chunk c of
+// box row r at chunk c ^ (r % 8)); then it completes the box's bytes.
+inline void tensor_load_2d(const float* dst, const CUtensorMap* map, int x, int y,
+                           uint64_t* bar) {
+  float* box = const_cast<float*>(dst);
+  for (int r = 0; r < map->box_rows; ++r)
+    for (int c = 0; c < 32; ++c) {
+      const bool in = y + r < map->rows && x + c < map->cols;
+      const float v = in ? map->base[(y + r) * map->pitch + x + c] : 0.0f;
+      std::memcpy(box + r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3), &v, 4);
+    }
+  const long long bytes = 4LL * 32 * map->box_rows;
+  eal_shim::mbar_update(bar, [&](eal_shim::Mbar& m) { m.tx -= bytes; });
+}
+inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p));
+}
+inline float* dynamic_smem() {
+  alignas(1024) static float buf[232448 / 4];
+  return buf;
+}
 
 inline void __syncthreads() { eal_shim::block->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { eal_shim::warp().bar->arrive_and_wait(); }

@@ -48,6 +48,45 @@ phase 9, each also on its first lane alone (the measured step time), and
 checks each variant's outputs and state bit for bit against the plain
 version.
 
+``--dotprod``: the exact dot kernel (``dotprod_exact.cu`` with
+``exact_async.cuh``, built alone):
+
+  as_is       the sources unchanged;
+  nst2, nst4, nst6
+              a ring of 2, 4 or 6 stages instead of 3 (3 blocks, 1 block and
+              1 block an SM instead of 2);
+  rows16      row groups of 16 rows (half the CHAIN warp idle, smaller
+              stages, more resident blocks an SM) instead of 32;
+  u4, u16     CHAIN batches of 4 or 16 chunks (16 or 64 columns) instead
+              of 8;
+  unroll4     CHAIN's batch loop unrolled 4 times;
+  prefetch    LOAD prefetches the two tensor maps before its first copy;
+  c256        tiles of 256 columns (one block an SM);
+  no_chain    CHAIN adds nothing (a speed probe: the copies and hand-offs
+              alone; not exact);
+  no_copies   LOAD copies nothing on the tensor path (a speed probe: the
+              chains on stale stages; not exact);
+  <dir>       with ``--dotprod-parent DIR/dotprod_exact.cu ...``: each such
+              file as dotprod_exact.cu, named by its directory (an earlier
+              design, e.g. ``git show
+              551999b:esp_audio_libs_tpu_torch/csrc/dotprod_exact.cu``); with
+              ``--parent-probes`` also that file's probes ``no_chain`` (warp
+              0 adds nothing) and ``no_copies`` (every load reads nothing),
+              edits of that first design, named ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 20 direct launches through
+``eal_dotprod_exact`` after 2 warm-ups, queued behind a sleeping kernel so
+that the host's enqueue does not pace them: ``chip_smoke.cuda_time_queued``;
+in turns) at both ``chip_smoke.DOT_SHAPES``: [4096, 8192] on one operand set
+(268 MB, past L2), [65536, 64] over ``chip_smoke.DOT_ROTATION`` operand sets
+in turn (one set, 33.8 MB, fits in the 50 MB L2; four do not), on one set,
+and rotated without the queue (what the host's enqueue allows); and at
+[65536, 0] (no column: the launch, the persistent blocks and their +0
+stores alone). It checks
+the exact variants bit for bit against ``dotprod_exact_plain`` at both
+shapes and on ``chip_smoke.dot_ragged_cases``, and prints each library's
+ptxas report and the kernel's SASS opcode counts.
+
 ``--polyphase-exact``: the exact polyphase kernel (``polyphase_exact.cu``
 with ``exact_async.cuh``, built alone):
 
@@ -145,6 +184,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
     python3 tools/kernel_variants.py --biquad [--biquad-parent build/parent/biquad_exact.cu]
+    python3 tools/kernel_variants.py --dotprod \
+        [--dotprod-parent build/pr11/dotprod_exact.cu --parent-probes no_chain no_copies]
     python3 tools/kernel_variants.py --polyphase-exact \
         [--polyphase-exact-parent build/pr4/polyphase_exact.cu --parent-probes no_dot]
     python3 tools/kernel_variants.py --flac \
@@ -240,6 +281,37 @@ BIQUAD_VARIANTS = {
     "no_memory": [(_LANES, "return 0;")],
 }
 BIQUAD_ENTRIES = ("eal_biquad_df1", "eal_iir2_sequential")
+
+_DOT_NST = "constexpr int NST = 3;"
+_DOT_ROWS = "constexpr int ROWS = 32;"
+DOT_VARIANTS = {
+    "as_is": [],
+    "nst2": [(_DOT_NST, "constexpr int NST = 2;")],
+    "nst4": [(_DOT_NST, "constexpr int NST = 4;")],
+    "nst6": [(_DOT_NST, "constexpr int NST = 6;")],
+    "rows16": [(_DOT_ROWS, "constexpr int ROWS = 16;")],
+    "u4": [("constexpr int U = 8;", "constexpr int U = 4;")],
+    "u16": [("constexpr int U = 8;", "constexpr int U = 16;")],
+    "unroll4": [("  for (int batch = 0; batch < batches; ++batch) {",
+                 "#pragma unroll 4\n  for (int batch = 0; batch < batches; ++batch) {")],
+    "prefetch": [("  Slot at;\n  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {\n"
+                  "    for (int t = 0;",
+                  "  Slot at;\n  asm volatile(\"prefetch.tensormap [%0];\" :: \"l\"(&d.map_a) : \"memory\");\n"
+                  "  asm volatile(\"prefetch.tensormap [%0];\" :: \"l\"(&d.map_b) : \"memory\");\n"
+                  "  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {\n    for (int t = 0;")],
+    "c256": [("constexpr int COLS = 128;", "constexpr int COLS = 256;")],
+    "no_chain": [("      if (mine) {\n        const float* st = ring",
+                  "      if (mine && d.n < 0) {\n        const float* st = ring")],
+    "no_copies": [("const int boxes = min(BOXES, (d.n - c0 + 31) / 32);", "const int boxes = 0;")],
+}
+DOT_EXACT = tuple(name for name in DOT_VARIANTS if not name.startswith("no_"))
+# probes of the first exact dot kernel (the parent of its redesign:
+# `git show 551999b:esp_audio_libs_tpu_torch/csrc/dotprod_exact.cu`)
+DOT_PARENT_PROBES = {
+    "no_chain": [("for (int c = 0; c < cols; ++c) acc = add_ftz(acc, pr[c]);",
+                  "for (int c = 0; c < 0; ++c) acc = add_ftz(acc, pr[c]);")],
+    "no_copies": [("const bool valid = r < rows && c < n;", "const bool valid = false;")],
+}
 
 # probes of the first exact polyphase kernel (the parent of its redesign:
 # `git show 54d10d9:esp_audio_libs_tpu_torch/csrc/polyphase_exact.cu`)
@@ -474,6 +546,81 @@ def biquad_main(args, card: str) -> None:
               f"({m['upsample_one_lane_ns_per_step']:.2f} ns/step alone), bit-exact "
               f"{m['main_bit_exact'] == 1.0 and m['upsample_bit_exact'] == 1.0} "
               f"(means of 2 turns)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
+def dotprod_main(args, card: str) -> None:
+    """--dotprod: the exact dot's variants, earlier sources and their probes
+    at both DOT_SHAPES, [65536, 64] rotated past L2."""
+    from esp_audio_libs_tpu_torch.ops import dsp_kernels as dk
+    names = list(DOT_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "dotprod_exact.cu"
+    sources = [src, kernels.CSRC / "exact_async.cuh"]
+    dirs = {name: make_variant(f"dot_{name}", src.name, DOT_VARIANTS[name], sources)
+            for name in names}
+    exact = {name for name in names if name in DOT_EXACT}
+    for path in args.dotprod_parent:
+        parent = path.resolve().parent.name
+        dirs[parent] = make_variant(f"dot_{parent}", src.name, [], sources, path)
+        exact.add(parent)
+        for probe in args.parent_probes:
+            dirs[f"{parent}_{probe}"] = make_variant(f"dot_{parent}_{probe}", src.name,
+                                                     DOT_PARENT_PROBES[probe], sources, path)
+    libs = build_all(dirs, ("eal_dotprod_exact",))
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+        print(f"{name} SASS: {sass_histogram(dirs[name] / 'lib.so', 'dotprod_exact')}")
+
+    g = torch.Generator(device="cuda").manual_seed(1400)
+    main, small = ((torch.randn(shape, generator=g, device="cuda"),
+                    torch.randn(shape, generator=g, device="cuda")) for shape in cs.DOT_SHAPES)
+    rotation = [small] + [tuple(torch.randn(cs.DOT_SHAPES[1], generator=g, device="cuda")
+                                for _ in range(2)) for _ in range(cs.DOT_ROTATION - 1)]
+    empty = tuple(torch.empty((cs.DOT_SHAPES[1][0], 0), device="cuda") for _ in range(2))
+    checks = [("main", *main), ("small", *small)] + cs.dot_ragged_cases()
+    wants = [dk.dotprod_exact_plain(a, b) for _, a, b in checks]
+    for (R, n) in cs.DOT_SHAPES:
+        nbytes, bound_ms, by = cs.dot_work(R, n)
+        print(f"[{R}, {n}]: {nbytes} B, bound {bound_ms:.4f} ms ({by} at 3.35 TB/s)")
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        lib = libs[name][0]
+        row = {}
+        if name in exact:
+            same = True
+            for (label, a, b), want in zip(checks, wants):
+                out = torch.empty(want.shape, dtype=torch.float32, device="cuda")
+                ra, lda = dk._rows(a, out.numel(), a.shape[-1])
+                rb, ldb = dk._rows(b, out.numel(), b.shape[-1])
+                if lib.eal_dotprod_exact(ra.data_ptr(), lda, rb.data_ptr(), ldb, out.data_ptr(),
+                                         out.numel(), a.shape[-1],
+                                         torch.cuda.current_stream().cuda_stream) != 0:
+                    raise RuntimeError(f"{name}: eal_dotprod_exact refused {label}")
+                torch.cuda.synchronize()
+                if not cs.same_bits(out, want):
+                    print(f"{name}: differs from the plain version: {label}")
+                    same = False
+            row["bit_exact"] = float(same)
+        row["main_ms"] = cs.cuda_time_queued(cs.dot_launcher(*main, lib=lib))
+        row["small_rotated_ms"] = cs.cuda_time_queued(cs.dot_rotated_launcher(rotation, lib=lib))
+        row["small_one_set_ms"] = cs.cuda_time_queued(cs.dot_launcher(*small, lib=lib))
+        row["small_unqueued_ms"] = cs.cuda_time(cs.dot_rotated_launcher(rotation, lib=lib), 20)
+        row["empty_ms"] = cs.cuda_time_queued(cs.dot_launcher(*empty, lib=lib))
+        results[name].append(row)
+        print(name, json.dumps(row))
+    means = {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+             for name, rows in results.items()}
+    bounds = [cs.dot_work(R, n)[1] for R, n in cs.DOT_SHAPES]
+    for name, m in means.items():
+        print(f"{name}: [4096, 8192] {m['main_ms']:.4f} ms ({bounds[0] / m['main_ms']:.1%} of "
+              f"the bound), [65536, 64] rotated over {cs.DOT_ROTATION} sets "
+              f"{m['small_rotated_ms']:.4f} ms ({bounds[1] / m['small_rotated_ms']:.1%}), one "
+              f"set {m['small_one_set_ms']:.4f} ms, rotated unqueued "
+              f"{m['small_unqueued_ms']:.4f} ms, [65536, 0] {m['empty_ms']:.4f} ms, bit-exact "
+              f"{m['bit_exact'] == 1.0 if 'bit_exact' in m else 'not checked (a probe)'} "
+              f"(means of 2 turns, 20 queued direct launches each)")
+    print(f"SM clock while the first variant's [4096, 8192] launches run: "
+          f"{sm_clock(cs.dot_launcher(*main, lib=next(iter(libs.values()))[0]))}")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
@@ -792,6 +939,11 @@ def main() -> None:
     ap.add_argument("--biquad-parent", type=Path, nargs="+", default=[],
                     help="with --biquad: earlier biquad_exact.cu files, each timed as a "
                          "variant named by its directory")
+    ap.add_argument("--dotprod", action="store_true",
+                    help="probe the exact dot kernel instead of the banded main loop")
+    ap.add_argument("--dotprod-parent", type=Path, nargs="+", default=[],
+                    help="with --dotprod: earlier dotprod_exact.cu files, each timed as a "
+                         "variant named by its directory")
     ap.add_argument("--polyphase-exact", action="store_true",
                     help="probe the exact polyphase kernel instead of the banded main loop")
     ap.add_argument("--polyphase-exact-parent", type=Path, nargs="+", default=[],
@@ -809,12 +961,13 @@ def main() -> None:
                          "named by its directory")
     ap.add_argument("--parent-probes", nargs="+", default=[],
                     choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)
-                                   | set(MP3_PARENT_PROBES)),
-                    help="with --polyphase-exact-parent, --flac-parent or --mp3-parent: these "
-                         "probes of each parent too")
+                                   | set(MP3_PARENT_PROBES) | set(DOT_PARENT_PROBES)),
+                    help="with --polyphase-exact-parent, --flac-parent, --mp3-parent or "
+                         "--dotprod-parent: these probes of each parent too")
     ap.add_argument("--variants", nargs="*", default=None,
                     choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)
-                                   | set(FLAC_VARIANTS) | set(MP3_VARIANTS)))
+                                   | set(FLAC_VARIANTS) | set(MP3_VARIANTS)
+                                   | set(DOT_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -825,6 +978,9 @@ def main() -> None:
     print(f"card: {card}, max SM clock {clocks}")
     if args.biquad:
         biquad_main(args, card)
+        return
+    if args.dotprod:
+        dotprod_main(args, card)
         return
     if args.polyphase_exact:
         polyphase_exact_main(args, card)
