@@ -179,17 +179,35 @@ Phases, each printing a line:
                through their sharded wrappers, so each launch counts once). A second card,
                which would show that each launch runs on its tensors' card,
                is not needed: one card runs every split.
-Phase 18's corpus (minutes of Python) is built by a child process started
-before phase 2, on one CPU core while the card runs the phases before it;
-a phase that ends while it is still building says so in its seconds line.
+ 20. mp3 conformance - the port's MP3 conformance runner (cli/
+               mp3_conformance.py) over its generated 53-file corpus
+               (standard 26, modes 3, long 4, faulty 10, independent 10)
+               with a WarmCliPool of 2 card workers: every generated file's
+               bytes equal the hash that the signature file
+               (cli/mp3_conformance_signatures.json, written from JAX's
+               decode by tools/mp3_conformance_signatures.py) holds; every
+               file passes with its frame ladder, decoded frames and payload
+               SHA256 equal to the signature, and its status, parity and
+               frames equal to build/test_results/mp3_test_report.json. The
+               short files decode frame by frame through MP3Decoder, the
+               four 30 s streams through BatchedMP3Decoder(1).decode_run in
+               runs of 128 frames: one mp3_granules launch per run (B = 1,
+               G = 256 for MPEG-1, 128 for MPEG-2), asserted per file (9
+               each); the launches go into the kernels line as
+               launches_other_paths["mp3_conformance"]. Prints the decode
+               time per category and the long streams' Msamples/s at B = 1.
+The conformance corpora of phases 18 and 20 are built by child processes
+started before phase 2 (phase 18's takes minutes of Python), on one CPU core
+each while the card runs the phases before them; a phase that ends while
+phase 18's is still building says so in its seconds line.
 Phase 16's three corpora are built by three child processes started
 together after phase 15, and phase 16 starts when all are ready.
 The launch counts of phases 4-5, of phase 8's and 13's timed calls, of
 each path of phase 10, of phase 14's DSP path, of phase 15's pipelined
-pass and of each serving mode of phase 16, each set to 0 just before and
-read just after, show that the main paths ran through the kernels; phases
-8, 10, 13, 14, 15, 16(b) and 19 assert their exact counts. Every phase
-prints its seconds.
+pass, of each serving mode of phase 16 and of phase 20's runner, each set
+to 0 just before and read just after, show that the main paths ran through
+the kernels; phases 8, 10, 13, 14, 15, 16(b), 19 and 20 (its long streams)
+assert their exact counts. Every phase prints its seconds.
 The last three lines are the card line, one JSON object describing the
 kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -1889,11 +1907,15 @@ CORPUS_JOB = """
 import json, pickle, sys, time
 from pathlib import Path
 from esp_audio_libs_tpu_torch.cli import flac_conformance as fc, serve_fleet as sf
+from esp_audio_libs_tpu_torch.cli import mp3_conformance as mc
 t0 = time.perf_counter()
 kind, out, spec = sys.argv[1], Path(sys.argv[2]), json.loads(sys.argv[3])
 if kind == "conformance":
     fc.generate_corpus(out / "flac_corpus")
     fc.install_independent_corpus(out / "flac_corpus")
+elif kind == "mp3_conformance":
+    mc.generate_corpus(out / "mp3_corpus")
+    mc.install_independent_corpus(out / "mp3_corpus")
 else:
     make = sf.flac_corpus if kind == "flac" else sf.mp3_corpus
     (out / f"{kind}.tmp").write_bytes(pickle.dumps(make(*spec)))
@@ -1911,8 +1933,8 @@ def stop_children() -> None:
 
 def start_corpus(out_dir: str, kind: str, spec=None) -> None:
     """Start the generator of ``kind`` in the background, one core: the
-    FLAC conformance corpus, or a serving corpus of ``SERVE_CORPORA``;
-    ``corpus`` waits for it."""
+    FLAC or the MP3 conformance corpus, or a serving corpus of
+    ``SERVE_CORPORA``; ``corpus`` waits for it."""
     if not CHILDREN:
         import atexit
         atexit.register(stop_children)
@@ -1922,7 +1944,7 @@ def start_corpus(out_dir: str, kind: str, spec=None) -> None:
 
 
 def corpus(out_dir: str, kind: str):
-    """Wait for the generator of ``kind``; the serving corpus, or the
+    """Wait for the generator of ``kind``; the serving corpus, or a
     conformance corpus's directory."""
     import pickle
     proc = CHILDREN[kind]
@@ -1933,6 +1955,8 @@ def corpus(out_dir: str, kind: str):
     print(f"{log.strip()} (waited {time.perf_counter() - t0:.1f} s)")
     if kind == "conformance":
         return os.path.join(out_dir, "flac_corpus")
+    if kind == "mp3_conformance":
+        return os.path.join(out_dir, "mp3_corpus")
     with open(os.path.join(out_dir, f"{kind}.pkl"), "rb") as f:
         return pickle.load(f)
 
@@ -2260,6 +2284,177 @@ def conformance_phase(corpus_dir: str, out_dir: str):
           f"decode-parity, {s['reject_parity']} reject-parity; {counts}), status, parity and md5 "
           f"of every file = the committed JAX report; CLI through a WarmCliPool of "
           f"{CONFORMANCE_WORKERS} workers; wall {wall:.1f} s (the pool's start included)")
+
+
+def long_run_plan(ladder, chunk: int) -> list[int]:
+    """The decode_run calls of the long-stream loop (mp3_conformance.
+    our_decode_run_loop) over a file whose ladder is ``ladder``: the
+    attempts of each call. A run ends after ``chunk`` attempts or at its
+    first error frame (BatchedMP3Decoder._parse_run)."""
+    runs, n = [], 0
+    for err, _, _ in ladder:
+        n += 1
+        if n == chunk or err != 0:
+            runs.append(n)
+            n = 0
+    return runs + [n] if n else runs
+
+
+# the long streams whose first runs phase 20 holds to the plain version, with
+# the granules of one run (decode_run of mc.LONG_CHUNK frames, B = 1)
+LONG_KERNEL_CHECKS = {"long_reservoir_mpeg1_stereo.mp3": 256, "long_tonal_mpeg2_stereo.mp3": 128}
+LONG_KERNEL_RUNS = 2
+
+
+def mp3_long_kernel_check(corpus_dir, sigs) -> None:
+    """mp3_granules at the long loop's launch shape, B = 1 x G = 256
+    (MPEG-1) or 128 (MPEG-2): one block for the whole run. The first
+    LONG_KERNEL_RUNS runs of each LONG_KERNEL_CHECKS stream, parsed on one
+    fleet each from where the last run stopped (the host reservoir carried),
+    launched from the last run's state on the card (overlap, vbuf ring,
+    FIFO phase) and held byte for byte to the plain version on the same
+    CUDA tensors. Run k starts after the bytes the signature ladder's
+    attempts of run k - 1 consumed (these runs end on no error, so their
+    frames lie back to back: a sync word must start there)."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.cli import mp3_conformance as mc
+    from esp_audio_libs_tpu_torch.models import mp3_pipeline
+    from esp_audio_libs_tpu_torch.models.batch import BatchedMP3Decoder, parsed_runs
+    from esp_audio_libs_tpu_torch.models.mp3 import MP3Decoder
+
+    t0 = time.perf_counter()
+    for name, G in LONG_KERNEL_CHECKS.items():
+        blob = (corpus_dir / "long" / name).read_bytes()
+        ladder = sigs[name]["ladder"]
+        bat = BatchedMP3Decoder(1, device="cpu")
+        state, pos = mp3_zero_state(1, "cuda"), 0
+        for run in range(LONG_KERNEL_RUNS):
+            (fmt, vindex, _, h, sd), = parsed_runs(bat, [blob[pos:]], mc.LONG_CHUNK)
+            if h.shape[:2] != (G, 1):
+                fail(f"long/{name} run {run}: a launch of (G, B) {h.shape[:2]}, not ({G}, 1)")
+            state = mp3_check(fmt, vindex, torch.as_tensor(h, device="cuda"),
+                              torch.as_tensor(sd, device="cuda"), state, f"long/{name} run {run}")
+            bat._vindex[0] = mp3_pipeline._advance_vindex(vindex, G)
+            attempts = ladder[run * mc.LONG_CHUNK:(run + 1) * mc.LONG_CHUNK]
+            if any(e != 0 for e, _, _ in attempts):
+                fail(f"long/{name} run {run} holds an error frame: runs are not back to back")
+            pos += sum(c for _, c, _ in attempts)
+            if MP3Decoder.find_sync_word(blob[pos:]) != 0:
+                fail(f"long/{name}: no sync word where run {run + 1} starts ({pos})")
+    print(f"mp3 kernel at the long loop's shapes: the first {LONG_KERNEL_RUNS} runs of "
+          f"{', '.join(f'long/{n} (B = 1 x G = {g})' for n, g in LONG_KERNEL_CHECKS.items())}, "
+          f"state carried from run to run on the card, byte-identical to the plain version "
+          f"(PCM, state, UB flag); {time.perf_counter() - t0:.1f} s")
+
+
+def mp3_conformance_phase(corpus_dir: str, out_dir: str) -> int:
+    """Phase 20: the port's MP3 conformance runner (cli/mp3_conformance.py)
+    on the card over its generated corpus (53 files: standard 26, modes 3,
+    long 4, faulty 10, independent 10), the mp3_to_wav CLI driven through a
+    WarmCliPool of 2 card workers. The generated files' bytes equal the
+    signature file's hashes (the files JAX signed); every file passes with
+    signature_match true (its frame ladder, decoded frames and payload
+    SHA256 equal JAX's decode), and its status, parity and frames equal the
+    committed JAX report (build/test_results/mp3_test_report.json, pinned by
+    the C oracle). The mp3_granules launches of the runner's own decodes
+    (the CLI workers are other processes) are counted per file: a long
+    stream makes one per decode_run call that decoded frames (B = 1: one
+    format group and one dispatch slice a run), a short file one per
+    successful frame and none for a frame that fails before its first
+    granule. Before the drive, mp3_long_kernel_check holds the kernel to
+    its plain version at the long loop's launch shape. Returns the phase's
+    launches."""
+    import hashlib
+    from pathlib import Path
+
+    from esp_audio_libs_tpu_torch.cli import mp3_conformance as mc
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+
+    with open(os.path.join(REPO_ROOT, "build", "test_results", "mp3_test_report.json")) as f:
+        want = json.load(f)
+    sigs = mc.load_signatures()["files"]
+    corpus_dir = Path(corpus_dir)
+    on_disk = {p.name: p for p in corpus_dir.glob("*/*.mp3")}
+    if on_disk.keys() != sigs.keys():
+        fail(f"mp3 conformance: the corpus's files differ from the signature file's: "
+             f"{sorted(on_disk.keys() ^ sigs.keys())}")
+    for name, p in on_disk.items():
+        if (p.parent.name != sigs[name]["category"]
+                or hashlib.sha256(p.read_bytes()).hexdigest() != sigs[name]["sha256"]):
+            fail(f"mp3 conformance: {p.parent.name}/{name} is not the file JAX signed")
+    mp3_long_kernel_check(corpus_dir, sigs)
+
+    launches = {}
+
+    def on_file(cat, r):
+        launches[r["file"]] = mk.mp3_granules_cuda.launches
+        mk.reset_launch_counts()
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    report = mc.run_suite(corpus_dir, Path(out_dir), device="cuda", cli=True,
+                          workers=CONFORMANCE_WORKERS, on_file=on_file)
+    wall = time.perf_counter() - t0
+    others = {k: v for k, v in launch_counts().items() if v}
+    if others:
+        fail(f"mp3 conformance launched kernels outside its files' decodes: {others}")
+    s = report["summary"]
+    rows = {r["file"]: (cat, r) for cat, rs in report["categories"].items() for r in rs}
+    failed = [n for n, (_, r) in rows.items() if r["status"] != "pass"]
+    if failed or s["passed"] != s["total"] or s["total"] != want["summary"]["total"]:
+        fail(f"mp3 conformance: {s['passed']}/{s['total']} passed, failing {failed}")
+    for cat, want_rows in want["categories"].items():
+        if {r["file"] for r in want_rows} != {r["file"] for r in report["categories"][cat]}:
+            fail(f"mp3 conformance: the {cat} files differ from the committed report's")
+        for w in want_rows:
+            r = rows[w["file"]][1]
+            for key in ("status", "parity", "frames"):
+                if r[key] != w[key]:
+                    fail(f"mp3 conformance {cat}/{w['file']}: {key} {r[key]!r}, the committed "
+                         f"report has {w[key]!r}")
+            if r["signature_match"] is not True:
+                fail(f"mp3 conformance {cat}/{w['file']}: signature_match "
+                     f"{r['signature_match']!r}")
+    # the fleet's dispatch rule: a run is one group per format, cut into
+    # n = ceil(B * G * 576 * nch * 2 / MP3_SLICE_PCM_BYTES) slices of
+    # ceil(B / n) streams; at B = 1 that is one slice, so one launch a run
+    long_lines, per_cat, long_samples = [], {}, 0
+    for name, (cat, r) in rows.items():
+        sig, n = sigs[name], launches[name]
+        if cat == "long":
+            runs = long_run_plan(sig["ladder"], mc.LONG_CHUNK)
+            if n != len(runs) or len(runs) != -(-len(sig["ladder"]) // mc.LONG_CHUNK):
+                fail(f"mp3 conformance long/{name}: {n} mp3_granules launches, decode_run "
+                     f"calls that decoded frames: {runs}")
+            samples = sig["payload_bytes"] // 2
+            long_samples += samples
+            long_lines.append(f"  long/{name}: {r['frames']} frames in {n} decode_run calls, "
+                              f"{n} launches, {samples} samples (all channels) in "
+                              f"{r['seconds']:.3f} s = {samples / r['seconds'] / 1e6:.2f} "
+                              f"Msamples/s at B = 1")
+        elif not sig["n_ok"] <= n <= len(sig["ladder"]):
+            fail(f"mp3 conformance {cat}/{name}: {n} mp3_granules launches for "
+                 f"{sig['n_ok']} decoded frames of {len(sig['ladder'])} attempts")
+        c = per_cat.setdefault(cat, {"files": 0, "seconds": 0.0, "launches": 0})
+        c["files"] += 1
+        c["seconds"] += r["seconds"]
+        c["launches"] += n
+    long_s = per_cat["long"]["seconds"]
+    print(f"mp3 conformance on the card: {s['passed']}/{s['total']} passed "
+          f"({s['decode_parity']} decode-parity, {s['reject_parity']} reject-parity); file "
+          f"bytes, frame ladders and payload SHA256 of every file = the signature file (JAX's "
+          f"decode); status, parity and frames = the committed JAX report; CLI through a "
+          f"WarmCliPool of {CONFORMANCE_WORKERS} workers")
+    for cat, c in per_cat.items():
+        print(f"  {cat}: {c['files']} files, decode {c['seconds']:.3f} s (the CLI drives "
+              f"run beside it), {c['launches']} mp3_granules launches")
+    print("\n".join(long_lines))
+    print(f"  long: {long_samples} samples in {long_s:.3f} s = "
+          f"{long_samples / long_s / 1e6:.2f} Msamples/s at B = 1 (one stream's latency, "
+          f"not a serving rate); suite wall {wall:.1f} s (the pool's start and the CLI "
+          f"included); {sum(launches.values())} mp3_granules launches")
+    return sum(launches.values())
 
 
 MESH_SHARDS = 4                     # phase 19: one card named 4 times (stream_mesh(["cuda:0"] * 4))
@@ -2824,6 +3019,7 @@ def main() -> None:
     import tempfile
     scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     start_corpus(scratch.name, "conformance")    # phase 18's input, built on one core meanwhile
+    start_corpus(scratch.name, "mp3_conformance")    # phase 20's, a few seconds
 
     # 2. build
     t0 = time.perf_counter()
@@ -3014,9 +3210,17 @@ def main() -> None:
     # 19. the multi-device surface, split 4 ways on the card
     torch.cuda.empty_cache()
     sharded_entries, mesh_launches = mesh_phase(data, composed_blob, corp, scratch.name)
-    scratch.cleanup()
 
     lap("19 mesh")
+
+    # 20. the MP3 conformance runner
+    torch.cuda.empty_cache()
+    mp3["launches_other_paths"]["mp3_conformance"] = mp3_conformance_phase(
+        corpus(scratch.name, "mp3_conformance"),
+        os.path.join(scratch.name, "mp3_conformance_out"))
+    scratch.cleanup()
+
+    lap("20 mp3 conformance")
 
     kernels_line = {"kernels": [
         {"name": "polyphase_banded", "route": "cuda",

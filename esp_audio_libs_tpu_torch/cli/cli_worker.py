@@ -18,6 +18,10 @@ after a first line {"ready": true}. EOF on stdin ends the worker. A job
 whose ``convert`` raises answers rc 99; a worker that dies answers the pool
 rc 98.
 
+The module also holds what the two runners (``flac_conformance``,
+``mp3_conformance``) share: :func:`run_conformance`, which runs a suite,
+owns the pool and writes the report, and :func:`wav_data_payload`.
+
 Run: python -m esp_audio_libs_tpu_torch.cli.cli_worker flac|mp3 [--device cuda|cpu]
 """
 
@@ -26,9 +30,12 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import struct
 import subprocess
 import sys
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import redirect_stdout
 from pathlib import Path
 
@@ -146,6 +153,95 @@ class WarmCliPool:
                     p.kill()
                     p.wait()
             self._free.clear()
+
+
+def wav_data_payload(path: Path) -> bytes:
+    """The data chunk payload of a RIFF/WAVE file."""
+    raw = Path(path).read_bytes()
+    pos = 12  # past RIFF size WAVE
+    while pos + 8 <= len(raw):
+        tag, size = raw[pos:pos + 4], struct.unpack("<I", raw[pos + 4:pos + 8])[0]
+        if tag == b"data":
+            return raw[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    return b""
+
+
+def run_conformance(corpus: Path, out: Path, check, *, codec: str, categories, report: str,
+                    checks: str, row_text, finalize, device="cuda", cli: bool = True,
+                    workers: int = 4, wav_dir: str = "wav", no_cli=(), on_file=None) -> dict:
+    """Run a conformance suite over every ``*.<codec>`` file of the corpus's
+    ``categories`` folders, in order, and write ``<report>.{txt,json}``
+    under ``out``.
+
+    ``check(category, path, cli_out)`` decodes one file and returns its
+    report row and its CLI drive (a function of the ``WarmCliPool``
+    returning True or False, or None); ``cli_out`` is the folder for the
+    CLI's WAV, None when the CLI is off or the category is in ``no_cli``.
+    The drives run on a pool of ``workers`` ``device`` workers beside the
+    next decodes; once they have all resolved, each result is its row's
+    ``cli`` and ``finalize(row)`` sets the row's final status.
+    ``on_file(category, row)``, when given, is called after each file's
+    decode. The text report has one line per file, ``row_text(row)`` in
+    it, under a summary and the ``checks`` line. Returns the report dict
+    (``categories``: per category the rows; ``summary``).
+    """
+    t_run0 = time.perf_counter()
+    cli_pool = warm_pool = None
+    if cli:
+        warm_pool = WarmCliPool(codec, n_workers=workers, device=device)
+        cli_pool = ThreadPoolExecutor(max_workers=workers)
+    result = {"categories": {}, "summary": {}}
+    pending = []
+    try:
+        for cat in categories:
+            d = corpus / cat
+            if not d.exists():
+                continue
+            cli_out = None
+            if cli and cat not in no_cli:
+                cli_out = out / wav_dir / cat
+                cli_out.mkdir(parents=True, exist_ok=True)
+            rows = result["categories"][cat] = []
+            for f in sorted(d.glob(f"*.{codec}")):
+                row, job = check(cat, f, cli_out)
+                rows.append(row)
+                pending.append((row, None if job is None else cli_pool.submit(job, warm_pool)))
+                if on_file is not None:
+                    on_file(cat, row)
+        for row, fut in pending:
+            if fut is not None:
+                row["cli"] = fut.result()
+            finalize(row)
+    finally:
+        if cli_pool is not None:
+            cli_pool.shutdown()
+        if warm_pool is not None:
+            warm_pool.close()
+
+    rows = [(cat, r) for cat, rs in result["categories"].items() for r in rs]
+    total = len(rows)
+    passed = sum(r["status"] == "pass" for _, r in rows)
+    n_dec = sum(r["parity"] == "decode" for _, r in rows)
+    wall = time.perf_counter() - t_run0
+    result["summary"] = {"total": total, "passed": passed, "failed": total - passed,
+                         "decode_parity": n_dec, "reject_parity": total - n_dec,
+                         "wall_seconds": round(wall, 1),
+                         "cli_mode": "warm-pool" if cli else "none"}
+    title = f"{codec.upper()} conformance report (esp_audio_libs_tpu_torch)"
+    lines = [title, "=" * len(title),
+             f"{passed}/{total} passed ({n_dec} decode-parity, {total - n_dec} reject-parity); "
+             f"suite wall {wall:.1f}s (cli={result['summary']['cli_mode']}, device={device})",
+             f"checks: {checks}; no C-oracle comparison", ""]
+    for cat, r in rows:
+        label = r["status"].upper()
+        if r["status"] == "pass" and r["parity"] == "reject":
+            label = "PASS-reject"   # visibly weaker than decode parity
+        lines.append(f"[{cat}] {r['file']}: {label} ({row_text(r)}, {r['seconds']}s)")
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{report}.txt").write_text("\n".join(lines) + "\n")
+    (out / f"{report}.json").write_text(json.dumps(result, indent=2))
+    return result
 
 
 def main(argv=None) -> int:

@@ -29,18 +29,16 @@ Exit code 0 when every file passes.
 from __future__ import annotations
 
 import argparse
-import json
-import struct
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 
 from ..models.flac import FLACDecoder
 from ..utils.errors import FLACDecoderResult
-from .cli_worker import WarmCliPool
+from .cli_worker import run_conformance, wav_data_payload
 
 REPO = Path(__file__).resolve().parent.parent.parent
 TOOLS = REPO / "tools"
@@ -319,18 +317,6 @@ def generate_corpus(root: Path):
     (root / "faulty" / "wrong_sample_rate.flac").write_bytes(b13)
 
 
-def wav_data_payload(path: Path) -> bytes:
-    """The data chunk payload of a RIFF/WAVE file."""
-    raw = path.read_bytes()
-    pos = 12  # past RIFF size WAVE
-    while pos + 8 <= len(raw):
-        tag, size = raw[pos:pos + 4], struct.unpack("<I", raw[pos + 4:pos + 8])[0]
-        if tag == b"data":
-            return raw[pos + 8:pos + 8 + size]
-        pos += 8 + size + (size & 1)
-    return b""
-
-
 def drive_cli(path: Path, out_dir: Path, expect_fail: bool, ref_pcm, warm_pool):
     """Drive the user CLI, ``flac_to_wav``, through the warm pool and read
     its result as the reference harness reads its example binary's
@@ -351,11 +337,10 @@ def drive_cli(path: Path, out_dir: Path, expect_fail: bool, ref_pcm, warm_pool):
     return ref_pcm is None or wav_data_payload(out_wav) == ref_pcm
 
 
-def check_file(path: Path, expect_fail: bool, device="cuda", cli_out: Path | None = None,
-               cli_pool=None, warm_pool=None):
+def check_file(path: Path, expect_fail: bool, device="cuda", cli_out: Path | None = None):
     """The checks of one file (the JAX runner's ``test_single_file`` without
-    the C oracle). With ``cli_pool`` the CLI drive is submitted there and
-    left in ``result["_cli_future"]``."""
+    the C oracle). Returns its row and, with ``cli_out``, its CLI drive (a
+    function of the warm pool, :func:`drive_cli`), else None."""
     blob = path.read_bytes()
     t0 = time.perf_counter()
     result = {"file": path.name, "md5": None, "reference_match": None,
@@ -372,21 +357,24 @@ def check_file(path: Path, expect_fail: bool, device="cuda", cli_out: Path | Non
     # decoded): different strengths, and every row says which it reached
     result["parity"] = "decode" if decode_ok and pcm else "reject"
 
+    job = None
     if cli_out is not None:
-        ref_arg = pcm if decode_ok and not expect_fail else None
-        if cli_pool is not None:
-            result["_cli_future"] = cli_pool.submit(drive_cli, path, cli_out, expect_fail,
-                                                    ref_arg, warm_pool)
-        else:
-            result["cli"] = drive_cli(path, cli_out, expect_fail, ref_arg, warm_pool)
+        job = partial(drive_cli, path, cli_out, expect_fail,
+                      pcm if decode_ok and not expect_fail else None)
 
     if expect_fail:
-        ok = not decode_ok and result["cli"] in (None, True)
+        ok = not decode_ok
     else:
-        ok = decode_ok and result["md5"] in (None, True) and result["cli"] in (None, True)
+        ok = decode_ok and result["md5"] in (None, True)
     result["status"] = "pass" if ok else "fail"
     result["seconds"] = round(time.perf_counter() - t0, 3)
-    return result
+    return result, job
+
+
+def _cli_verdict(row) -> None:
+    """A CLI drive that failed fails its file."""
+    if row["cli"] is False:
+        row["status"] = "fail"
 
 
 def expect_fail(category: str, name: str) -> bool:
@@ -399,62 +387,13 @@ def run_suite(corpus: Path, out: Path, device="cuda", cli: bool = True, workers:
     """Run every ``*.flac`` of the corpus's category folders; write
     ``test_report.{txt,json}`` under ``out``. Returns the report dict
     (``categories``: per category the per-file results; ``summary``)."""
-    t_run0 = time.perf_counter()
-    cli_pool = warm_pool = None
-    if cli:
-        warm_pool = WarmCliPool("flac", n_workers=workers, device=device)
-        cli_pool = ThreadPoolExecutor(max_workers=workers)
-    report = {"categories": {}, "summary": {}}
-    try:
-        for cat in CATEGORIES:
-            d = corpus / cat
-            if not d.exists():
-                continue
-            cli_out = None
-            if cli:
-                cli_out = out / "wav" / cat
-                cli_out.mkdir(parents=True, exist_ok=True)
-            report["categories"][cat] = [
-                check_file(f, expect_fail(cat, f.name), device, cli_out, cli_pool, warm_pool)
-                for f in sorted(d.glob("*.flac"))]
-        # resolve the concurrent CLI drives, then finalize the statuses
-        for results in report["categories"].values():
-            for r in results:
-                fut = r.pop("_cli_future", None)
-                if fut is not None:
-                    r["cli"] = fut.result()
-                    if not r["cli"]:
-                        r["status"] = "fail"
-    finally:
-        if cli_pool is not None:
-            cli_pool.shutdown()
-        if warm_pool is not None:
-            warm_pool.close()
-
-    rows = [(cat, r) for cat, rs in report["categories"].items() for r in rs]
-    total = len(rows)
-    passed = sum(r["status"] == "pass" for _, r in rows)
-    n_dec = sum(r["parity"] == "decode" for _, r in rows)
-    wall = time.perf_counter() - t_run0
-    report["summary"] = {"total": total, "passed": passed, "failed": total - passed,
-                         "decode_parity": n_dec, "reject_parity": total - n_dec,
-                         "wall_seconds": round(wall, 1),
-                         "cli_mode": "warm-pool" if cli else "none"}
-    lines = ["FLAC conformance report (esp_audio_libs_tpu_torch)", "=" * 50,
-             f"{passed}/{total} passed ({n_dec} decode-parity, {total - n_dec} reject-parity); "
-             f"suite wall {wall:.1f}s (cli={report['summary']['cli_mode']}, device={device})",
-             "checks: STREAMINFO MD5 and the flac_to_wav CLI; no C-oracle comparison", ""]
-    for cat, r in rows:
-        label = r["status"].upper()
-        if r["status"] == "pass" and r["parity"] == "reject":
-            label = "PASS-reject"   # visibly weaker than decode parity
-        lines.append(f"[{cat}] {r['file']}: {label} "
-                     f"(md5={r['md5']}, ref={r['reference_match']}, cli={r['cli']}, "
-                     f"{r['seconds']}s)")
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "test_report.txt").write_text("\n".join(lines) + "\n")
-    (out / "test_report.json").write_text(json.dumps(report, indent=2))
-    return report
+    return run_conformance(
+        corpus, out,
+        lambda cat, f, cli_out: check_file(f, expect_fail(cat, f.name), device, cli_out),
+        codec="flac", categories=CATEGORIES, report="test_report",
+        checks="STREAMINFO MD5 and the flac_to_wav CLI", finalize=_cli_verdict,
+        row_text=lambda r: f"md5={r['md5']}, ref={r['reference_match']}, cli={r['cli']}",
+        device=device, cli=cli, workers=workers)
 
 
 def main(argv=None) -> int:

@@ -273,6 +273,7 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.cli.serve_fleet\n"
             "import esp_audio_libs_tpu_torch.cli.cli_worker\n"
             "import esp_audio_libs_tpu_torch.cli.flac_conformance\n"
+            "import esp_audio_libs_tpu_torch.cli.mp3_conformance\n"
             "import esp_audio_libs_tpu_torch.cli.profile_serve_flac\n"
             "import esp_audio_libs_tpu_torch.parallel.mesh\n"
             "import esp_audio_libs_tpu_torch.parallel.sequence\n"

@@ -10,11 +10,17 @@ No MP3 encoder exists here, so inputs are built frame by frame:
 - :func:`craft_tonal_frame`: side info and Huffman-coded spectra (table 1)
   with different global gains per granule: frames that decode to nonzero
   PCM, the only inputs that catch a wrong parameter or state in synthesis;
+- :func:`craft_reservoir_stream`: tonal frames whose main data lives in the
+  bit reservoir (real back-references, also across slots of different
+  sizes);
+- :func:`make_free_frame`: one free-bitrate (bitrate index 0) frame;
 - :func:`fuzz_stream`, :func:`tonal_stream` and :func:`mixed_stream`:
   whole streams of them.
 
-A copy, importing nothing of JAX, of the builders in tests/test_mp3_decode.py
-and tests/test_mp3_coverage.py, which the JAX package's tests keep. Put
+A copy, importing nothing of JAX, of the builders in tests/test_mp3_decode.py,
+tests/test_mp3_coverage.py and tests/test_mp3_modes.py, which the JAX
+package's tests keep; each draws from its rng in the same order, so a seed
+gives the same bytes. Put
 ``tools/`` on ``sys.path`` to import it (it uses ``flacgen.BitWriter``).
 """
 
@@ -25,8 +31,9 @@ from flacgen import BitWriter
 
 from esp_audio_libs_tpu_torch.runtime.tables import mp3_tables
 
-__all__ = ["BATCH_CFGS", "WINDOWS", "craft_tonal_frame", "crafted_frame", "frame_sizes",
-           "fuzz_frame", "fuzz_stream", "make_header", "mixed_stream", "tonal_stream"]
+__all__ = ["BATCH_CFGS", "WINDOWS", "craft_reservoir_stream", "craft_tonal_frame",
+           "crafted_frame", "frame_sizes", "fuzz_frame", "fuzz_stream", "make_free_frame",
+           "make_header", "mixed_stream", "tonal_stream"]
 
 # the formats of the JAX package's batched-decoder tests: MPEG-1 mono, stereo,
 # joint mid-side, MPEG-2 stereo
@@ -115,11 +122,12 @@ def crafted_frame(cfg, block_type, mixed, rng):
     return make_header(**cfg) + si + pad
 
 
-def _craft_tonal_parts(cfg, rng, gains, nb_pairs):
+def _craft_tonal_parts(cfg, rng, gains, nb_pairs, main_data_begin=0):
     """(side info, main data) of a frame whose granules carry nonzero
     Huffman spectra (ISO/IEC 11172-3 Table B.7 table 1: (0,0)='1',
     (1,0)='01', (0,1)='001', (1,1)='000', each nonzero value with a sign
-    bit) and per-granule global gains."""
+    bit) and per-granule global gains. ``main_data_begin`` goes into the
+    side info as it is (:func:`craft_reservoir_stream` computes it)."""
     mpeg1 = cfg["ver_bits"] == 3
     mono = cfg["mode"] == 3
     nch, ngr = (1 if mono else 2), (2 if mpeg1 else 1)
@@ -142,7 +150,7 @@ def _craft_tonal_parts(cfg, rng, gains, nb_pairs):
     main.align()
 
     si = BitWriter()
-    si.write(0, 9 if mpeg1 else 8)                      # mainDataBegin
+    si.write(main_data_begin, 9 if mpeg1 else 8)        # mainDataBegin
     si.write(0, (5 if mono else 3) if mpeg1 else (1 if mono else 2))
     if mpeg1:
         for _ in range(nch * 4):
@@ -179,6 +187,64 @@ def craft_tonal_frame(cfg, rng, gains=(120, 200), nb_pairs=16):
     body = side + main_bytes
     assert len(body) <= slots - 4
     return make_header(**cfg) + body + bytes(slots - 4 - len(body))
+
+
+def craft_reservoir_stream(cfgs, rng, gains=(200, 235), nb_pairs=16):
+    """Tonal frames, one per entry of ``cfgs`` (the bitrate index may vary:
+    VBR), whose main data lives in the bit reservoir and decodes: the main
+    data of all frames packs tightly into the frames' main-data regions, so
+    frame i's ``mainDataBegin`` points back into bytes that earlier frames
+    carry (the reference assembles them in mainBuf, mp3_decoder.cpp:
+    8774-8802). Every frame's main data is drawn first; the side info is
+    then written again with the packed ``mainDataBegin`` from a throwaway
+    ``default_rng(0)`` (it only draws sign bits of discarded main data)."""
+    mains, regions = [], []
+    for cfg in cfgs:
+        side, main_bytes = _craft_tonal_parts(cfg, rng, gains, nb_pairs)
+        slots, side_bytes = frame_sizes(cfg["ver_bits"], cfg["bitrate_idx"], cfg["sr_idx"],
+                                        cfg["mode"])
+        assert len(side) == side_bytes
+        mains.append(main_bytes)
+        regions.append(slots - 4 - side_bytes)
+
+    # main data of frame i at p_i = q_i - mdb_i: mdb_i bytes back into the
+    # earlier regions; the gaps are stuffing, as an encoder's padding keeps
+    # mainDataBegin inside its field
+    G = bytearray(sum(regions))
+    mdbs = []
+    q = prev_end = 0
+    for i, (cfg, region, main_bytes) in enumerate(zip(cfgs, regions, mains)):
+        mdb_max = 511 if cfg["ver_bits"] == 3 else 255
+        # as deep into the reservoir as the field and the free bytes allow
+        # (frame 0 is self-contained: q = 0)
+        mdb = min(q - prev_end + len(main_bytes) + 23 * i, mdb_max, q - prev_end)
+        p = q - mdb
+        assert p >= prev_end, (i, p, prev_end)
+        G[p:p + len(main_bytes)] = main_bytes
+        prev_end = p + len(main_bytes)
+        mdbs.append(mdb)
+        q += region
+    assert any(m > 0 for m in mdbs[1:]), "reservoir stream degenerated to self-contained frames"
+
+    frames = []
+    q = 0
+    for cfg, region, mdb in zip(cfgs, regions, mdbs):
+        side, _ = _craft_tonal_parts(cfg, np.random.default_rng(0), gains, nb_pairs,
+                                     main_data_begin=mdb)
+        frames.append(make_header(**cfg) + side + bytes(G[q:q + region]))
+        q += region
+    return b"".join(frames)
+
+
+def make_free_frame(payload_slots, padding=0, mode=3, sr_idx=0, tonal_rng=None):
+    """One free-bitrate (bitrate index 0) MPEG-1 frame of ``payload_slots``
+    main-data bytes: silent side info, or with ``tonal_rng`` a tonal frame's
+    body (:func:`craft_tonal_frame`) cut or zero-padded to that size."""
+    cfg = dict(ver_bits=3, bitrate_idx=9, sr_idx=sr_idx, mode=mode, mode_ext=0)
+    _, side = frame_sizes(3, 9, sr_idx, mode)
+    body = craft_tonal_frame(cfg, tonal_rng)[4:] if tonal_rng is not None else bytes(side)
+    hdr = make_header(ver_bits=3, bitrate_idx=0, sr_idx=sr_idx, padding=padding, mode=mode)
+    return hdr + body[:side + payload_slots].ljust(side + payload_slots, b"\x00")
 
 
 def fuzz_stream(cfg, seed, n_frames=3):
