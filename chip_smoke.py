@@ -10,7 +10,9 @@ Phases, each printing a line:
   1. device  - the card's name and power limit (nvidia-smi); fails without CUDA.
   2. build   - libeal_host.so (native/build_host.sh's compile line, built
                atomically) and the CUDA kernels
-               (csrc/*.cu, nvcc for sm_90a), timed.
+               (csrc/*.cu, nvcc for sm_90a), timed; the MXU tier's operators
+               probed from this checkout's f32 mirror on the host's CPU (or
+               loaded from the cache named by a hash of the probe's sources).
   3. kernels - each kernel against its plain PyTorch version on the card at
                the slice's shapes and at a ragged one (37 rows, unaligned
                starts), TF32 off; the band-range kernel against its plain
@@ -92,6 +94,34 @@ Phases, each printing a line:
                larger of its bytes at 3.35 TB/s and its integer operations at
                PEAK_INT32, mp3_work) at B = 256 and 2048 x G = 16 (8 frames
                of MPEG-1 44.1 kHz stereo).
+ 11b. mp3 fast tiers - the relaxed tiers' kernels (fast="mirror":
+               csrc/mp3_granules_f32.cu; fast="mxu": the two step kernels of
+               csrc/mp3_mxu_step.cu around two FP32 GEMMs a granule): (a)
+               mp3_granules_f32 and (b) mp3_mxu_pre / mp3_mxu_post (at every
+               granule step, each step continuing from the kernel's results)
+               against their plain versions on phase 11's parsed runs (its
+               formats and frame kinds, two runs in a row, the escape tier):
+               PCM within 1 LSB, f32 state within MP3F_STATE_RTOL of its
+               scale, the rest equal; the operators are probed on the host's
+               CPU in phase 2; (c) timed by
+               direct launches (CUDA events) at B = 256 and 2048 x G = 16
+               (phase 11's tonal run): mp3_granules_f32 beside its bound (its
+               bytes at 3.35 TB/s or FP32 operations at 67 TFLOP/s,
+               mp3f32_work) and, at B = 256, its plain version; the MXU run,
+               its prelude and its steps (ms a granule), each step kernel
+               beside its bytes bound (mxu_step_bytes: what this step's data
+               needs) and plain version, the two GEMMs alone,
+               and the step's bound (its GEMM flop at 67 TFLOP/s); (d) phase
+               13's 256 streams x 8 frames through BatchedMP3Decoder(fast=
+               "mirror") and (fast="mxu"), decode_run(to_device=True):
+               consumed and next_pos equal to the exact tier's, PCM within
+               the hot-clipping bound of the exact tier's (these frames
+               saturate about a quarter of the samples, where the exact tier
+               truncates guard bits: at most 4 LSB on under 0.5 % of the
+               samples) and within 1 LSB of the CPU plain path on 8 streams,
+               launches counted over 5 timed calls (1 mp3_granules_f32 a
+               call; 1 mp3_mxu_pre and 1 mp3_mxu_post a granule), decoded
+               Msamples/s beside the exact tier's (median of 5 calls).
  12. mp3 corpus - every corpus/independent_mp3 file decoded frame by frame by
                MP3Decoder(device="cuda"): error ladder, consumed bytes and PCM
                SHA256 equal to its signatures.json (pinned by the reference).
@@ -202,12 +232,12 @@ each while the card runs the phases before them; a phase that ends while
 phase 18's is still building says so in its seconds line.
 Phase 16's three corpora are built by three child processes started
 together after phase 15, and phase 16 starts when all are ready.
-The launch counts of phases 4-5, of phase 8's and 13's timed calls, of
-each path of phase 10, of phase 14's DSP path, of phase 15's pipelined
+The launch counts of phases 4-5, of phase 8's, 11b(d)'s and 13's timed
+calls, of each path of phase 10, of phase 14's DSP path, of phase 15's pipelined
 pass, of each serving mode of phase 16 and of phase 20's runner, each set
 to 0 just before and read just after, show that the main paths ran through
-the kernels; phases 8, 10, 13, 14, 15, 16(b), 19 and 20 (its long streams)
-assert their exact counts. Every phase prints its seconds.
+the kernels; phases 8, 10, 11b(d), 13, 14, 15, 16(b), 19 and 20 (its long
+streams) assert their exact counts. Every phase prints its seconds.
 The last three lines are the card line, one JSON object describing the
 kernels, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before those
@@ -231,6 +261,7 @@ PEAK_FP32 = 67e12             # H100 SXM FP32 outside the tensor cores (an FMA c
 BIQUAD_CHAIN_OPS = 3          # exact biquad step chain: b1*o1, two subtractions
 CASCADE_B, CASCADE_T = 2048, 65536   # bench_all.py's biquad_cascade_2x_stereo
 CASCADE_TOL = dict(rtol=1e-4, atol=1e-5)   # tests/test_biquad.py:65, fast vs exact
+MP3F_STATE_RTOL = 1e-5   # the relaxed MP3 tiers' f32 state against the plain versions, of its scale
 
 
 def fail(msg: str) -> None:
@@ -1440,6 +1471,461 @@ def mp3_kernel_phase():
             "bound_ms_b2048": res[8 * MP3_STREAMS]["bound_ms"]}
 
 
+# ---------------------------------------------------- MP3: the relaxed tiers
+
+# FP32 operations of one granule and channel of the mirror tier, counted from
+# csrc/mp3_granules_f32.cu (a multiply or an add counts 1, as the 67 TFLOP/s
+# peak counts an FMA as 2); its integer work (the parameter expansion,
+# masks, addressing) is left out. Only the samples the stages need are
+# counted, as in mp3_work.
+MP3F_DEQUANT_OPS = 30       # per nonzero sample: log2f, exp2f (about 10 each), exponent, clamps
+MP3F_STEREO_OPS = 1         # per position below both bounds, and channel, with joint stereo
+MP3F_BUTTERFLY_OPS = 6      # per butterfly: 4 multiplies, 2 adds
+MP3F_IMDCT_OPS = 240        # per computed block: 29 suffix sums, 2 idct9 of 48, window 9 x 12
+MP3F_FDCT_OPS = 296         # per slot: 96 + 164 in the two passes, 36 adds of the FIFO values
+MP3F_PQMF_OPS = 8 * 4 + 4   # per output: 8 taps x (2 multiplies, 2 adds), round and clip
+
+
+def mp3f32_work(huff, side):
+    """The work of one mp3_granules_f32 launch, from its operands: (bytes,
+    bound ms, bound_by, FP32 operations, bytes ms, operations ms). Bytes as
+    mp3_work (the f32 state is as wide as the int32 one); operations
+    MP3F_*_OPS at PEAK_FP32."""
+    import torch
+    G, B, nch = huff.shape[:3]
+    nbytes = (huff.numel() * 2 + side.numel() * 4 + 3069 * 4 + 2 * B * (576 + 6 + 2176) * 4
+              + B * G * 576 * nch * 2)
+    n_nonzero = int(((huff.to(torch.int32) & 0x7FFF) > 0).sum())
+    nzb = side[..., :nch].to(torch.int64).clamp(0, 576)
+    blocks = torch.clamp((nzb + 7) // 18 + 1, max=32)
+    joint = ((side[..., 3 * nch + 232] != 0) * nzb.amax(-1)).sum() if nch == 2 else 0
+    units = G * B * nch
+    n_ops = (n_nonzero * MP3F_DEQUANT_OPS + int(joint) * 2 * MP3F_STEREO_OPS
+             + int((blocks - 1).sum()) * 8 * MP3F_BUTTERFLY_OPS + int(blocks.sum()) * MP3F_IMDCT_OPS
+             + units * 18 * MP3F_FDCT_OPS + units * 576 * MP3F_PQMF_OPS)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32 * 1e3
+    if ops_ms >= bytes_ms:
+        return nbytes, ops_ms, "operations", n_ops, bytes_ms, ops_ms
+    return nbytes, bytes_ms, "bytes", n_ops, bytes_ms, ops_ms
+
+
+MP3F_KERNELS = ("mp3_granules_f32", "mp3_mxu_pre", "mp3_mxu_post")
+
+
+def mxu_step_bytes(ip, keep, B, nch):
+    """Bytes of one MXU granule step's two kernels on this step's data, each
+    input read once and each output written once. pre reads 27 of a block's
+    108 x-side products (the current window's 18 columns of A36 or A12 and 9
+    of C36 or C12) where the block is long or short (block < max(ip[:, 0],
+    ip[:, 1])) and none elsewhere, the parameters ``ip``, the overlap and the
+    other carried values (read and written), the overlap operator and the
+    channel's FIFO block (1088 floats), and writes the 1664-float GEMM row.
+    post reads the accumulators and only the written FIFO slots of ``newv``
+    (``keep`` [1088] the phase's survivor mask) and the mask, and writes
+    those slots and the int16 PCM."""
+    import torch
+    rows = B * nch
+    active = int(torch.clamp(torch.maximum(ip[:, 0], ip[:, 1]), 0, 32).sum())
+    pre = (active * 27 * 4 + rows * 5 * 4 + 2 * rows * (288 + 3) * 4 + 9 * 72 * 4
+           + rows * (1088 + 1664) * 4)
+    written = 1088 - int(keep.sum())
+    post = rows * (576 + 2 * written) * 4 + 1088 * 4 + rows * 576 * 2
+    return pre, post
+
+
+def mxu_step_flop(B, nch):
+    """FP32 flop of one MXU granule step's two GEMMs."""
+    return 2 * B * nch * (1664 * 576 + 576 * 1088)
+
+
+def mp3_fast_check(fmt, vindex, huff, side, state, label, esc=None):
+    """The mirror tier's kernel (through the escape form when ``esc`` holds
+    the int8 plane and its sideband) and the MXU tier's step kernels, each
+    against its plain version on the same CUDA tensors: PCM within 1 LSB,
+    f32 state within MP3F_STATE_RTOL of its largest magnitude, the rest
+    equal. The step kernels are held to theirs at every step, each step
+    continuing from the kernel's results. Returns (the mirror run's new
+    state, {kernel: [the worst absolute difference of its output (PCM in
+    LSB; for mp3_mxu_pre, which writes no PCM, its f32 outputs), the worst
+    f32 state difference relative to its scale]})."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import mp3_pipeline
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    ver, sr_idx, nch, cutoff = fmt
+    kw = dict(ver=ver, sr_idx=sr_idx, nch=nch, cutoff=cutoff)
+    worst = {k: [0, 0.0] for k in MP3F_KERNELS}
+
+    def close(got_pcm, want_pcm, got_st, want_st, what):
+        if got_pcm is not None:
+            d = int((got_pcm.to(torch.int32) - want_pcm.to(torch.int32)).abs().max())
+            worst[what][0] = max(worst[what][0], d)
+            if d > 1:
+                fail(f"{what} differs from its plain version by {d} LSB: {label}")
+        for a, b in zip(got_st, want_st):
+            if a.dtype == torch.float32:
+                err = float((a - b).abs().max())
+                rel = err / max(float(b.abs().max()), 1e-30)
+                worst[what][1] = max(worst[what][1], rel)
+                if got_pcm is None:
+                    worst[what][0] = max(worst[what][0], err)
+                if rel > MP3F_STATE_RTOL:
+                    fail(f"{what}: f32 state differs by {rel:.3g} of its scale: {label}")
+            elif not torch.equal(a, b):
+                fail(f"{what}: integer state differs from its plain version: {label}")
+
+    if esc is None:
+        got = mk.mp3_granules_f32_cuda(huff, side, *state, vindex, **kw)
+    else:
+        got = mp3_pipeline._granules_scan_esc_for(*fmt, fast="mirror")(*esc, side, *state, vindex)
+    want = mk.mp3_granules_f32_plain(huff, side, *state, vindex, **kw)
+    torch.cuda.synchronize()
+    close(got[0], want[0], got[1], want[1], "mp3_granules_f32")
+    if got[2].any():
+        fail(f"mp3_granules_f32 flagged the reference's undefined case: {label}")
+
+    real_pre, real_post = mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda
+
+    def pre(yx, ip, over, pt, pws, npv, vbuf, px, *, nch):
+        want = mp3mxu.mxu_pre_plain(yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        ofvc = real_pre(yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        torch.cuda.synchronize()
+        close(None, None, (ofvc, over, pt, pws, npv), want, "mp3_mxu_pre")
+        return ofvc
+
+    def post(acc, newv, vbuf, keep, out, *, nch):
+        want_pcm, want_vbuf = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
+        real_post(acc, newv, vbuf, keep, out, nch=nch)
+        torch.cuda.synchronize()
+        close(out, want_pcm, (vbuf,), (want_vbuf,), "mp3_mxu_post")
+
+    mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = pre, post
+    try:
+        if esc is None:
+            mp3mxu.mxu_run(huff, side, *state, vindex, **kw)
+        else:
+            mp3_pipeline._granules_scan_esc_for(*fmt, fast="mxu")(*esc, side, *state, vindex)
+    finally:
+        mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = real_pre, real_post
+    return got[1], worst
+
+
+def direct_launcher(name, *args):
+    """A function that launches C entry point ``name`` of the kernel library
+    with ``args`` (tensors become their pointers, prepared once) on the
+    current stream: the kernel alone, for timing; not counted."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    fn = getattr(kernels.library(), name)
+    ptrs = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*ptrs, stream) != 0:
+            fail(f"{name} refused its arguments")
+        launch.keep = args
+    return launch
+
+
+def mp3_fast_entry_points(streams):
+    """Phase 11b(e): the fleet's other entry points under each relaxed tier
+    on the card (``fast=True`` for the MXU tier): ``decode`` frame by frame,
+    ``decode_run`` on the host path, ``decode_run_pipelined`` and a fleet on
+    a 4-way mesh of the card, each within 1 LSB of one ``decode_run`` of the
+    same tier, consumed bytes equal; the mesh runs one launch per shard."""
+    import numpy as np
+
+    from esp_audio_libs_tpu_torch.models import BatchedMP3Decoder
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.parallel.mesh import stream_mesh
+    n, F = len(streams), 4
+
+    def pcm_of(results):
+        return [np.concatenate([np.asarray(p) for _, p, _ in r]).astype(np.int32)
+                for r in results]
+
+    def close(got, want, what):
+        if [len(g) for g in got] != [len(w) for w in want]:
+            fail(f"{what}: another PCM length than decode_run's")
+        d = max(int(np.abs(g - w).max(initial=0)) for g, w in zip(got, want))
+        if d > 1:
+            fail(f"{what}: {d} LSB from decode_run of the same tier")
+
+    for fast in ("mirror", True):
+        tier = BatchedMP3Decoder(n, fast=fast).tier
+        ref = BatchedMP3Decoder(n, fast=fast).decode_run(streams, F)
+        want = pcm_of(ref)
+        dec, pos, frames = BatchedMP3Decoder(n, fast=fast), [0] * n, [[] for _ in range(n)]
+        for _ in range(F):
+            got = dec.decode([s[p:] for s, p in zip(streams, pos)])
+            for i, (_, p, c) in enumerate(got):
+                frames[i].append((0, p, c))
+                pos[i] += c
+        close(pcm_of(frames), want, f"decode(fast={fast!r})")
+        runs = list(BatchedMP3Decoder(n, fast=fast).decode_run_pipelined(streams, F // 2, 2))
+        close([np.concatenate(p) for p in zip(*[pcm_of(r) for r in runs])], want,
+              f"decode_run_pipelined(fast={fast!r})")
+        mk.reset_launch_counts()
+        meshed = BatchedMP3Decoder(n, fast=fast, mesh=stream_mesh(["cuda:0"] * 4))
+        close(pcm_of(meshed.decode_run(streams, F)), want, f"a 4-way mesh, fast={fast!r}")
+        per_shard = (mk.mp3_granules_f32_cuda.launches if tier == "mirror"
+                     else mk.mp3_mxu_pre_cuda.launches // (2 * F))
+        if per_shard != 4:
+            fail(f"the mesh fleet (fast={fast!r}) made {per_shard} launches a run, expected 4")
+    print(f"mp3 fast tiers' entry points ({n} streams x {F} frames, fast='mirror' and True): "
+          f"decode frame by frame, decode_run_pipelined and a 4-way mesh of the card (4 launches "
+          f"a run) within 1 LSB of decode_run, consumed equal")
+
+
+def mp3_fast_phase():
+    """Phase 11b: the relaxed tiers' kernels. (a) mp3_granules_f32 and (b)
+    the MXU step kernels against their plain versions on phase 11's parsed
+    runs (its formats and frame kinds, two runs in a row, the escape tier);
+    (c) timed at B = 256 and 2048 x G = 16 (phase 11's tonal run) beside
+    their bounds and plain versions; (d) phase 13's fleet through
+    BatchedMP3Decoder(fast="mirror") and (fast="mxu"), decode_run(to_device=
+    True), against the exact tier, launches counted. Returns the three
+    kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from esp_audio_libs_tpu_torch.models import BatchedMP3Decoder, mp3_pipeline
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+
+    # (a, b) on phase 11's runs, from zero state and carried into a second run
+    mf = tools_import("mp3frames")
+    cfgs = mf.BATCH_CFGS + [dict(ver_bits=3, bitrate_idx=9, sr_idx=1, mode=1, mode_ext=3),
+                            dict(ver_bits=2, bitrate_idx=7, sr_idx=1, mode=1, mode_ext=1)]
+    n_runs, worst, shapes = 0, {k: [0, 0.0] for k in MP3F_KERNELS}, set()
+
+    def zero_state(B):
+        return (torch.zeros((B, 2, 288), device="cuda"), *mp3_zero_state(B, "cuda")[1:4],
+                torch.zeros((B, 2176), device="cuda"))
+
+    def note(w):
+        for k, (d, rel) in w.items():
+            worst[k] = [max(worst[k][0], d), max(worst[k][1], rel)]
+
+    for ci, cfg in enumerate(cfgs):
+        for kind, B, nf in (("mixed", 5, 8), ("fuzz", 7, 4)):
+            streams = mp3_streams(kind, B, 2 * nf, 100 * ci, cfg)
+            for fmt, vindex, huff, side in mp3_run_operands([s[: len(s) // 2] for s in streams],
+                                                            nf):
+                st, w = mp3_fast_check(fmt, vindex, huff, side, zero_state(huff.shape[1]),
+                                       f"{cfg} {kind} run 0")
+                note(w)
+                n_runs += 1
+                shapes.add((fmt[2], huff.shape[0], huff.shape[1]))
+                if huff.shape[1] != B:
+                    continue
+                for fmt2, _, huff2, side2 in mp3_run_operands([s[len(s) // 2:] for s in streams],
+                                                              nf):
+                    if huff2.shape[1] == B:
+                        note(mp3_fast_check(fmt2, mp3_pipeline._advance_vindex(vindex,
+                                                                               huff.shape[0]),
+                                            huff2, side2, st, f"{cfg} {kind} run 1")[1])
+                        n_runs += 1
+    esc_runs = 0
+    for fmt, vindex, huff, side in mp3_run_operands(mp3_streams("fuzz", 6, 4, 700), 4):
+        old = mp3_pipeline.ESC_MAX_DENSITY
+        mp3_pipeline.ESC_MAX_DENSITY = 1.0
+        try:
+            narrowed = mp3_pipeline._pack_huff8(huff.cpu().numpy())
+        finally:
+            mp3_pipeline.ESC_MAX_DENSITY = old
+        esc = tuple(torch.as_tensor(a, device="cuda") for a in narrowed)
+        note(mp3_fast_check(fmt, vindex, huff, side, zero_state(huff.shape[1]), "escape tier",
+                            esc=esc)[1])
+        esc_runs += 1
+    print(f"mp3 fast kernels: {n_runs} runs of {len(cfgs)} formats and {esc_runs} escape-tier "
+          f"runs, mp3_granules_f32 and both MXU step kernels (at every step) against their "
+          f"plain versions, PCM within 1 LSB and f32 state within {MP3F_STATE_RTOL} of its "
+          f"scale: "
+          + ", ".join(f"{k} {d:.3g} {'(f32 outputs)' if k == 'mp3_mxu_pre' else 'LSB'}, "
+                      f"{rel:.3g}" for k, (d, rel) in worst.items())
+          + f"; (channels, G, B) {sorted(shapes)}; operators {mp3mxu.mxu_operators.origin}")
+
+    # (c) timing at phase 11's run shapes: B x G = 16, MPEG-1 44.1 kHz stereo tonal frames
+    (fmt, vindex, huff, side), = mp3_run_operands(mp3_streams("tonal", MP3_STREAMS, MP3_FRAMES,
+                                                              5000), MP3_FRAMES)
+    ver, sr_idx, nch, cutoff = fmt
+    kw = dict(ver=ver, sr_idx=sr_idx, nch=nch, cutoff=cutoff)
+    ops = mp3mxu.device_operators(torch.device("cuda"))
+    res = {}
+    for B in (MP3_STREAMS, 8 * MP3_STREAMS):
+        h = huff.repeat(1, B // MP3_STREAMS, 1, 1).contiguous()
+        sd = side.repeat(1, B // MP3_STREAMS, 1).contiguous()
+        G = h.shape[0]
+        state = zero_state(B)
+        st = tuple(t.clone() for t in state)
+        pcm = torch.empty((B, G, 576 * nch), dtype=torch.int16, device="cuda")
+        f32_ms = cuda_time(direct_launcher(
+            "eal_mp3_granules_f32", h, sd, mk.format_consts(ver, sr_idx, h.device), *st, pcm, G, B,
+            nch, vindex, cutoff), iters=20)
+        f32_wrapper_ms = cuda_time(lambda: mk.mp3_granules_f32_cuda(h, sd, *state, vindex, **kw))
+        nbytes, f32_bound, f32_by, n_ops, bytes_ms, ops_ms = mp3f32_work(h, sd)
+        r = res[B] = dict(ms=f32_ms, bound_ms=f32_bound, bound_by=f32_by)
+        # the MXU tier: the whole run, its prelude, the step loop, each step
+        # kernel by direct launches, and the two GEMMs alone
+        run_ms = cuda_time(lambda: mp3mxu.mxu_run(h, sd, *state, vindex, **kw), iters=5, warmup=1)
+        with torch.no_grad():
+            prelude_ms = cuda_time(lambda: mp3mxu.mxu_prelude(h, sd, **kw), iters=5, warmup=1)
+            yx, ip = mp3mxu.mxu_prelude(h, sd, **kw)
+            st2 = tuple(t.clone() for t in state)
+            steps_ms = cuda_time(lambda: mp3mxu.mxu_steps(yx, ip, st2, vindex, pcm, nch=nch),
+                                 iters=5, warmup=1)
+            rows = B * nch
+            ofvc = torch.empty((rows, mk.MXU_IN), device="cuda")
+            acc = torch.empty((rows, 576), device="cuda")
+            newv = torch.empty((rows, 1088), device="cuda")
+            pre_ms = cuda_time(direct_launcher("eal_mp3_mxu_pre", yx[0], ip[0], *st2[:5],
+                                               ops["PX"], ofvc, B, nch), iters=20)
+            post_ms = cuda_time(direct_launcher("eal_mp3_mxu_post", acc, newv, st2[4],
+                                                ops["keep"][vindex], pcm, pcm.stride(0), B,
+                                                nch), iters=20)
+
+            def gemms():
+                torch.matmul(ofvc, ops["S"][vindex], out=acc)
+                torch.matmul(ofvc[:, :576], ops["W"][vindex], out=newv)
+            gemm_ms = cuda_time(gemms, iters=20)
+            gemm_one_ms = cuda_time(lambda: torch.matmul(ofvc, ops["S"][vindex], out=acc),
+                                    iters=20)
+        pre_bytes, post_bytes = mxu_step_bytes(ip[0], ops["keep"][vindex], B, nch)
+        flop = mxu_step_flop(B, nch)
+        step_bound = max(flop / PEAK_FP32 * 1e3, (pre_bytes + post_bytes) / PEAK_BYTES * 1e3)
+        r.update(run_ms=run_ms, prelude_ms=prelude_ms, step_ms=steps_ms / G, pre_ms=pre_ms,
+                 post_ms=post_ms, gemm_ms=gemm_ms, pre_bound=pre_bytes / PEAK_BYTES * 1e3,
+                 post_bound=post_bytes / PEAK_BYTES * 1e3, step_bound=step_bound)
+        if B == MP3_STREAMS:   # the plain versions, at B = 256 only
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            mk.mp3_granules_f32_plain(h, sd, *state, vindex, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            r["plain_ms"] = start.elapsed_time(end)
+            r["pre_plain_ms"] = cuda_time(lambda: mp3mxu.mxu_pre_plain(
+                yx[0], ip[0], *st2, ops["PX"], nch=nch), iters=5, warmup=1)
+            r["post_plain_ms"] = cuda_time(lambda: mp3mxu.mxu_post_plain(
+                acc, newv, st2[4], ops["keep"][vindex], nch=nch), iters=5, warmup=1)
+        print(f"kernel mp3_granules_f32 B={B} G={G} stereo (MPEG-1 44.1 kHz, {B * G} granules, "
+              f"{B * G * 1152 / 1e6:.3f} Msamples): {f32_ms:.4f} ms per direct launch (one "
+              f"wrapper call {f32_wrapper_ms:.4f} ms"
+              + (f"; plain version {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
+              + f"), {B * G * 1152 / f32_ms / 1e3:.1f} decoded Msamples/s; bound "
+              f"{f32_bound:.4f} ms ({f32_by}; bytes: {nbytes} B at 3.35 TB/s take "
+              f"{bytes_ms:.4f} ms, FP32 operations: {n_ops} at 67 TFLOP/s take {ops_ms:.4f} ms), "
+              f"{f32_bound / f32_ms:.1%} of it")
+        print(f"mxu tier B={B} G={G} stereo: run {run_ms:.3f} ms ({run_ms / G:.4f} ms a granule: "
+              f"prelude {prelude_ms:.3f} ms a run, steps {steps_ms / G:.4f} ms a granule, 2 step "
+              f"launches and 2 GEMMs each); mp3_mxu_pre {pre_ms:.4f} ms per direct launch "
+              f"(bound {r['pre_bound']:.4f}, bytes: {pre_bytes} B), mp3_mxu_post {post_ms:.4f} ms "
+              f"(bound {r['post_bound']:.4f}, bytes: {post_bytes} B)"
+              + (f", plain {r['pre_plain_ms']:.4f} / {r['post_plain_ms']:.4f} ms"
+                 if "pre_plain_ms" in r else "")
+              + f"; the two GEMMs alone {gemm_ms:.4f} ms a step ([{rows}, 1664] x [1664, 576] "
+              f"alone {gemm_one_ms:.4f}); step bound {step_bound:.4f} ms ({flop / 1e9:.3f} GFLOP "
+              f"at 67 TFLOP/s), {step_bound / (steps_ms / G):.1%} of the step")
+        del yx, ip, ofvc, acc, newv
+        torch.cuda.empty_cache()
+
+    # (d) phase 13's fleet through each tier, decode_run(to_device=True)
+    Bs, F = MP3_STREAMS, MP3_FRAMES
+    streams = mp3_streams("tonal", Bs, F, 9000)
+    n_in = Bs * F * 1152 * 2
+    exact = BatchedMP3Decoder(Bs)
+    ref = exact.decode_run(streams, F, to_device=True)
+    pcm_ref = ref[0].cpu().numpy().astype(np.int32)
+    sat = float(np.mean(np.abs(pcm_ref) >= 32767))
+    times = {"exact": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        exact.decode_run(streams, F, to_device=True)
+        torch.cuda.synchronize()
+        times["exact"].append(time.perf_counter() - t0)
+    launches = {}
+    for tier in ("mirror", "mxu"):
+        bat = BatchedMP3Decoder(Bs, fast=tier)
+        got = bat.decode_run(streams, F, to_device=True)
+        torch.cuda.synchronize()
+        d = np.abs(got[0].cpu().numpy().astype(np.int32) - pcm_ref)
+        if got[1] != ref[1] or got.next_pos != ref.next_pos:
+            fail(f"fast={tier!r}: consumed bytes or next_pos differ from the exact tier's")
+        # these frames clip (sat of the samples at full scale), where the
+        # exact tier truncates guard bits: the hot-clipping bound applies
+        if d.max() > 4 or np.mean(d > 1) >= 0.005:
+            fail(f"fast={tier!r}: {int(d.max())} LSB from the exact tier, "
+                 f"{np.mean(d > 1):.3%} of samples over 1 LSB")
+        cpu = BatchedMP3Decoder(CMP_STREAMS, device="cpu", fast=tier).decode_run(
+            streams[:CMP_STREAMS], F, to_device=True)[0].numpy().astype(np.int32)
+        d_cpu = np.abs(got[0][:CMP_STREAMS].cpu().numpy().astype(np.int32) - cpu)
+        if d_cpu.max() > 1:
+            fail(f"fast={tier!r}: the card's PCM is {int(d_cpu.max())} LSB from the CPU plain path")
+        times[tier] = []
+        mk.reset_launch_counts()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            bat.decode_run(streams, F, to_device=True)
+            torch.cuda.synchronize()
+            times[tier].append(time.perf_counter() - t0)
+        launches[tier] = {"mp3_granules": mk.mp3_granules_cuda.launches,
+                          "mp3_granules_f32": mk.mp3_granules_f32_cuda.launches,
+                          "mp3_mxu_pre": mk.mp3_mxu_pre_cuda.launches,
+                          "mp3_mxu_post": mk.mp3_mxu_post_cuda.launches}
+        G = F * 2
+        want = ({"mp3_granules": 0, "mp3_granules_f32": 5, "mp3_mxu_pre": 0, "mp3_mxu_post": 0}
+                if tier == "mirror" else
+                {"mp3_granules": 0, "mp3_granules_f32": 0, "mp3_mxu_pre": 5 * G,
+                 "mp3_mxu_post": 5 * G})
+        if launches[tier] != want:
+            fail(f"decode_run(fast={tier!r}) launched {launches[tier]}, expected {want}")
+        print(f"mp3 fast={tier!r} {Bs} streams x {F} frames: within {int(d.max())} LSB of the "
+              f"exact tier ({np.mean(d > 1):.4%} of samples over 1 LSB, {np.mean(d > 0):.2%} "
+              f"differ; {sat:.1%} of the exact PCM at full scale: the hot-clipping bound, at "
+              f"most 4 LSB on under 0.5 %), consumed and next_pos equal, {int(d_cpu.max())} LSB "
+              f"from the CPU plain path on {CMP_STREAMS} streams; launches in 5 calls "
+              f"{launches[tier]}")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print("mp3 tiers decode_run(to_device) at the median of 5 calls: "
+          + ", ".join(f"{k} {n_in / med[k] / 1e6:.1f} decoded Msamples/s ({med[k] * 1e3:.2f} ms, "
+                      f"min {min(times[k]) * 1e3:.2f}, max {max(times[k]) * 1e3:.2f})"
+                      for k in ("exact", "mirror", "mxu")))
+
+    mp3_fast_entry_points(streams[:CMP_STREAMS])
+
+    r, r8 = res[MP3_STREAMS], res[8 * MP3_STREAMS]
+    def common(name):
+        return {"route": "cuda", "max_abs_err": worst[name][0], "state_rel_err": worst[name][1],
+                "library_ms": None}
+    return [
+        {"name": "mp3_granules_f32", **common("mp3_granules_f32"),
+         "source": "esp_audio_libs_tpu_torch/csrc/mp3_granules_f32.cu",
+         "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:271",
+         "launches": launches["mirror"]["mp3_granules_f32"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "ms_b2048": r8["ms"], "bound_ms_b2048": r8["bound_ms"],
+         "decode_msps": n_in / med["mirror"] / 1e6, "exact_decode_msps": n_in / med["exact"] / 1e6},
+        {"name": "mp3_mxu_pre", **common("mp3_mxu_pre"),
+         "source": "esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu",
+         "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:315",
+         "launches": launches["mxu"]["mp3_mxu_pre"], "ms": r["pre_ms"],
+         "plain_ms": r["pre_plain_ms"], "bound_ms": r["pre_bound"], "bound_by": "bytes",
+         "ms_b2048": r8["pre_ms"],
+         "step": {"ms_per_granule": r["step_ms"], "gemm_ms_per_granule": r["gemm_ms"],
+                  "launches_per_granule": 2, "bound_ms": r["step_bound"],
+                  "bound_by": "operations", "run_ms": r["run_ms"], "prelude_ms": r["prelude_ms"],
+                  "ms_per_granule_b2048": r8["step_ms"], "gemm_ms_b2048": r8["gemm_ms"],
+                  "decode_msps": n_in / med["mxu"] / 1e6}},
+        {"name": "mp3_mxu_post", **common("mp3_mxu_post"),
+         "source": "esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu",
+         "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:315",
+         "launches": launches["mxu"]["mp3_mxu_post"], "ms": r["post_ms"],
+         "plain_ms": r["post_plain_ms"], "bound_ms": r["post_bound"], "bound_by": "bytes",
+         "ms_b2048": r8["post_ms"]}]
+
+
 def mp3_corpus_phase():
     """Phase 12: every corpus/independent_mp3 file decoded frame by frame by
     MP3Decoder(device="cuda"): the per-frame error and consumed ladder and
@@ -1563,12 +2049,16 @@ def mp3_composed_phase(reps=5):
     return launches
 
 
-def mp3_phases():
-    """Phases 11-13; returns the kernels-line entry of mp3_granules."""
+def mp3_phases(lap):
+    """Phases 11-13 (11b: the relaxed tiers); returns the kernels-line
+    entries of mp3_granules and of the relaxed tiers' kernels."""
     entry = mp3_kernel_phase()
+    lap("11 mp3 kernel")
+    fast = mp3_fast_phase()
+    lap("11b mp3 fast tiers")
     mp3_corpus_phase()
     entry["launches"] = mp3_composed_phase()["mp3_granules"]
-    return entry
+    return entry, fast
 
 
 # ------------------------------------------------------------------ DSP
@@ -2311,30 +2801,41 @@ def mp3_long_kernel_check(corpus_dir, sigs) -> None:
     (MPEG-1) or 128 (MPEG-2): one block for the whole run. The first
     LONG_KERNEL_RUNS runs of each LONG_KERNEL_CHECKS stream, parsed on one
     fleet each from where the last run stopped (the host reservoir carried),
-    launched from the last run's state on the card (overlap, vbuf ring,
-    FIFO phase) and held byte for byte to the plain version on the same
-    CUDA tensors. Run k starts after the bytes the signature ladder's
-    attempts of run k - 1 consumed (these runs end on no error, so their
-    frames lie back to back: a sync word must start there)."""
+    launched one run a launch from the last run's state on the card
+    (overlap, vbuf ring, FIFO phase), and held byte for byte to the plain
+    version on the same CUDA tensors. The plain version takes the runs that
+    start at one FIFO phase together, each run one stream of its fleet (the
+    streams of a fleet are independent, and a run of 128 or 256 granules
+    ends at the phase it started at): it takes 0.3-0.45 s a granule step
+    here, about as long at B = 2 as at B = 1. Run k starts after the bytes
+    the signature ladder's attempts of run k - 1 consumed (these runs end on
+    no error, so their frames lie back to back: a sync word must start
+    there)."""
     import torch
 
     from esp_audio_libs_tpu_torch.cli import mp3_conformance as mc
     from esp_audio_libs_tpu_torch.models import mp3_pipeline
     from esp_audio_libs_tpu_torch.models.batch import BatchedMP3Decoder, parsed_runs
     from esp_audio_libs_tpu_torch.models.mp3 import MP3Decoder
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
 
     t0 = time.perf_counter()
     for name, G in LONG_KERNEL_CHECKS.items():
         blob = (corpus_dir / "long" / name).read_bytes()
         ladder = sigs[name]["ladder"]
         bat = BatchedMP3Decoder(1, device="cpu")
-        state, pos = mp3_zero_state(1, "cuda"), 0
+        state, pos, runs = mp3_zero_state(1, "cuda"), 0, []
         for run in range(LONG_KERNEL_RUNS):
             (fmt, vindex, _, h, sd), = parsed_runs(bat, [blob[pos:]], mc.LONG_CHUNK)
             if h.shape[:2] != (G, 1):
                 fail(f"long/{name} run {run}: a launch of (G, B) {h.shape[:2]}, not ({G}, 1)")
-            state = mp3_check(fmt, vindex, torch.as_tensor(h, device="cuda"),
-                              torch.as_tensor(sd, device="cuda"), state, f"long/{name} run {run}")
+            if runs and fmt != runs[0][0]:
+                fail(f"long/{name} run {run}: format {fmt}, run 0's {runs[0][0]}")
+            h, sd = torch.as_tensor(h, device="cuda"), torch.as_tensor(sd, device="cuda")
+            got = mk.mp3_granules_cuda(h, sd, *state, vindex, ver=fmt[0], sr_idx=fmt[1],
+                                       nch=fmt[2], cutoff=fmt[3])
+            runs.append((fmt, vindex, h, sd, state, got))
+            state = got[1]
             bat._vindex[0] = mp3_pipeline._advance_vindex(vindex, G)
             attempts = ladder[run * mc.LONG_CHUNK:(run + 1) * mc.LONG_CHUNK]
             if any(e != 0 for e, _, _ in attempts):
@@ -2342,10 +2843,28 @@ def mp3_long_kernel_check(corpus_dir, sigs) -> None:
             pos += sum(c for _, c, _ in attempts)
             if MP3Decoder.find_sync_word(blob[pos:]) != 0:
                 fail(f"long/{name}: no sync word where run {run + 1} starts ({pos})")
+        ver, sr_idx, nch, cutoff = runs[0][0]
+        for v in sorted({r[1] for r in runs}):
+            idx = [k for k, r in enumerate(runs) if r[1] == v]
+            rs = [runs[k] for k in idx]
+            want = mk.mp3_granules_plain(
+                torch.cat([r[2] for r in rs], 1), torch.cat([r[3] for r in rs], 1),
+                *(torch.cat(ts) for ts in zip(*(r[4] for r in rs))), v, ver=ver,
+                sr_idx=sr_idx, nch=nch, cutoff=cutoff)
+            torch.cuda.synchronize()
+            got = (torch.cat([r[5][0] for r in rs], 1),
+                   *(torch.cat(ts) for ts in zip(*(r[5][1] for r in rs))),
+                   torch.cat([r[5][2] for r in rs]))
+            for what, a, b in zip(("pcm", "over", "prev_type", "prev_win_switch", "num_prev",
+                                   "vbuf", "ref_undef"), got, (want[0], *want[1], want[2])):
+                if not torch.equal(a, b):
+                    fail(f"mp3_granules differs from its plain version in {what}: long/{name} "
+                         f"runs {idx}")
     print(f"mp3 kernel at the long loop's shapes: the first {LONG_KERNEL_RUNS} runs of "
           f"{', '.join(f'long/{n} (B = 1 x G = {g})' for n, g in LONG_KERNEL_CHECKS.items())}, "
           f"state carried from run to run on the card, byte-identical to the plain version "
-          f"(PCM, state, UB flag); {time.perf_counter() - t0:.1f} s")
+          f"(PCM, state, UB flag; a stream's runs in one plain pass); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def mp3_conformance_phase(corpus_dir: str, out_dir: str) -> int:
@@ -2505,6 +3024,9 @@ def launch_counts() -> dict:
             "biquad_exact": bk.biquad_df1_cuda.launches + bk.iir2_sequential_cuda.launches,
             "flac_frame": fk.flac_frame_cuda.launches,
             "mp3_granules": mk.mp3_granules_cuda.launches,
+            "mp3_granules_f32": mk.mp3_granules_f32_cuda.launches,
+            "mp3_mxu_pre": mk.mp3_mxu_pre_cuda.launches,
+            "mp3_mxu_post": mk.mp3_mxu_post_cuda.launches,
             "dotprod_exact": dk.dotprod_exact_cuda.launches}
 
 
@@ -3029,7 +3551,11 @@ def main() -> None:
     kernels.build(verbose=True)
     kernels.library()
     t2 = time.perf_counter()
-    print(f"build: libeal_host.so {t1 - t0:.1f} s, CUDA kernels {t2 - t1:.1f} s")
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    mp3mxu.mxu_operators()
+    t3 = time.perf_counter()
+    print(f"build: libeal_host.so {t1 - t0:.1f} s, CUDA kernels {t2 - t1:.1f} s, the MXU tier's "
+          f"operators {mp3mxu.mxu_operators.origin} on the host's CPU in {t3 - t2:.1f} s")
     clock = [time.perf_counter()]
 
     def lap(label):
@@ -3167,9 +3693,9 @@ def main() -> None:
 
     # 11-13. MP3
     torch.cuda.empty_cache()
-    mp3 = mp3_phases()
+    mp3, mp3_fast = mp3_phases(lap)
 
-    lap("11-13 mp3")
+    lap("12-13 mp3")
 
     # 14. DSP
     torch.cuda.empty_cache()
@@ -3246,7 +3772,7 @@ def main() -> None:
          "launches": launches["polyphase_banded"] + launches["polyphase_fused16"],
          "max_abs_err": 0, "ms": ms_r, "ms_wrapper": ms_rw, "plain_ms": ms_rp,
          "bound_ms": bound_r, "bound_by": "bytes", "library_ms": None},
-        flac, *exact_entries, mp3, dot, *sharded_entries]}
+        flac, *exact_entries, mp3, *mp3_fast, dot, *sharded_entries]}
     for e in kernels_line["kernels"][:-len(sharded_entries)]:
         n = mesh_launches.get(e["name"], 0)
         if e["name"] == "band_ranges":

@@ -182,26 +182,46 @@ class BatchedMP3Decoder:
         the stream axis over it, and a dispatch group whose size divides it
         runs one granule-kernel launch per shard (``_group_mesh``); other
         groups run on its first device.
+      fast: the granule tier (``mp3_pipeline._tier``). ``False`` (the
+        default): the exact integer pipeline above. ``"mirror"``: every
+        value of the exact tier mirrored in f32 (ops/mp3fast.py), one
+        launch of csrc/mp3_granules_f32.cu per group and slice. ``True`` or
+        ``"mxu"``: the IMDCT and the subband synthesis as probed linear
+        operators (ops/mp3mxu.py; built on the CPU at the first run, or
+        loaded from their cache), two step kernels and two FP32 GEMMs per
+        granule. Both relaxed tiers are within 1 LSB of the exact tier on
+        decodable streams (at most 4 LSB on under 0.5 % of samples where
+        the audio clips hard), not bit-exact; errors, consumed bytes and
+        ``next_pos`` are the exact tier's. Their ``over`` and ``vbuf`` are
+        f32 (snapshots cross between tiers by value, see :meth:`set_state`),
+        and ``last_frame_reference_defined`` stays True: they do not track
+        the reference's undefined case. The JAX package's fleet keeps
+        ``bool(fast)``, so there ``fast="mirror"`` runs its MXU tier; here
+        it runs the mirror tier, and ``fast=True`` runs the MXU tier in
+        both.
     """
 
-    def __init__(self, n_streams: int, *, device="cuda", mesh=None):
+    def __init__(self, n_streams: int, *, device="cuda", mesh=None, fast=False):
         self.device = _fleet_device(device, mesh, "BatchedMP3Decoder")
         if mesh is not None and n_streams % mesh.size:
             raise ValueError(f"n_streams={n_streams} must be a multiple of the mesh size "
                              f"({mesh.size}) for an even stream split")
         self.mesh = mesh
+        self.tier = mp3_pipeline._tier(fast)
+        # the dtype of the carried overlap and FIFO: f32 under a relaxed tier
+        self._num_dtype = torch.int32 if self.tier == "exact" else torch.float32
         self.decoders = [MP3Decoder(device=self.device) for _ in range(n_streams)]
         self.last_frame_reference_defined = [True] * n_streams
 
-        def zeros(*shape):
-            return place(torch.zeros(shape, dtype=torch.int32, device=self.device), mesh)
+        def zeros(*shape, dtype=torch.int32):
+            return place(torch.zeros(shape, dtype=dtype, device=self.device), mesh)
 
         N = n_streams
-        self._over = zeros(N, 2, 288)
+        self._over = zeros(N, 2, 288, dtype=self._num_dtype)
         self._pt = zeros(N, 2)
         self._pws = zeros(N, 2)
         self._npv = zeros(N, 2)
-        self._vbuf = zeros(N, 2176)
+        self._vbuf = zeros(N, 2176, dtype=self._num_dtype)
         self._vindex = [0] * N
 
     def _state(self):
@@ -247,8 +267,9 @@ class BatchedMP3Decoder:
 
     def reset_stream(self, s: int) -> None:
         """Recycle slot ``s`` for a new stream: a fresh native front-end (bit
-        reservoir, sync state), a zeroed device state row and FIFO phase 0;
-        the other slots are untouched, and a split state stays split."""
+        reservoir, sync state), a zeroed device state row (in the fleet's
+        dtypes) and FIFO phase 0; the other slots are untouched, and a split
+        state stays split."""
         self.decoders[s] = MP3Decoder(device=self.device)
         self.last_frame_reference_defined[s] = True
         self._vindex[s] = 0
@@ -267,7 +288,9 @@ class BatchedMP3Decoder:
         batch-stacked device state as numpy (one synchronisation), the FIFO
         phases and the reference-UB flags. Restore with :meth:`set_state`
         into a ``BatchedMP3Decoder`` (of either package) of the same width;
-        decoding then continues byte-identically to an uninterrupted run."""
+        decoding then continues byte-identically to an uninterrupted run of
+        the same tier. ``over`` and ``vbuf`` are in the fleet's own dtype
+        (f32 under a relaxed tier)."""
         state = tuple(a.gather(self.device) if isinstance(a, Sharded) else a
                       for a in self._state())
         pinned = self.device.type == "cuda"
@@ -287,10 +310,11 @@ class BatchedMP3Decoder:
         its device state to ``self.device`` (split over the mesh, if the
         fleet has one: a snapshot moves between fleets with and without a
         mesh). A snapshot of another width
-        raises ``ValueError``, a bad native image ``RuntimeError``. An f32
-        snapshot (the JAX package's ``fast`` tier mirrors the exact tier's
-        integer values in f32) is rounded to int32 by value, as JAX's
-        ``set_state`` rounds it."""
+        raises ``ValueError``, a bad native image ``RuntimeError``. ``over``
+        and ``vbuf`` cross between tiers by value, as in JAX's ``set_state``
+        (a relaxed tier mirrors the exact tier's integer values in f32): an
+        f32 snapshot is rounded to int32 in an exact fleet, and any snapshot
+        is cast to f32 in a relaxed one."""
         n = len(self.decoders)
         if len(state["native"]) != n:
             raise ValueError(f"state holds {len(state['native'])} streams, decoder has {n}")
@@ -299,11 +323,14 @@ class BatchedMP3Decoder:
 
         def upload(a, shape, by_value=False):
             a = np.asarray(a)
-            if by_value and a.dtype.kind == "f":
+            dtype = np.int32
+            if by_value and self._num_dtype == torch.float32:
+                dtype = np.float32
+            elif by_value and a.dtype.kind == "f":
                 a = np.rint(np.clip(a, -2 ** 31, 2 ** 31 - 1))
             if a.shape != shape:
                 raise ValueError(f"state array of shape {a.shape}, expected {shape}")
-            return place(torch.as_tensor(a.astype(np.int32), device=self.device), self.mesh)
+            return place(torch.as_tensor(a.astype(dtype), device=self.device), self.mesh)
 
         self._over = upload(state["over"], (n, 2, 288), by_value=True)
         self._pt = upload(state["pt"], (n, 2))
@@ -371,7 +398,8 @@ class BatchedMP3Decoder:
         device state; commits the state and the FIFO phase. Returns (pcm,
         ref_undef) on the device."""
         pcm, new_state, ref_undef = mp3_pipeline.decode_granules_run(
-            *arrays, self._gather_state(streams), vindex, mesh=self._group_mesh(len(streams)))
+            *arrays, self._gather_state(streams), vindex, mesh=self._group_mesh(len(streams)),
+            fast=self.tier)
         self._scatter_state(streams, new_state)
         new_vindex = mp3_pipeline._advance_vindex(vindex, arrays[0].shape[1])
         for s in streams:

@@ -18,8 +18,17 @@ block gets its own escape sideband with block-local positions
 (:func:`_pack_huff8_sharded`), the carried state stays split, and the
 granule kernel launches once per shard.
 
-The JAX package's relaxed-precision tiers (``fast``, ``mxu``) are not
-ported: they are within 1 LSB only and were slower than this tier.
+The relaxed-precision tiers (``fast=``) run the same runs on other
+arithmetic, within 1 LSB of this tier on decodable streams: ``"mirror"``
+(:func:`_granule_body_fast`, ops/mp3fast.py: every value of the exact tier
+mirrored in f32) in one launch of ``ops.mp3_kernels.mp3_granules_f32_cuda``
+(csrc/mp3_granules_f32.cu) a run, and ``"mxu"`` (``True``;
+ops/mp3mxu.py: the IMDCT and the subband synthesis as probed linear
+operators) as ``ops.mp3mxu.mxu_run``: the
+dequantizer and the x-side IMDCT product once for the whole run, then per
+granule two step kernels (csrc/mp3_mxu_step.cu) around two FP32 GEMMs.
+Their carried overlap and FIFO are f32; the rest of the state is the exact
+tier's, and no tier tracks the reference's undefined case but the exact one.
 """
 
 from __future__ import annotations
@@ -27,8 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import mp3dsp, mp3imdct, mp3subband
-from ..ops.mp3_kernels import mp3_granules_cuda
+from ..ops import mp3dsp, mp3fast, mp3imdct, mp3subband
+from ..ops.mp3_kernels import mp3_granules_cuda, mp3_granules_f32_cuda
 from ..parallel.mesh import Sharded, is_split, shard_streams, shard_streams_axis
 from ..runtime import transport
 from ..runtime.tables import mp3_tables
@@ -92,6 +101,13 @@ def _pack_huff8(huff16: np.ndarray):
     return None if narrowed is None else (narrowed[0], narrowed[1][0], narrowed[2][0])
 
 
+def _widen16(huff_g):
+    """The int16-packed spectra (sign in bit 15) -> sign-in-MSB int32."""
+    v = huff_g.to(torch.int32)            # sign-extends the bit-15 flag
+    mag = v & 0x7FFF
+    return torch.where(v < 0, mag | INT_MIN, mag)
+
+
 def _granule_body(huff_g, nzb_in, compact, maps, over, prev_type, prev_win_switch, num_prev,
                   vbuf, block_type, mixed, vindex, ref_undef, *, nch, cutoff):
     """One granule for B streams, plain PyTorch: the body of the whole-run
@@ -111,11 +127,8 @@ def _granule_body(huff_g, nzb_in, compact, maps, over, prev_type, prev_win_switc
     prev_win_switch, num_prev, vbuf, vindex, ref_undef).
     """
     B = huff_g.shape[0]
-    v = huff_g.to(torch.int32)            # sign-extends the bit-15 flag
-    mag = v & 0x7FFF
-    huff = torch.where(v < 0, mag | INT_MIN, mag)
     hp = expand_hp_device(compact, maps, nch)
-    dq = mp3dsp.dequantize_granule(huff, nzb_in, hp, nch=nch)
+    dq = mp3dsp.dequantize_granule(_widen16(huff_g), nzb_in, hp, nch=nch)
     x = dq["x"].reshape(B * nch, 576)
     gb_in = dq["gb"][:, :nch]
     undef = (gb_in == 31) & ((dq["x"][:, :nch] != 0).any(-1) | (over[:, :nch] != 0).any(-1))
@@ -140,6 +153,36 @@ def _granule_body(huff_g, nzb_in, compact, maps, over, prev_type, prev_win_switc
     return pcm, over, prev_type, prev_win_switch, num_prev, vbuf, vindex, ref_undef
 
 
+def _granule_body_fast(huff_g, nzb_in, compact, maps, over, prev_type, prev_win_switch,
+                       num_prev, vbuf, block_type, mixed, vindex, *, nch, cutoff):
+    """One granule of the mirror tier for B streams, plain PyTorch: the body
+    of the whole-run loop that csrc/mp3_granules_f32.cu runs on the card.
+
+    Arguments as :func:`_granule_body` without ``ref_undef`` (the tier has
+    no guard bits to track), with ``over`` and ``vbuf`` f32. Returns (pcm
+    int16 ``[B, 576 * nch]``, over, prev_type, prev_win_switch, num_prev,
+    vbuf, vindex).
+    """
+    B = huff_g.shape[0]
+    hp = expand_hp_device(compact, maps, nch)
+    dq = mp3fast.dequantize_granule_fast(_widen16(huff_g), nzb_in, hp, nch=nch)
+    out, new_over, _, n_out, cws = mp3fast.imdct_granule_fast(
+        dq["x"].reshape(B * nch, 576), over[:, :nch].reshape(B * nch, 32, 9),
+        dq["nzb"][:, :nch].reshape(-1), block_type, mixed, prev_type[:, :nch].reshape(-1),
+        prev_win_switch[:, :nch].reshape(-1), torch.full_like(block_type, cutoff),
+        num_prev[:, :nch].reshape(-1))
+
+    over, prev_type = over.clone(), prev_type.clone()
+    prev_win_switch, num_prev = prev_win_switch.clone(), num_prev.clone()
+    over[:, :nch] = new_over.reshape(B, nch, 288)
+    prev_type[:, :nch] = block_type.reshape(B, nch)
+    prev_win_switch[:, :nch] = cws.reshape(B, nch)
+    num_prev[:, :nch] = n_out.reshape(B, nch)
+
+    pcm, vbuf = mp3fast.subband_granule_fast(out.reshape(B, nch, 18, 32), vbuf, vindex, nch=nch)
+    return pcm, over, prev_type, prev_win_switch, num_prev, vbuf, (vindex - 9) & 7
+
+
 def _granules_scan_for(ver: int, sr_idx: int, nch: int, cutoff: int):
     """The whole-run scan of one format: ``scan_fn(huff_gs, side_gs, over,
     prev_type, prev_win_switch, num_prev, vbuf, vindex0)``.
@@ -155,6 +198,53 @@ def _granules_scan_for(ver: int, sr_idx: int, nch: int, cutoff: int):
                                  vbuf, int(vindex0), ver=ver, sr_idx=sr_idx, nch=nch,
                                  cutoff=cutoff)
     return scan_fn
+
+
+def _granules_scan_fast_for(ver: int, sr_idx: int, nch: int, cutoff: int):
+    """The mirror tier's counterpart of :func:`_granules_scan_for`: the
+    same operands and results, ``over`` and ``vbuf`` carried in f32 (an
+    int32 state is cast by value), ref_undef all False. On the card: one
+    launch of ``mp3_granules_f32_cuda``; on the CPU: its plain version, a
+    loop of :func:`_granule_body_fast`."""
+    def scan_fn(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev, vbuf, vindex0):
+        return mp3_granules_f32_cuda(huff_gs, side_gs, over.to(torch.float32), prev_type,
+                                     prev_win_switch, num_prev, vbuf.to(torch.float32),
+                                     int(vindex0), ver=ver, sr_idx=sr_idx, nch=nch,
+                                     cutoff=cutoff)
+    return scan_fn
+
+
+def _granules_scan_mxu_for(ver: int, sr_idx: int, nch: int, cutoff: int):
+    """The MXU tier's counterpart of :func:`_granules_scan_for`
+    (``ops.mp3mxu.mxu_run``): the same operands and results as
+    :func:`_granules_scan_fast_for`. The probed operators are built (or
+    loaded from their cache) here, at the first run."""
+    from ..ops import mp3mxu
+
+    def scan_fn(huff_gs, side_gs, over, prev_type, prev_win_switch, num_prev, vbuf, vindex0):
+        return mp3mxu.mxu_run(huff_gs, side_gs, over.to(torch.float32), prev_type,
+                              prev_win_switch, num_prev, vbuf.to(torch.float32), int(vindex0),
+                              ver=ver, sr_idx=sr_idx, nch=nch, cutoff=cutoff)
+    return scan_fn
+
+
+def _tier(fast) -> str:
+    """The ``fast`` tier selector: False or None -> ``"exact"`` (the integer
+    pipeline), ``"mirror"`` -> the f32 value mirror (ops/mp3fast.py), True
+    or ``"mxu"`` -> the probed-operator form (ops/mp3mxu.py). A tier's own
+    name selects it too."""
+    if fast is False or fast is None or fast == "exact":
+        return "exact"
+    if fast == "mirror":
+        return "mirror"
+    if fast is True or fast == "mxu":
+        return "mxu"
+    raise ValueError(f"fast={fast!r}: expected False, True, 'mirror' or 'mxu'")
+
+
+def _scan_builder(tier: str):
+    return {"exact": _granules_scan_for, "mirror": _granules_scan_fast_for,
+            "mxu": _granules_scan_mxu_for}[tier]
 
 
 def _widen_esc16(huff8_gs):
@@ -174,12 +264,12 @@ def _esc_fixup_flat(h16, esc_pos, esc_val):
     return flat[:n].reshape(h16.shape)
 
 
-def _granules_scan_esc_for(ver: int, sr_idx: int, nch: int, cutoff: int):
-    """Escape-sideband form of :func:`_granules_scan_for`:
+def _granules_scan_esc_for(ver: int, sr_idx: int, nch: int, cutoff: int, fast=False):
+    """Escape-sideband form of the ``fast`` tier's scan:
     ``esc_fn(huff8_gs, esc_pos, esc_val, side_gs, *state, vindex0)``. The
     int8 plane widens and the escapes scatter back on the device (torch
     ops), then the same scan runs, so only the transport narrows."""
-    scan_fn = _granules_scan_for(ver, sr_idx, nch, cutoff)
+    scan_fn = _scan_builder(_tier(fast))(ver, sr_idx, nch, cutoff)
 
     def esc_fn(huff8_gs, esc_pos, esc_val, *rest):
         return scan_fn(_esc_fixup_flat(_widen_esc16(huff8_gs), esc_pos, esc_val), *rest)
@@ -241,16 +331,18 @@ def decode_granules_batch(huff, params, sf, frame, sfjs, states, vindex, ngr, de
     return _to_host(pcm), new_states, ~_to_host(ref_undef)
 
 
-def decode_granules_batch_dev(huff, params, sf, frame, sfjs, dev_state, vindex, ngr):
+def decode_granules_batch_dev(huff, params, sf, frame, sfjs, dev_state, vindex, ngr,
+                              fast=False):
     """Device-resident variant: ``dev_state`` is a tuple of stacked tensors
     (over [B, 2, 288], prev_type [B, 2], prev_win_switch [B, 2], num_prev
     [B, 2], vbuf [B, 2176]) on the device that runs the granules. Returns
-    (pcm [B, ngr * 576 * nch], new dev_state, ref_undef bool [B]) there."""
+    (pcm [B, ngr * 576 * nch], new dev_state, ref_undef bool [B]) there.
+    ``fast`` selects the tier (:func:`_tier`)."""
     G = ngr
     frame_g = np.repeat(np.asarray(frame)[:, None], max(G, 1), axis=1)
     sfjs_g = np.repeat(np.asarray(sfjs)[:, None], max(G, 1), axis=1)
     return decode_granules_run(huff[:, :G], params[:, :G], sf[:, :G], frame_g[:, :G],
-                               sfjs_g[:, :G], dev_state, vindex)
+                               sfjs_g[:, :G], dev_state, vindex, fast=fast)
 
 
 def run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g):
@@ -276,7 +368,8 @@ def run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g):
     return (ver, sr_idx, nch, cutoff), huff_gs, side_gs
 
 
-def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vindex, mesh=None):
+def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vindex, mesh=None,
+                        fast=False):
     """Synthesize a run of G granules (any mix of frames) for B
     format-uniform streams: one upload and one scan.
 
@@ -291,6 +384,8 @@ def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vind
     shard: every result is :class:`Sharded` along the stream axis;
     ``dev_state`` should already be split so (``BatchedMP3Decoder`` keeps
     it so). Without one the run is one block on ``dev_state``'s device.
+    ``fast`` selects the tier (:func:`_tier`); under a relaxed tier the
+    new ``over`` and ``vbuf`` are f32.
 
     Returns (pcm [B, G * 576 * nch], new dev_state, ref_undef bool [B]).
     """
@@ -313,11 +408,11 @@ def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vind
     narrowed = _pack_huff8_sharded(huff_gs, len(devices))
     if narrowed is not None:
         plane8, esc_pos, esc_val = narrowed
-        scan = _granules_scan_esc_for(*fmt)
+        scan = _granules_scan_esc_for(*fmt, fast=fast)
         operands = [(p, _put(esc_pos[i], d), _put(esc_val[i], d), side) for i, (d, p, side)
                     in enumerate(zip(devices, blocks(plane8), blocks(side_gs)))]
     else:
-        scan = _granules_scan_for(*fmt)
+        scan = _scan_builder(_tier(fast))(*fmt)
         operands = list(zip(blocks(huff_gs), blocks(side_gs)))
     outs = [scan(*ops, *state, vindex) for ops, state in zip(operands, states)]
     # [G, b, 576 * nch] -> [b, G * 576 * nch] per block

@@ -146,6 +146,9 @@ SIGNATURES = {
     "eal_mp3_granules": (C.c_int, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P]),
     "eal_dotprod_exact": (C.c_int, [_P, _LL, _P, _LL, _P, _LL, _I, _P]),
+    "eal_mp3_granules_f32": (C.c_int, [_P] * 9 + [_I] * 5 + [_P]),
+    "eal_mp3_mxu_pre": (C.c_int, [_P] * 9 + [_I, _I, _P]),
+    "eal_mp3_mxu_post": (C.c_int, [_P] * 5 + [_LL, _I, _I, _P]),
 }
 
 

@@ -16,7 +16,10 @@ chip_smoke.py checks too. The exact-mode kernels (csrc/biquad_exact.cu and
 csrc/polyphase_exact.cu) are held to their plain versions bit for bit
 (NaN positions equal, every other f32 bit pattern equal). The MP3 granule
 kernel (csrc/mp3_granules.cu) is held to its plain version byte for byte,
-new state included, on real parsed runs of tools/mp3frames.py streams.
+new state included, on real parsed runs of tools/mp3frames.py streams; the
+relaxed tiers' kernels (csrc/mp3_granules_f32.cu, csrc/mp3_mxu_step.cu) to
+theirs within 1 LSB of PCM and a relative tolerance of state, step by step
+for the MXU tier's two step kernels, with the escape tier and ragged B.
 The exact dot kernel (csrc/dotprod_exact.cu) is held to its plain version
 bit for bit on ragged, unaligned and subnormal operands, and the DSP layer
 (ops/dsp.py) and the MP3 fleet's pipelined runs and checkpoints on the card
@@ -1057,6 +1060,168 @@ def test_mp3_batched_decoder_on_card_equals_cpu(cuda, monkeypatch):
     assert card.last_frame_reference_defined == cpu.last_frame_reference_defined
     for a, b in zip(card._state(), cpu._state()):
         assert torch.equal(a.cpu(), b)
+
+
+# the relaxed tiers: f32 kernels held to their plain versions by tolerance
+# (nvcc contracts products and sums into FMAs; cuBLAS and the plain
+# version's products sum in other orders)
+FAST_STATE_RTOL = 1e-5   # of each f32 state tensor's largest magnitude
+
+
+def close_tensors(names, got, want, label):
+    """f32 tensors within FAST_STATE_RTOL of their largest magnitude, the
+    others equal."""
+    for name, a, b in zip(names, got, want):
+        if a.dtype == torch.float32:
+            err, scale = float((a - b.to(a.device)).abs().max()), float(b.abs().max())
+            assert err <= FAST_STATE_RTOL * max(scale, 1e-30), f"{label}: {name} {err} of {scale}"
+        else:
+            assert torch.equal(a, b.to(a.device)), f"{label}: {name} differs"
+
+
+def close_pcm(got, want, label):
+    d = (got.to(torch.int32) - want.to(got.device).to(torch.int32)).abs()
+    assert int(d.max()) <= 1, f"{label}: PCM differs by {int(d.max())}"
+
+
+def close_mp3_run(got, want, label):
+    """PCM within 1 LSB, f32 state within FAST_STATE_RTOL, the rest equal."""
+    close_pcm(got[0], want[0], label)
+    close_tensors(("over", "prev_type", "prev_win_switch", "num_prev", "vbuf"), got[1], want[1],
+                  label)
+
+
+def random_fast_state(n, gen, dev, scale=1.0):
+    return tuple(t.to(dev) for t in (
+        torch.randn((n, 2, 288), generator=gen) * 1e5 * scale,
+        (torch.randint(0, 4, (n, 2), generator=gen, dtype=torch.int32) * int(scale)),
+        torch.zeros((n, 2), dtype=torch.int32),
+        (torch.randint(0, 33, (n, 2), generator=gen, dtype=torch.int32) * int(scale)),
+        torch.randn((n, 2176), generator=gen) * 1e5 * scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_i", range(len(MP3_CFGS)))
+@pytest.mark.parametrize("B,n_frames,fuzz", [(5, 8, False), (7, 4, True)])
+def test_mp3_granules_f32_kernel_matches_plain(cuda, cfg_i, B, n_frames, fuzz):
+    """The mirror tier's kernel against its plain version on the card, on
+    the exact kernel's runs: every block type, both FIFO parities, runs cut
+    short by errors, zero state, then random state (a ring whose copies
+    disagree) for the second run."""
+    cfg = MP3_CFGS[cfg_i]
+    gen = torch.Generator().manual_seed(cfg_i)
+    seen = set()
+    for r_i, run in enumerate(mp3_runs(cfg, B, n_frames, fuzz, 100 * cfg_i + B)):
+        for fmt, vindex, ids, huff_gs, side_gs in run:
+            state = random_fast_state(len(ids), gen, cuda, scale=float(r_i))
+            h, sd = (torch.as_tensor(a, device=cuda) for a in (huff_gs, side_gs))
+            kw = dict(ver=fmt[0], sr_idx=fmt[1], nch=fmt[2], cutoff=fmt[3])
+            got = mk.mp3_granules_f32_cuda(h, sd, *state, vindex, **kw)
+            want = mk.mp3_granules_f32_plain(h, sd, *state, vindex, **kw)
+            torch.cuda.synchronize()
+            close_mp3_run(got, want, f"run {r_i} G={h.shape[0]} B={len(ids)} v={vindex}")
+            assert not got[2].any()
+            seen.add(h.shape[0])
+    assert seen
+
+
+def mxu_steps_checked(monkeypatch, label):
+    """Route ``mp3mxu.mxu_run``'s two step kernels through wrappers that
+    also run each step's plain version on the same CUDA tensors and hold
+    the kernel to it, the run continuing from the kernel's results."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+
+    def pre(yx, ip, over, pt, pws, npv, vbuf, px, *, nch):
+        want = mp3mxu.mxu_pre_plain(yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        got = mk.mp3_mxu_pre_cuda(yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        torch.cuda.synchronize()
+        close_tensors(("[of | vc]", "over", "prev_type", "prev_win_switch", "num_prev"),
+                      (got, over, pt, pws, npv), want, f"{label}: pre")
+        return got
+
+    def post(acc, newv, vbuf, keep, out, *, nch):
+        want_pcm, want_vbuf = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
+        mk.mp3_mxu_post_cuda(acc, newv, vbuf, keep, out, nch=nch)
+        torch.cuda.synchronize()
+        close_pcm(out, want_pcm, f"{label}: post")
+        close_tensors(("vbuf",), (vbuf,), (want_vbuf,), f"{label}: post")
+
+    monkeypatch.setattr(mp3mxu, "mp3_mxu_pre_cuda", pre)
+    monkeypatch.setattr(mp3mxu, "mp3_mxu_post_cuda", post)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_i", range(len(MP3_CFGS)))
+@pytest.mark.parametrize("B", [5, 37])
+def test_mp3_mxu_step_kernels_match_plain(cuda, monkeypatch, cfg_i, B):
+    """Both step kernels of the MXU tier against their plain versions on
+    the card at every granule step of real runs (ragged B = 5 and 37), and
+    the whole run against the plain run on the CPU."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MP3_CFGS[cfg_i]
+    gen = torch.Generator().manual_seed(50 + cfg_i)
+    for r_i, run in enumerate(mp3_runs(cfg, B, 4, False, 200 * cfg_i + B)):
+        for fmt, vindex, ids, huff_gs, side_gs in run:
+            state = random_fast_state(len(ids), gen, cuda, scale=float(r_i))
+            h, sd = (torch.as_tensor(a, device=cuda) for a in (huff_gs, side_gs))
+            kw = dict(ver=fmt[0], sr_idx=fmt[1], nch=fmt[2], cutoff=fmt[3])
+            mxu_steps_checked(monkeypatch, f"run {r_i} B={len(ids)}")
+            got = mp3mxu.mxu_run(h, sd, *state, vindex, **kw)
+            monkeypatch.undo()
+            want = mp3mxu.mxu_run(h.cpu(), sd.cpu(), *(t.cpu() for t in state), vindex, **kw)
+            close_mp3_run(got, want, f"run {r_i} card vs CPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["mirror", "mxu"])
+def test_mp3_fast_kernels_escape_tier(cuda, monkeypatch, tier):
+    """The int8 + escape-sideband transport under each relaxed tier: the
+    card's run from the narrowed plane equals the plain run from the int16
+    plane within the tolerance."""
+    cfg = mf.BATCH_CFGS[1]
+    streams = [mf.fuzz_stream(cfg, 700 + i, 4) for i in range(6)]
+    for fmt, vindex, ids, huff_gs, side_gs in parsed_runs(
+            BatchedMP3Decoder(6, device="cpu"), streams, 4):
+        monkeypatch.setattr(mp3_pipeline, "ESC_MAX_DENSITY", 1.0)
+        narrowed = mp3_pipeline._pack_huff8(huff_gs)
+        assert narrowed is not None
+        plane8, pos, val = (torch.as_tensor(a, device=cuda) for a in narrowed)
+        state = random_fast_state(len(ids), torch.Generator().manual_seed(3), cuda, 0.0)
+        sd = torch.as_tensor(side_gs, device=cuda)
+        got = mp3_pipeline._granules_scan_esc_for(*fmt, fast=tier)(plane8, pos, val, sd, *state,
+                                                                   vindex)
+        want = mp3_pipeline._scan_builder(tier)(*fmt)(torch.as_tensor(huff_gs), sd.cpu(),
+                                                      *(t.cpu() for t in state), vindex)
+        close_mp3_run(got, want, f"escape tier, {tier}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["mirror", "mxu"])
+def test_mp3_fast_fleet_on_card_equals_cpu(cuda, monkeypatch, tier):
+    """decode_run of a relaxed fleet on the card (a mixed fleet of four
+    formats, sliced dispatch) within 1 LSB of the CPU fleet of the same
+    tier, errors and consumed equal; one f32 kernel launch per dispatch
+    slice and group (mirror), or two step kernels per granule (mxu)."""
+    streams = [mf.mixed_stream(c, 300 + i, 6, fuzz=False) for i, c in enumerate(mf.BATCH_CFGS)]
+    streams += [mf.tonal_stream(mf.BATCH_CFGS[1], 400 + i, 6) for i in range(3)]
+    monkeypatch.setattr(transport, "MP3_SLICE_PCM_BYTES", 2 * 12 * 576 * 2 * 2)
+    card = BatchedMP3Decoder(len(streams), fast=tier)
+    cpu = BatchedMP3Decoder(len(streams), device="cpu", fast=tier)
+    mk.reset_launch_counts()
+    got, want = card.decode_run(streams, 6), cpu.decode_run(streams, 6)
+    if tier == "mirror":
+        assert mk.mp3_granules_f32_cuda.launches == 5   # 3 one-stream groups + 2 slices
+    else:
+        assert mk.mp3_mxu_pre_cuda.launches == mk.mp3_mxu_post_cuda.launches > 0
+    assert mk.mp3_granules_cuda.launches == 0
+    for rg, rw in zip(got, want):
+        assert [(int(e), c) for e, _, c in rg] == [(int(e), c) for e, _, c in rw]
+        for (_, pg, _), (_, pw, _) in zip(rg, rw):
+            if pw is not None:
+                assert int(np.abs(pg.astype(np.int32) - pw).max(initial=0)) <= 1
+    assert card.last_frame_reference_defined == cpu.last_frame_reference_defined
+    assert got.next_pos == want.next_pos
 
 
 def dot_cases(device):

@@ -51,13 +51,18 @@ def gxx():
     return path
 
 
-def shim_source(cu: Path, tmp: Path) -> Path:
+def shim_source(cu: Path, tmp: Path, launches: int = 1) -> Path:
     """``cu`` as a C++ file in ``tmp`` that compiles against the shim: its
-    ``<<<>>>`` launch rewritten into ``eal_shim_launch``, and a
-    ``cuda_runtime.h`` there that includes tools/cuda_cpu_shim.h."""
+    ``launches`` ``<<<>>>`` launches rewritten into ``eal_shim_launch``, a
+    ``cuda_runtime.h`` there that includes tools/cuda_cpu_shim.h, and the
+    headers of csrc/ that it includes (unless ``tmp`` holds one already)."""
     (tmp / "cuda_runtime.h").write_text(f'#include "{REPO / "tools" / "cuda_cpu_shim.h"}"\n')
-    src, n = LAUNCH.subn(r"eal_shim_launch(\1, \2, \3, ", cu.read_text())
-    assert n == 1, f"{cu.name} should launch its kernel once"
+    text = cu.read_text()
+    for header in re.findall(r'#include "([\w.]+)"', text):
+        if not (tmp / header).exists() and (kernels.CSRC / header).exists():
+            shutil.copy(kernels.CSRC / header, tmp / header)
+    src, n = LAUNCH.subn(r"eal_shim_launch(\1, \2, \3, ", text)
+    assert n == launches, f"{cu.name} should launch {launches} kernel(s), launches {n}"
     out = tmp / (cu.stem + ".cpp")
     out.write_text(src)
     return out

@@ -2,9 +2,11 @@
 and ``BatchedMP3Decoder`` ``get_state``/``set_state`` exchanged both ways
 with the JAX package's decoders mid-stream (on a stream whose bit reservoir
 carries main data across the checkpoint, and on tonal streams) and
-continued byte for byte; a JAX ``fast=True`` fleet snapshot loaded by value;
+continued byte for byte; a JAX ``fast=True`` fleet snapshot loaded by value
+into an exact fleet, and a JAX snapshot of each relaxed tier loaded as it is
+into a port fleet of that tier;
 a width mismatch and a bad native image rejected; a restored FIFO ring whose
-two copies disagree; ``decode_run_pipelined`` against sequential
+two copies disagree (exact and mirror tier); ``decode_run_pipelined`` against sequential
 ``decode_run`` calls and against JAX's generator, host and ``to_device``;
 and the retry recipe after a transport failure mid-run.
 
@@ -32,6 +34,7 @@ from esp_audio_libs_tpu_torch.models import BatchedMP3Decoder, MP3Decoder
 from esp_audio_libs_tpu_torch.models import batch as batch_mod
 from esp_audio_libs_tpu_torch.runtime import transport
 from tests.test_checkpoint import _mp3_stream
+from tests.test_torch_mp3_fast import _assert_tol, jax_fleet, run_pcm
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tools"))
@@ -213,6 +216,53 @@ def test_fleet_loads_jax_fast_tier_snapshot_by_value():
     _same(_run_results(got), _run_results(want), "fast snapshot")
     assert got.next_pos == want.next_pos
     _same_fleet_state(port, exact)
+
+
+@pytest.mark.parametrize("tier", ["mirror", "mxu"])
+def test_fast_fleet_loads_jax_fast_tier_snapshot(tier):
+    """A JAX fleet of a relaxed tier snapshots mid-stream; a port fleet of
+    the same tier loads it without rounding (f32 kept as it is) and both
+    continue within 1 LSB, with identical errors, consumed bytes and
+    next_pos."""
+    rng = np.random.default_rng(5)
+    frames = [mf.craft_tonal_frame(TONAL, rng) for _ in range(6)]
+    head, tail = b"".join(frames[:3]), b"".join(frames[3:])
+    jd = jax_fleet(1, tier)
+    jd.decode_run([head], 3)
+    snap = jd.get_state()
+    assert snap["vbuf"].dtype == np.float32 and snap["over"].dtype == np.float32
+    port = BatchedMP3Decoder(1, device="cpu", fast=tier)
+    port.set_state(snap)
+    assert port._vbuf.dtype == torch.float32
+    np.testing.assert_array_equal(port._vbuf.numpy(), snap["vbuf"])
+    np.testing.assert_array_equal(port._over.numpy(), snap["over"])
+    pcm_j, errs_j, cons_j, nxt_j = run_pcm(jd, tail, 3)
+    pcm, errs, cons, nxt = run_pcm(port, tail, 3)
+    assert errs == errs_j and cons == cons_j and nxt == nxt_j
+    assert np.any(pcm)
+    _assert_tol(pcm, pcm_j, f"JAX {tier} snapshot -> port")
+
+
+def test_restored_ring_copies_disagree_mirror():
+    """The mirror tier reads a restored ring whose two copies disagree as
+    JAX's mirror FIFO does: within 1 LSB of JAX's mirror fleet from the
+    same snapshot."""
+    streams = [mf.tonal_stream(TONAL, 500 + s, 4) for s in range(2)]
+    seed = jax_fleet(2, "mirror")
+    tails = [s[p:] for s, p in zip(streams, seed.decode_run(streams, 1).next_pos)]
+    snap = seed.get_state()
+    snap["vbuf"] = (np.random.default_rng(9).standard_normal(snap["vbuf"].shape) * 1e5
+                    ).astype(np.float32)
+    jb, pb = jax_fleet(2, "mirror"), BatchedMP3Decoder(2, device="cpu", fast="mirror")
+    jb.set_state(snap)
+    pb.set_state(snap)
+    want, got = _run_results(jb.decode_run(tails, 2)), _run_results(pb.decode_run(tails, 2))
+    for g, w in zip(got, want):
+        assert [(e, c) for e, _, c in g] == [(e, c) for e, _, c in w]
+        _assert_tol(np.concatenate([p for _, p, _ in g]), np.concatenate([p for _, p, _ in w]),
+                    "fleet, disagreeing ring, mirror tier")
+    np.testing.assert_allclose(pb._vbuf.numpy(), np.asarray(jb._vbuf), rtol=0,
+                               atol=1e-5 * float(np.abs(np.asarray(jb._vbuf)).max()))
 
 
 def test_restored_ring_copies_disagree():

@@ -260,6 +260,8 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.models.mp3_pipeline\n"
             "import esp_audio_libs_tpu_torch.models.wav\n"
             "import esp_audio_libs_tpu_torch.ops.mp3_kernels\n"
+            "import esp_audio_libs_tpu_torch.ops.mp3fast\n"
+            "import esp_audio_libs_tpu_torch.ops.mp3mxu\n"
             "import esp_audio_libs_tpu_torch.runtime.tables\n"
             "import esp_audio_libs_tpu_torch.ops.dsp\n"
             "import esp_audio_libs_tpu_torch.ops.dsp_kernels\n"

@@ -867,14 +867,15 @@ def mp3_main(args, card: str) -> None:
     at phase 11's timed shapes (B = 256 and 2048 x G = 16)."""
     names = list(MP3_VARIANTS) if args.variants is None else args.variants
     src = kernels.CSRC / "mp3_granules.cu"
-    dirs = {name: make_variant(f"mp3_{name}", src.name, MP3_VARIANTS[name], [src])
+    sources = [src, kernels.CSRC / "mp3_common.cuh"]
+    dirs = {name: make_variant(f"mp3_{name}", src.name, MP3_VARIANTS[name], sources)
             for name in names}
     for path in args.mp3_parent:
         parent = path.resolve().parent.name
-        dirs[parent] = make_variant(f"mp3_{parent}", src.name, [], [src], path)
+        dirs[parent] = make_variant(f"mp3_{parent}", src.name, [], sources, path)
         for probe in args.parent_probes:
             dirs[f"{parent}_{probe}"] = make_variant(f"mp3_{parent}_{probe}", src.name,
-                                                     MP3_PARENT_PROBES[probe], [src], path)
+                                                     MP3_PARENT_PROBES[probe], sources, path)
     libs = build_all(dirs, ("eal_mp3_granules",))
     for name, (_, report) in libs.items():
         print(f"{name}: {' | '.join(report)}")
