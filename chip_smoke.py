@@ -1510,6 +1510,35 @@ def mp3f32_work(huff, side):
 
 
 MP3F_KERNELS = ("mp3_granules_f32", "mp3_mxu_pre", "mp3_mxu_post")
+PTXAS = {}   # kernel (mangled name) -> ptxas's report of it, filled by the build in main()
+
+
+def ptxas_kernels(report: str) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from nvcc's ``-Xptxas -v`` output."""
+    import re
+    out, name, frame = {}, None, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and frame:
+            out[name] = {"registers": int(m.group(1)), "stack": frame[0],
+                         "spill_stores": frame[1], "spill_loads": frame[2]}
+            name = frame = None
+    return out
+
+
+def ptxas_of(kernel: str) -> dict:
+    """The ptxas figures of the kernel whose mangled name holds ``kernel``
+    (empty when the build gave none)."""
+    found = [v for k, v in PTXAS.items() if kernel in k]
+    return found[0] if found else {}
 
 
 def mxu_step_bytes(ip, keep, B, nch):
@@ -1740,6 +1769,11 @@ def mp3_fast_phase():
         note(mp3_fast_check(fmt, vindex, huff, side, zero_state(huff.shape[1]), "escape tier",
                             esc=esc)[1])
         esc_runs += 1
+    regs = {k: ptxas_of(k + "_kernel") for k in ("mp3_granules_f32", "mp3_mxu_pre")}
+    print("ptxas (sm_90a): " + "; ".join(
+        f"{k}_kernel {r['registers']} registers, {r['stack']} bytes stack frame, "
+        f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads" if r else
+        f"{k}_kernel: no report" for k, r in regs.items()))
     print(f"mp3 fast kernels: {n_runs} runs of {len(cfgs)} formats and {esc_runs} escape-tier "
           f"runs, mp3_granules_f32 and both MXU step kernels (at every step) against their "
           f"plain versions, PCM within 1 LSB and f32 state within {MP3F_STATE_RTOL} of its "
@@ -1781,8 +1815,10 @@ def mp3_fast_phase():
             ofvc = torch.empty((rows, mk.MXU_IN), device="cuda")
             acc = torch.empty((rows, 576), device="cuda")
             newv = torch.empty((rows, 1088), device="cuda")
-            pre_ms = cuda_time(direct_launcher("eal_mp3_mxu_pre", yx[0], ip[0], *st2[:5],
-                                               ops["PX"], ofvc, B, nch), iters=20)
+            pre_launch = direct_launcher("eal_mp3_mxu_pre", yx[0], ip[0], *st2[:5], ops["PX"],
+                                         ofvc, B, nch)
+            pre_direct_ms = cuda_time(pre_launch, iters=20)
+            pre_ms = cuda_time_queued(pre_launch, iters=20)   # shorter than a ctypes launch
             post_ms = cuda_time(direct_launcher("eal_mp3_mxu_post", acc, newv, st2[4],
                                                 ops["keep"][vindex], pcm, pcm.stride(0), B,
                                                 nch), iters=20)
@@ -1797,6 +1833,7 @@ def mp3_fast_phase():
         flop = mxu_step_flop(B, nch)
         step_bound = max(flop / PEAK_FP32 * 1e3, (pre_bytes + post_bytes) / PEAK_BYTES * 1e3)
         r.update(run_ms=run_ms, prelude_ms=prelude_ms, step_ms=steps_ms / G, pre_ms=pre_ms,
+                 pre_direct_ms=pre_direct_ms,
                  post_ms=post_ms, gemm_ms=gemm_ms, pre_bound=pre_bytes / PEAK_BYTES * 1e3,
                  post_bound=post_bytes / PEAK_BYTES * 1e3, step_bound=step_bound)
         if B == MP3_STREAMS:   # the plain versions, at B = 256 only
@@ -1820,8 +1857,10 @@ def mp3_fast_phase():
               f"{f32_bound / f32_ms:.1%} of it")
         print(f"mxu tier B={B} G={G} stereo: run {run_ms:.3f} ms ({run_ms / G:.4f} ms a granule: "
               f"prelude {prelude_ms:.3f} ms a run, steps {steps_ms / G:.4f} ms a granule, 2 step "
-              f"launches and 2 GEMMs each); mp3_mxu_pre {pre_ms:.4f} ms per direct launch "
-              f"(bound {r['pre_bound']:.4f}, bytes: {pre_bytes} B), mp3_mxu_post {post_ms:.4f} ms "
+              f"launches and 2 GEMMs each); mp3_mxu_pre {pre_ms:.4f} ms per direct launch queued "
+              f"behind a sleeping kernel ({pre_direct_ms:.4f} unqueued; bound "
+              f"{r['pre_bound']:.4f}, bytes: {pre_bytes} B, {r['pre_bound'] / pre_ms:.1%} of it), "
+              f"mp3_mxu_post {post_ms:.4f} ms "
               f"(bound {r['post_bound']:.4f}, bytes: {post_bytes} B)"
               + (f", plain {r['pre_plain_ms']:.4f} / {r['post_plain_ms']:.4f} ms"
                  if "pre_plain_ms" in r else "")
@@ -1900,19 +1939,19 @@ def mp3_fast_phase():
         return {"route": "cuda", "max_abs_err": worst[name][0], "state_rel_err": worst[name][1],
                 "library_ms": None}
     return [
-        {"name": "mp3_granules_f32", **common("mp3_granules_f32"),
+        {"name": "mp3_granules_f32", **common("mp3_granules_f32"), **regs["mp3_granules_f32"],
          "source": "esp_audio_libs_tpu_torch/csrc/mp3_granules_f32.cu",
          "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:271",
          "launches": launches["mirror"]["mp3_granules_f32"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "ms_b2048": r8["ms"], "bound_ms_b2048": r8["bound_ms"],
          "decode_msps": n_in / med["mirror"] / 1e6, "exact_decode_msps": n_in / med["exact"] / 1e6},
-        {"name": "mp3_mxu_pre", **common("mp3_mxu_pre"),
+        {"name": "mp3_mxu_pre", **common("mp3_mxu_pre"), **regs["mp3_mxu_pre"],
          "source": "esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu",
          "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:315",
          "launches": launches["mxu"]["mp3_mxu_pre"], "ms": r["pre_ms"],
          "plain_ms": r["pre_plain_ms"], "bound_ms": r["pre_bound"], "bound_by": "bytes",
-         "ms_b2048": r8["pre_ms"],
+         "ms_b2048": r8["pre_ms"], "ms_unqueued": r["pre_direct_ms"],
          "step": {"ms_per_granule": r["step_ms"], "gemm_ms_per_granule": r["gemm_ms"],
                   "launches_per_granule": 2, "bound_ms": r["step_bound"],
                   "bound_by": "operations", "run_ms": r["run_ms"], "prelude_ms": r["prelude_ms"],
@@ -3548,7 +3587,9 @@ def main() -> None:
     native.host_lib()
     t1 = time.perf_counter()
     kernels.LIB_PATH.unlink(missing_ok=True)    # always compile from this checkout's sources
-    kernels.build(verbose=True)
+    report = kernels.compile_library(kernels.CSRC, kernels.LIB_PATH, ptxas_report=True)
+    print(report)
+    PTXAS.update(ptxas_kernels(report))
     kernels.library()
     t2 = time.perf_counter()
     from esp_audio_libs_tpu_torch.ops import mp3mxu

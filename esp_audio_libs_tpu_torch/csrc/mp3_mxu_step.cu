@@ -16,21 +16,32 @@
 //     type, window switch and block count (n_blocks_out: a warp maximum over
 //     the 32 blocks); it writes the GEMMs' left operand [of | vc]: the
 //     IMDCT output in the S operator's order (column t * 32 + block), then
-//     the channel's block of the FIFO (column 576 + row * 32 + slot). One
-//     warp per (stream, channel), lane = block.
+//     the channel's block of the FIFO (column 576 + row * 32 + slot).
 //   eal_mp3_mxu_post: the tail of subband_granule_mxu: the written FIFO
 //     slots (of @ W[v]) merged into the interleaved [34, 64] FIFO where
 //     keep[v] is 0, and the accumulators ([of | vc] @ S[v], PCM units)
 //     quantized, floor(acc + 0.5) clipped to int16, channels interleaved.
 //
-// What bounds them: bytes. pre reads the granule's x-side products (108
-// floats a block) and writes the 1664-float GEMM row of each stream and
-// channel; post reads the GEMMs' 1664 outputs a row and the FIFO and
-// writes it back and the PCM. Both are simple, one pass, no shared memory;
-// the GEMMs take most of a step's arithmetic (2 * 1664 * 576 + 2 * 576 *
-// 1088 flop a row). Sums run in the plain version's order; nvcc may contract
-// a product and a sum into one FMA, so they are held to the plain versions
-// by tolerance, not bit for bit.
+// pre runs one block of 288 threads per (stream, channel) row, every access
+// coalesced: the row's overlap (288 contiguous floats) in 16-byte loads, PX,
+// and of each long or short block only the 27 x-side floats it reads (its
+// window's 18 outputs, its 9 new overlap values), threads laid out over
+// (block, column), all into shared memory; the FIFO block copied into the
+// GEMM row as float4s by all the threads; then a thread per two outputs
+// (t, block), stored at t * 32 + block, and per new overlap value. The
+// first design (a warp per row, lane = block, four rows a block) read the
+// x-side products 108 floats apart and copied the FIFO 34 rows a lane: 0.0123
+// ms at B = 256 on an H100, half of it that copy (tools/kernel_variants.py
+// --mxu-pre, PERF.md). The overlap product is a chain of FMAs over the nine
+// inputs in order, as the plain version's FP32 GEMM forms it.
+//
+// What bounds them: bytes. pre reads the granule's x-side products (27 floats
+// a long or short block) and writes the 1664-float GEMM row of each stream
+// and channel; post reads the GEMMs' 1664 outputs a row and the FIFO and
+// writes it back and the PCM. The GEMMs take most of a step's arithmetic
+// (2 * 1664 * 576 + 2 * 576 * 1088 flop a row). Sums run in the plain
+// versions' order, so through tools/cuda_cpu_shim.h both equal their plain
+// versions bit for bit; on the card they are held to them by tolerance.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +55,8 @@ constexpr int AX_COLS = 4 * 18 + 18 + 9 + 9;   // A36 x 4 windows | A12 | C36 | 
 constexpr int N_OUT = 576;
 constexpr int N_V = 34 * 32;             // one channel's FIFO block
 constexpr int ROW = N_OUT + N_V;         // one GEMM row
-constexpr int PRE_ROWS = 4;              // (stream, channel) rows per block of eal_mp3_mxu_pre
+constexpr int PRE_THREADS = 288;         // one block per (stream, channel): 2 outputs a thread
+constexpr int YS = 27;                   // x-side values a long or short block reads: 18 | 9
 constexpr int POST_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -65,63 +77,104 @@ struct PreArgs {
   int B, nch;
 };
 
-__global__ void __launch_bounds__(32 * PRE_ROWS) mp3_mxu_pre_kernel(PreArgs a) {
-  const int row = blockIdx.x * PRE_ROWS + static_cast<int>(threadIdx.x >> 5);
-  const int blk = threadIdx.x & 31;
-  if (row >= a.B * a.nch) return;        // whole warps: the warp maximum below is full
+// What block blk of a (stream, channel) row does this granule
+struct Blk {
+  bool in_long, in_short, in_prev;
+  int curr_win, prev_win;
+};
+struct Row {
+  int nbl, nbt, cws, bt, mixed, pt, pws, npv;
+  __device__ Blk at(int blk) const {
+    Blk k;
+    k.in_long = blk < nbl;
+    k.in_short = !k.in_long && blk < nbt;
+    k.in_prev = !k.in_long && !k.in_short && blk >= max(nbl, nbt) && blk < npv;
+    k.curr_win = (mixed == 1 && blk < cws) ? 0 : bt;
+    k.prev_win = blk < pws ? 0 : pt;
+    return k;
+  }
+};
+
+// One block per (stream, channel) row. Stage: the row's overlap (16-byte
+// loads), PX, and of each long or short block the 27 x-side values it
+// reads (its window's 18 outputs, its 9 new overlap values), threads laid
+// out over (block, column); the FIFO block goes straight into the GEMM row
+// as float4s. Then each thread forms two outputs (t, blk), stored at
+// t * 32 + blk, and one new overlap value; warp 0 reduces the block count.
+__global__ void __launch_bounds__(PRE_THREADS) mp3_mxu_pre_kernel(PreArgs a) {
+  __shared__ float4 xps4[72];                // the carried overlap, [32][9]
+  float* xps = reinterpret_cast<float*>(xps4);
+  __shared__ float pxs[9 * 72];
+  __shared__ float ys[32 * YS];
+  __shared__ int po[32];                     // the block's overlap product has a nonzero
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x;
   const int b = row / a.nch, ch = row % a.nch;
   const int32_t* ip = a.ip + 5 * row;
-  const int nbl = ip[0], nbt = ip[1], cws = ip[2], bt = ip[3], mixed = ip[4];
-  const int pt = a.prev_type[2 * b + ch], pws = a.prev_ws[2 * b + ch];
-  const int npv = a.num_prev[2 * b + ch];
-  const int m_lim = max(nbl, nbt);
-  const bool in_long = blk < nbl;
-  const bool in_short = !in_long && blk < nbt;
-  const bool in_prev = !in_long && !in_short && blk >= m_lim && blk < npv;
-  const int curr_win = (mixed == 1 && blk < cws) ? 0 : bt;
-  const int prev_win = blk < pws ? 0 : pt;
-
-  float* over = a.over + (size_t)b * 576 + ch * 288 + 9 * blk;
-  float xp[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) xp[k] = over[k];
-  // ypo = xp @ PX[:, 18 prev_win : +18], the sum over the 9 inputs in order
-  const float* px = a.px + 18 * sel4(prev_win);
-  float ypo[18];
-  bool po_nonzero = false;
-#pragma unroll
-  for (int j = 0; j < 18; ++j) {
-    float t = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) t += xp[i] * px[72 * i + j];
-    ypo[j] = t;
-    po_nonzero = po_nonzero || t != 0.0f;
-  }
-  const float* yx = a.yx + ((size_t)row * NB + blk) * AX_COLS;
-  const float* y36 = yx + 18 * sel4(curr_win);
+  Row r;
+  r.nbl = ip[0];
+  r.nbt = ip[1];
+  r.cws = ip[2];
+  r.bt = ip[3];
+  r.mixed = ip[4];
+  r.pt = a.prev_type[2 * b + ch];
+  r.pws = a.prev_ws[2 * b + ch];
+  r.npv = a.num_prev[2 * b + ch];
+  float* over = a.over + (size_t)b * 576 + ch * 288;
   float* of = a.ofvc + (size_t)row * ROW;
-  const bool flip = (blk & 1) != 0;
+  const float* vb = a.vbuf + (size_t)b * 2176 + 32 * ch;
+
+  // the channel's FIFO block, row-major [34, 32], after the IMDCT output
+  for (int e = tid; e < N_V / 4; e += PRE_THREADS)
+    reinterpret_cast<float4*>(of + N_OUT)[e] =
+        reinterpret_cast<const float4*>(vb + 64 * (e >> 3))[e & 7];
+  if (tid < 72) xps4[tid] = reinterpret_cast<const float4*>(over)[tid];
+  for (int e = tid; e < 9 * 72; e += PRE_THREADS) pxs[e] = a.px[e];
+  for (int e = tid; e < 32 * YS; e += PRE_THREADS) {
+    const int blk = e / YS, c = e % YS;
+    const Blk k = r.at(blk);
+    if (k.in_long || k.in_short) {
+      const int col = c < 18 ? (k.in_long ? 18 * sel4(k.curr_win) : 72) + c
+                             : (k.in_long ? 90 : 99) + c - 18;
+      ys[e] = a.yx[((size_t)row * NB + blk) * AX_COLS + col];
+    }
+  }
+  if (tid < 32) po[tid] = 0;
+  __syncthreads();
+
+  // outputs (t, blk) and (t + 9, blk): ypo = xp @ PX[:, 18 prev_win : +18],
+  // a chain of FMAs over the 9 inputs in order, as the plain version's GEMM
 #pragma unroll
-  for (int t = 0; t < 18; ++t) {
-    const float y0 = in_long ? y36[t] : (in_short ? yx[72 + t] : 0.0f);
-    float y = y0 + ((in_long || in_short || in_prev) ? ypo[t] : 0.0f);
-    if (flip && (t & 1)) y = -y;           // FreqInvert (operators probed at an even band)
+  for (int h = 0; h < 2; ++h) {
+    const int blk = tid & 31, t = (tid >> 5) + 9 * h;
+    const Blk k = r.at(blk);
+    const float* xp = xps + 9 * blk;
+    const int col = 18 * sel4(k.prev_win) + t;
+    float ypo = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) ypo = fmaf(xp[i], pxs[72 * i + col], ypo);
+    if (ypo != 0.0f) atomicOr(&po[blk], 1);
+    const float y0 = (k.in_long || k.in_short) ? ys[YS * blk + t] : 0.0f;
+    float y = y0 + ((k.in_long || k.in_short || k.in_prev) ? ypo : 0.0f);
+    if ((blk & 1) && (t & 1)) y = -y;          // FreqInvert (operators probed at an even band)
     of[t * NB + blk] = y;
   }
-#pragma unroll
-  for (int k = 0; k < 9; ++k)
-    over[k] = in_long ? yx[90 + k] : (in_short ? yx[99 + k] : (in_prev ? 0.0f : xp[k]));
-  const int ext = __reduce_max_sync(FULL, (in_prev && po_nonzero) ? blk : -1);
-  if (blk == 0) {
-    a.prev_type[2 * b + ch] = bt;
-    a.prev_ws[2 * b + ch] = cws;
-    a.num_prev[2 * b + ch] = max(m_lim, ext);
+  {   // the new overlap, value tid % 9 of block tid / 9
+    const int blk = tid / 9, kk = tid % 9;
+    const Blk k = r.at(blk);
+    over[tid] = (k.in_long || k.in_short) ? ys[YS * blk + 18 + kk]
+                                          : (k.in_prev ? 0.0f : xps[tid]);
   }
-  // the channel's FIFO block, row-major [34, 32], lane = slot
-  const float* vb = a.vbuf + (size_t)b * 2176 + 32 * ch + blk;
-  float* vc = of + N_OUT + blk;
-#pragma unroll 2
-  for (int r = 0; r < 34; ++r) vc[32 * r] = vb[64 * r];
+  __syncthreads();
+  if (tid < 32) {
+    const Blk k = r.at(tid);
+    const int ext = __reduce_max_sync(FULL, (k.in_prev && po[tid]) ? tid : -1);
+    if (tid == 0) {
+      a.prev_type[2 * b + ch] = r.bt;
+      a.prev_ws[2 * b + ch] = r.cws;
+      a.num_prev[2 * b + ch] = max(max(r.nbl, r.nbt), ext);
+    }
+  }
 }
 
 struct PostArgs {
@@ -156,7 +209,11 @@ __global__ void __launch_bounds__(POST_THREADS) mp3_mxu_post_kernel(PostArgs a) 
 extern "C" int eal_mp3_mxu_pre(const void* yx, const void* ip, void* over, void* prev_type,
                                void* prev_ws, void* num_prev, const void* vbuf, const void* px,
                                void* ofvc, int B, int nch, void* stream) {
-  if (B < 1 || (nch != 1 && nch != 2)) return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel moves the overlap, the FIFO and the GEMM row in 16-byte words
+  if (B < 1 || (nch != 1 && nch != 2) ||
+      ((reinterpret_cast<uintptr_t>(over) | reinterpret_cast<uintptr_t>(vbuf) |
+        reinterpret_cast<uintptr_t>(ofvc)) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   PreArgs a;
   a.yx = static_cast<const float*>(yx);
   a.ip = static_cast<const int32_t*>(ip);
@@ -169,8 +226,7 @@ extern "C" int eal_mp3_mxu_pre(const void* yx, const void* ip, void* over, void*
   a.ofvc = static_cast<float*>(ofvc);
   a.B = B;
   a.nch = nch;
-  const int blocks = (B * nch + PRE_ROWS - 1) / PRE_ROWS;
-  mp3_mxu_pre_kernel<<<blocks, 32 * PRE_ROWS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  mp3_mxu_pre_kernel<<<B * nch, PRE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -659,7 +659,8 @@ def test_flac_frame_kernel_dispatch_shape(cuda, F):
 
 
 @pytest.mark.parametrize("table", ["VARIANTS", "BIQUAD_VARIANTS", "EXACT_VARIANTS",
-                                   "FLAC_VARIANTS", "MP3_VARIANTS", "DOT_VARIANTS"])
+                                   "FLAC_VARIANTS", "MP3_VARIANTS", "DOT_VARIANTS",
+                                   "MP3F32_VARIANTS", "MXU_PRE_VARIANTS"])
 def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     """Every text edit of tools/kernel_variants.py still matches the
     sources it edits exactly once (the tool stops on the card otherwise)."""
@@ -667,7 +668,9 @@ def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     monkeypatch.setattr(kv, "OUT", tmp_path)
     target = {"VARIANTS": "banded_tile.cuh", "BIQUAD_VARIANTS": "biquad_exact.cu",
               "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu",
-              "MP3_VARIANTS": "mp3_granules.cu", "DOT_VARIANTS": "dotprod_exact.cu"}[table]
+              "MP3_VARIANTS": "mp3_granules.cu", "DOT_VARIANTS": "dotprod_exact.cu",
+              "MP3F32_VARIANTS": "mp3_granules_f32.cu",
+              "MXU_PRE_VARIANTS": "mp3_mxu_step.cu"}[table]
     sources = sorted(kernels.CSRC.glob("*.cu*"))
     for name, edits in getattr(kv, table).items():
         assert (kv.make_variant(name, target, edits, sources) / target).exists()
@@ -1102,12 +1105,14 @@ def random_fast_state(n, gen, dev, scale=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg_i", range(len(MP3_CFGS)))
-@pytest.mark.parametrize("B,n_frames,fuzz", [(5, 8, False), (7, 4, True)])
+@pytest.mark.parametrize("B,n_frames,fuzz", [(5, 8, False), (7, 4, True), (300, 2, False),
+                                             (400, 2, False)])
 def test_mp3_granules_f32_kernel_matches_plain(cuda, cfg_i, B, n_frames, fuzz):
     """The mirror tier's kernel against its plain version on the card, on
     the exact kernel's runs: every block type, both FIFO parities, runs cut
     short by errors, zero state, then random state (a ring whose copies
-    disagree) for the second run."""
+    disagree) for the second run. B = 300 and 400 are more blocks than the
+    SMs hold at once (two and three blocks an SM)."""
     cfg = MP3_CFGS[cfg_i]
     gen = torch.Generator().manual_seed(cfg_i)
     seen = set()

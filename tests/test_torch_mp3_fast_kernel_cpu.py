@@ -9,17 +9,27 @@ through ctypes against their plain versions on real parsed runs
 (tools/mp3frames.py): mono, stereo, joint mid-side and intensity stereo,
 MPEG-1 and MPEG-2, tonal, window-type and fuzz frames, B in {1, 3}, two runs
 in a row (the second from the first's state, at another FIFO phase) and a
-random carried state whose FIFO ring copies disagree. The MXU kernels are
-held to their plain versions step by step inside ``mp3mxu.mxu_run``, each
-step continuing from the kernel's own results. PCM within 1 LSB, the f32
-state within 1e-5 of each tensor's largest magnitude (f32 sums in the
-kernels' order; on the card nvcc may also contract products into FMAs), the
-integer state exactly; any sanitizer report fails the test.
+random carried state whose FIFO ring copies disagree (also as the state of
+a second run). The edges of the f32 kernel's layout are cases too: G = 1
+(no granule's PQMF overlaps another's IMDCT), an odd G (the run ends on the
+other history) and mono at B = 3. The MXU kernels are held to their plain
+versions step by step inside ``mp3mxu.mxu_run``, each step continuing from
+the kernel's own results. With ``-ffp-contract=off`` the kernels' f32 sums
+run in the plain versions' order, so PCM and state must equal the plain
+versions' bit for bit. The one operation that is not the kernels' own is the
+dequantizer's exp2f / log2f: the shim links the C library's, which differ
+from torch's CPU exp2 by 1 ulp on some inputs, so the mirror tier is held
+bit for bit to its plain version with ``torch.exp2`` / ``torch.log2`` taken
+from that C library, and within 1 LSB of PCM and 1e-5 of the f32 state's
+scale to the plain version as it is (the tolerance of the card, where nvcc
+may also contract products into FMAs: tests/test_torch_kernels.py). Any
+sanitizer report fails the test.
 
 The test needs g++ (skipped without it) and no card.
 """
 
 import ctypes as C
+import ctypes.util
 import subprocess
 
 import numpy as np
@@ -32,11 +42,12 @@ from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
 from esp_audio_libs_tpu_torch.ops import mp3mxu
 from esp_audio_libs_tpu_torch.runtime import kernels
 from tests.test_torch_mp3_kernel_cpu import gxx  # noqa: F401 (the g++ fixture)
-from tests.test_torch_mp3_kernel_cpu import (INTENSITY, JOINT_MS, MONO, MPEG2, STEREO,
+from tests.test_torch_mp3_kernel_cpu import (INTENSITY, JOINT_MS, MONO, MPEG2, STEREO, kv,
                                              shim_source, streams_of)
 
 STATE_RTOL = 1e-5
 TIERS = ["mirror", "mxu"]
+LIBM = C.CDLL(ctypes.util.find_library("m") or "libm.so.6")
 
 
 def _build(gxx, tmp, name, launches, entries):
@@ -67,9 +78,23 @@ STATE = ("over", "prev_type", "prev_win_switch", "num_prev", "vbuf")
 
 
 def _same_state(got, want, label, names=STATE):
+    """Each tensor equal bit for bit (f32 compared as its bit patterns)."""
     for name, a, b in zip(names, got, want):
         a, b = np.asarray(a), np.asarray(b)
         assert a.dtype == b.dtype, f"{label}: {name} dtype"
+        if a.dtype == np.float32:
+            n = int((a.view(np.int32) != b.view(np.int32)).sum())
+            err = float(np.abs(a.astype(np.float64) - b).max(initial=0.0))
+            assert n == 0, f"{label}: {name} differs in {n} values, max |d| {err:.3g}"
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{label}: {name}")
+
+
+def _close_state(got, want, label):
+    """f32 state within STATE_RTOL of each tensor's largest magnitude, the
+    rest equal."""
+    for name, a, b in zip(STATE, got, want):
+        a, b = np.asarray(a), np.asarray(b)
         if a.dtype == np.float32:
             scale = max(float(np.abs(b).max(initial=0.0)), 1e-30)
             err = float(np.abs(a.astype(np.float64) - b).max(initial=0.0))
@@ -78,9 +103,20 @@ def _same_state(got, want, label, names=STATE):
             np.testing.assert_array_equal(a, b, err_msg=f"{label}: {name}")
 
 
-def _pcm_within(got, want, label):
+def _libm_f32(name):
+    """torch.<op> for one f32 tensor through the C library's ``name``f."""
+    fn = getattr(LIBM, name)
+    fn.restype, fn.argtypes = C.c_float, [C.c_float]
+
+    def op(t):
+        return torch.tensor([fn(v) for v in t.reshape(-1).tolist()],
+                            dtype=torch.float32).reshape(t.shape)
+    return op
+
+
+def _same_pcm(got, want, label):
     d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
-    assert d.max(initial=0) <= 1, f"{label}: pcm differs by {int(d.max())}"
+    assert d.max(initial=0) == 0, f"{label}: pcm differs by {int(d.max())} in {int((d > 0).sum())}"
 
 
 def shim_f32(lib, huff, side, state, vindex, fmt):
@@ -122,7 +158,7 @@ def shim_mxu(lib, huff, side, state, vindex, fmt, monkeypatch, label):
                                   keep.data_ptr(), out.data_ptr(), out.stride(0), vbuf.shape[0],
                                   nch, None)
         assert rc == 0
-        _pcm_within(out.numpy(), want_pcm.numpy(), f"{label}: post")
+        _same_pcm(out.numpy(), want_pcm.numpy(), f"{label}: post")
         _same_state((vbuf,), (want_vbuf,), f"{label}: post", ("vbuf",))
 
     monkeypatch.setattr(mp3mxu, "mp3_mxu_pre_cuda", pre)
@@ -142,13 +178,20 @@ def check_run(libs, capfd, monkeypatch, tier, huff, side, state, vindex, fmt, la
     capfd.readouterr()
     if tier == "mirror":
         pcm, st = shim_f32(libs["mirror"], huff, side, state, vindex, fmt)
-        want_pcm, want_state, _ = mk.mp3_granules_f32_plain(huff, side, *state, vindex, **kw)
+        loose_pcm, loose_state, _ = mk.mp3_granules_f32_plain(huff, side, *state, vindex, **kw)
+        d = np.abs(pcm.astype(np.int32) - loose_pcm.numpy().astype(np.int32)).max(initial=0)
+        assert d <= 1, f"{label}: pcm differs from the plain version by {int(d)}"
+        _close_state(st, loose_state, label)
+        with pytest.MonkeyPatch.context() as mp:     # the shim's exp2f / log2f
+            mp.setattr(torch, "exp2", _libm_f32("exp2f"))
+            mp.setattr(torch, "log2", _libm_f32("log2f"))
+            want_pcm, want_state, _ = mk.mp3_granules_f32_plain(huff, side, *state, vindex, **kw)
     else:
         pcm, st = shim_mxu(libs["mxu"], huff, side, state, vindex, fmt, monkeypatch, label)
         want_pcm, want_state, _ = mp3mxu.mxu_run(huff, side, *state, vindex, **kw)
     err = capfd.readouterr().err
     assert "runtime error" not in err, f"{label}: {err}"
-    _pcm_within(pcm, want_pcm.numpy(), label)
+    _same_pcm(pcm, want_pcm.numpy(), label)
     _same_state(st, want_state, label)
     return want_state
 
@@ -167,12 +210,17 @@ def zero_state(B):
     ("mixed", INTENSITY, 3, 3),
     ("fuzz", STEREO, 3, 3),
     ("mixed", MPEG2, 3, 4),
+    ("tonal", MONO, 3, 4),
+    ("tonal", MPEG2, 3, 1),
+    ("mixed", MPEG2, 3, 3),
 ], ids=["tonal-stereo", "tonal-mono", "mixed-ms", "mixed-intensity", "fuzz-stereo",
-        "mixed-mpeg2"])
+        "mixed-mpeg2", "tonal-mono-b3", "tonal-mpeg2-g1", "mixed-mpeg2-g3"])
 def test_shim_kernels_match_plain(libs, capfd, monkeypatch, tier, kind, cfg, B, n_frames):
     streams = streams_of(kind, cfg, B, n_frames, 400 + B)
     runs = list(parsed_runs(BatchedMP3Decoder(B, device="cpu"), streams, n_frames))
     assert runs
+    if cfg is MPEG2 and n_frames < 4:     # the layout's edges: G = 1 and an odd G
+        assert {h.shape[0] for _, _, _, h, _ in runs} == {n_frames}
     for fmt, vindex, _, huff, side in runs:
         check_run(libs, capfd, monkeypatch, tier, torch.as_tensor(huff), torch.as_tensor(side),
                   zero_state(huff.shape[1]), vindex, fmt, f"{tier} {kind} {cfg} {fmt}")
@@ -197,19 +245,54 @@ def test_shim_kernels_two_runs(libs, capfd, monkeypatch, tier, cfg):
 
 
 @pytest.mark.parametrize("tier", TIERS)
-def test_shim_kernels_random_state(libs, capfd, monkeypatch, tier):
+@pytest.mark.parametrize("second", [False, True], ids=["first-run", "second-run"])
+def test_shim_kernels_random_state(libs, capfd, monkeypatch, tier, second):
     """A run from random carried state at FIFO phase 5: overlap, block
     types, IMDCT block counts, and a ring whose two copies disagree (the f32
-    kernel reads each carried value from the copy the step-by-step FIFO
-    reads)."""
+    kernel's first granule reads each carried value from the copy the
+    step-by-step FIFO reads). ``second``: that run continues from the state
+    of a first run (at the phase it left), its ring's two copies made to
+    disagree in between."""
     B, nf = 3, 3
-    streams = streams_of("mixed", STEREO, B, nf, 710)
-    (fmt, _, _, huff, side), = parsed_runs(BatchedMP3Decoder(B, device="cpu"), streams, nf)
+    streams = streams_of("mixed", STEREO, B, 2 * nf, 710)
+    fleet = BatchedMP3Decoder(B, device="cpu")
+    (fmt, _, _, huff, side), = parsed_runs(fleet, [s[: len(s) // 2] for s in streams], nf)
     rng = np.random.default_rng(6)
     state = tuple(torch.as_tensor(a) for a in (
         (rng.standard_normal((B, 2, 288)) * 1e5).astype(np.float32),
         rng.integers(0, 4, (B, 2)).astype(np.int32), np.zeros((B, 2), np.int32),
         rng.integers(0, 33, (B, 2)).astype(np.int32),
         (rng.standard_normal((B, 2176)) * 1e5).astype(np.float32)))
+    vindex = 5
+    if second:
+        state = check_run(libs, capfd, monkeypatch, tier, torch.as_tensor(huff),
+                          torch.as_tensor(side), state, vindex, fmt, "random state, run 0")
+        vindex = mp3_pipeline._advance_vindex(vindex, huff.shape[0])
+        vbuf = state[4].clone().reshape(B, 34, 8, 8)
+        vbuf[:, :, 1::2] += torch.as_tensor(rng.standard_normal((B, 34, 4, 8)).astype(np.float32))
+        state = (*state[:4], vbuf.reshape(B, 2176))
+        (fmt, _, _, huff, side), = parsed_runs(BatchedMP3Decoder(B, device="cpu"),
+                                               [s[len(s) // 2:] for s in streams], nf)
     check_run(libs, capfd, monkeypatch, tier, torch.as_tensor(huff), torch.as_tensor(side), state,
-              5, fmt, "random state")
+              vindex, fmt, "random state" + (", run 1" if second else ""))
+
+
+VARIANT_CASES = ([("mp3_granules_f32.cu", 1, name, edits)
+                  for name, edits in sorted(kv.MP3F32_VARIANTS.items())]
+                 + [("mp3_mxu_step.cu", 2, name, edits)
+                    for name, edits in sorted(kv.MXU_PRE_VARIANTS.items())])
+
+
+@pytest.mark.parametrize("source, launches, variant, edits", VARIANT_CASES,
+                         ids=[f"{s.split('.')[0]}-{n}" for s, _, n, _ in VARIANT_CASES])
+def test_kernel_variant_compiles(gxx, tmp_path, monkeypatch, source, launches, variant, edits):
+    """Each ``--mp3f32`` and ``--mxu-pre`` variant of tools/kernel_variants.py,
+    its edits applied to its source, still compiles (g++ -fsyntax-only
+    through the shim): the tool builds every variant at once on the card and
+    stops at the first that nvcc refuses."""
+    monkeypatch.setattr(kv, "OUT", tmp_path / "variants")
+    cu = kv.make_variant(f"{variant}", source, edits, [kernels.CSRC / source]) / source
+    src = shim_source(cu, cu.parent, launches)
+    res = subprocess.run([gxx, "-std=c++20", "-fsyntax-only", "-I", str(cu.parent), str(src)],
+                         capture_output=True, text=True)
+    assert res.returncode == 0, f"{variant}: {res.stderr[-2000:]}"

@@ -19,7 +19,8 @@
 //     the warp's threads must call them together, as a full mask demands on
 //     the card;
 //   - atomicOr, atomicMax, __clz, __mulhi, int min and max, long long min,
-//     int4, make_int4 and float4 are builtins with CUDA's results;
+//     int4, make_int4, float4, make_float4 and __fmul_rn are builtins with
+//     CUDA's results;
 //   - mul_ftz and add_ftz stand in for the inline-PTX mul/add.rn.ftz.f32
 //     helpers of csrc/exact_async.cuh: one IEEE f32
 //     op (compile with -ffp-contract=off) with subnormal operands and
@@ -86,6 +87,8 @@ inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 inline float eal_shim_flush(float x) {
   return std::fabs(x) < 0x1p-126f ? std::copysign(0.0f, x) : x;

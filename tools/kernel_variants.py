@@ -180,6 +180,60 @@ prints each library's ptxas report, the SASS opcode counts of the kernel
 multiplies in its PQMF tap loops (``IMAD.WIDE`` or longer sequences), and
 samples the SM clock while B = 2048 launches run.
 
+``--mp3f32``: the mirror tier's MP3 kernel (``mp3_granules_f32.cu``, built
+alone with ``mp3_common.cuh``):
+
+  as_is       the sources unchanged;
+  mb2, mb4    registers capped for 2 or 4 blocks a SM instead of 3;
+  pqmf_u1, pqmf_u8
+              the PQMF's tap loop unrolled 1 or 8 times instead of 2;
+  side_late   the next granule's side row read when it is stored, not a
+              stage ahead;
+  no_dequant, no_imdct, no_fdct, no_pqmf
+              speed probes: that stage cut out (not within the tolerance);
+  <dir>       with ``--mp3f32-parent DIR/mp3_granules_f32.cu ...``: each such
+              file as mp3_granules_f32.cu, named by its directory; with
+              ``--parent-probes`` also that file's probes, edits of the first
+              design (``git show
+              a43feee:esp_audio_libs_tpu_torch/csrc/mp3_granules_f32.cu``):
+              ``mb3`` (registers for 3 blocks a SM instead of 2), and the speed
+              probes ``no_dequant``, ``no_imdct``, ``no_fdct``, ``no_pqmf`` and
+              ``no_hist_copy`` (the 15 carried FIFO steps not moved to the
+              front of the history, nor the barrier before it), named
+              ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 20 direct launches through
+``eal_mp3_granules_f32`` after 2 warm-ups, in turns) on phase 11's operands
+at B = 256 and 2048 x G = 16, holds each variant to
+``mp3_granules_f32_plain`` within 1 LSB of PCM and ``MP3F_STATE_RTOL`` of
+the f32 state's scale (the integer state equal) there and on mixed-frame
+runs of the four batch formats (two runs in a row, B = 5), prints each
+library's ptxas report and the kernel's SASS opcode counts (listing under
+``build/variants/mp3f32_<variant>/sass.txt``), and samples the SM clock
+while B = 2048 launches run.
+
+``--mxu-pre``: the MXU tier's first step kernel (``mp3_mxu_step.cu``, built
+alone; ``eal_mp3_mxu_pre``):
+
+  as_is       the sources unchanged;
+  no_fifo     the FIFO block not copied into the GEMM row (a speed probe);
+  no_px       the overlap product over one input instead of nine (a speed
+              probe);
+  <dir>       with ``--mxu-pre-parent DIR/mp3_mxu_step.cu ...``: each such file
+              as mp3_mxu_step.cu, named by its directory; with
+              ``--parent-probes`` also that file's probes ``no_fifo`` and
+              ``no_px``, edits of the first design (``git show
+              a43feee:esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu``), named
+              ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 20 direct launches after 2
+warm-ups, and the same queued behind a sleeping kernel, in turns) on
+granule 0 of phase 11b's tonal run from the state the run leaves, at B =
+256 and 2048, and holds each variant at every granule step of the checks of
+``--mp3f32`` (``mp3mxu.mxu_run`` with the rest of each step plain) to
+``mxu_pre_plain`` within ``MP3F_STATE_RTOL`` of the scale, the integer state
+equal, the run continuing from the kernel's results.
+
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
@@ -192,6 +246,10 @@ Run from the repository root on a machine with an NVIDIA GPU:
         [--flac-parent build/pr7/flac_frame.cu --parent-probes one_tap no_pack no_load]
     python3 tools/kernel_variants.py --mp3 \
         [--mp3-parent build/parent/mp3_granules.cu --parent-probes no_fifo no_fdct]
+    python3 tools/kernel_variants.py --mp3f32 [--variants ...] \
+        [--mp3f32-parent build/pr16/mp3_granules_f32.cu --parent-probes no_pqmf no_hist_copy]
+    python3 tools/kernel_variants.py --mxu-pre \
+        [--mxu-pre-parent build/pr16/mp3_mxu_step.cu --parent-probes no_fifo]
 
 The last line is one JSON object with the means.
 """
@@ -449,6 +507,52 @@ MP3_VARIANTS = {
     "no_pqmf": [("item < 18 * nch * 16; item += nt", "item < 0; item += nt")],
 }
 MP3_SASS_KERNEL = "mp3_granules_kernel"
+
+# the mirror tier's kernel (csrc/mp3_granules_f32.cu)
+MP3F32_VARIANTS = {
+    "as_is": [],
+    "mb2": [("constexpr int MIN_BLOCKS = 3;", "constexpr int MIN_BLOCKS = 2;")],
+    "mb4": [("constexpr int MIN_BLOCKS = 3;", "constexpr int MIN_BLOCKS = 4;")],
+    "side_late": [("      if (tid < SW) side_next = a.side[((size_t)(g + 1) * B + b) * SW + tid];\n", ""),
+                  ("S.sd[cur ^ 1][tid] = side_next;",
+                   "S.sd[cur ^ 1][tid] = a.side[((size_t)(g + 1) * B + b) * SW + tid];")],
+    "pqmf_u1": [("#pragma unroll 2\n    for (int k = 0; k < 8; ++k) {\n      const float4 c",
+                 "#pragma unroll 1\n    for (int k = 0; k < 8; ++k) {\n      const float4 c")],
+    "pqmf_u8": [("#pragma unroll 2\n    for (int k = 0; k < 8; ++k) {\n      const float4 c",
+                 "#pragma unroll\n    for (int k = 0; k < 8; ++k) {\n      const float4 c")],
+    "no_dequant": [("          dequant_f(hs, gain, d, mag);\n",
+                    "          mag = static_cast<float>(gain & hs);\n          d = mag;\n")],
+    "no_imdct": [("    } else {                        // whole warps", "    } else if (tid < 0) {")],
+    "no_fdct": [("      if ((tid & ~31) < 8 * nu) {", "      if (tid < 0) {")],
+    "no_pqmf": [("item < 18 * nch * 16; item += nt", "item < 0; item += nt")],
+}
+# probes of the first mirror-tier kernel (`git show a43feee:esp_audio_libs_tpu_torch/csrc/mp3_granules_f32.cu`)
+MP3F32_PARENT_PROBES = {
+    "mb3": [("constexpr int MIN_BLOCKS = 2;", "constexpr int MIN_BLOCKS = 3;")],
+    "no_dequant": [("          dequant_f(hs, gain, d, mag);\n",
+                    "          mag = static_cast<float>(gain & hs);\n          d = mag;\n")],
+    "no_imdct": [("    if (tid < 32 * nch) {\n", "    if (tid < 0) {\n")],
+    "no_fdct": [("    if (tid < 18 * nch) {\n", "    if (tid < 0) {\n")],
+    "no_pqmf": [("item < 18 * nch * 16; item += THREADS", "item < 0; item += THREADS")],
+    "no_hist_copy": [("      __syncthreads();\n      for (int k = tid; k < CARRY * HSTEP; k += THREADS) "
+                      "S.hist[k] = S.hist[18 * HSTEP + k];\n", "")],
+}
+MP3F32_SASS_KERNEL = "mp3_granules_f32_kernel"
+# the MXU tier's first step kernel (csrc/mp3_mxu_step.cu, eal_mp3_mxu_pre)
+MXU_PRE_VARIANTS = {
+    "as_is": [],
+    "no_fifo": [("for (int e = tid; e < N_V / 4; e += PRE_THREADS)",
+                 "for (int e = tid; e < 0; e += PRE_THREADS)")],
+    "no_px": [("for (int i = 0; i < 9; ++i) ypo = fmaf(", "for (int i = 0; i < 1; ++i) ypo = fmaf(")],
+}
+# probes of the first step kernel (`git show a43feee:esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu`)
+MXU_PRE_PARENT_PROBES = {
+    "no_fifo": [("  for (int r = 0; r < 34; ++r) vc[32 * r] = vb[64 * r];",
+                 "  for (int r = 0; r < 0; ++r) vc[32 * r] = vb[64 * r];")],
+    "no_px": [("for (int i = 0; i < 9; ++i) t += xp[i] * px[72 * i + j];",
+               "for (int i = 0; i < 1; ++i) t += xp[i] * px[72 * i + j];")],
+}
+MXU_PRE_SASS_KERNEL = "mp3_mxu_pre_kernel"
 
 def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
     """``sources`` copied into build/variants/<name>/, then ``target`` (there)
@@ -912,6 +1016,282 @@ def mp3_main(args, card: str) -> None:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
+def parent_dirs(paths, probes, table, prefix, target, sources) -> dict:
+    """Variant directories of earlier sources: each file of ``paths`` as
+    ``target``, named by its directory, and with each probe of ``probes``
+    (edits from ``table``) named ``<dir>_<probe>``."""
+    dirs = {}
+    for path in paths:
+        parent = path.resolve().parent.name
+        dirs[parent] = make_variant(f"{prefix}_{parent}", target, [], sources, path)
+        for probe in probes:
+            dirs[f"{parent}_{probe}"] = make_variant(f"{prefix}_{parent}_{probe}", target,
+                                                     table[probe], sources, path)
+    return dirs
+
+
+def report_libs(libs, dirs, sass_kernel) -> None:
+    """Each library's ptxas report and its kernel's SASS opcode counts (the
+    listing goes to ``<variant dir>/sass.txt``)."""
+    for name, (_, report) in libs.items():
+        print(f"{name}: {' | '.join(report)}")
+        print(f"{name} SASS: {sass_histogram(dirs[name] / 'lib.so', sass_kernel)}")
+        (dirs[name] / "sass.txt").write_text(sass_listing(dirs[name] / "lib.so", sass_kernel))
+
+
+def timed_turns(libs, row_of) -> dict:
+    """``row_of(lib)`` for every library, first to last and then last to
+    first, printed as it comes; returns the means per library."""
+    results = {name: [] for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        row = row_of(libs[name][0])
+        results[name].append(row)
+        print(name, json.dumps(row))
+    return {name: {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+            for name, rows in results.items()}
+
+
+def mp3f32_zero_state(B):
+    return (torch.zeros((B, 2, 288), device="cuda"), *cs.mp3_zero_state(B, "cuda")[1:4],
+            torch.zeros((B, 2176), device="cuda"))
+
+
+def mp3f32_launcher(huff, side, state, fmt, vindex, lib):
+    """A function that launches ``lib``'s eal_mp3_granules_f32 on the
+    operands, its buffers prepared once (the state updated in place launch
+    after launch): the kernel alone, for timing."""
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    ver, sr_idx, nch, cutoff = fmt
+    G, B = huff.shape[:2]
+    st = tuple(t.clone() for t in state)
+    pcm = torch.empty((B, G, 576 * nch), dtype=torch.int16, device=huff.device)
+    consts = mk.format_consts(ver, sr_idx, huff.device)
+    args = (huff.data_ptr(), side.data_ptr(), consts.data_ptr(), *(t.data_ptr() for t in st),
+            pcm.data_ptr(), G, B, nch, vindex, cutoff, torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if lib.eal_mp3_granules_f32(*args) != 0:
+            cs.fail("eal_mp3_granules_f32 refused its arguments")
+        launch.keep = (huff, side, consts, st, pcm)
+        return pcm
+    return launch
+
+
+def mp3f32_checks():
+    """The runs every --mp3f32 variant is held to and their plain results:
+    phase 11's tonal run (B = 256, G = 16), and mixed-frame runs of the four
+    batch formats, two runs in a row (B = 5, the second from the first's
+    state at another FIFO phase)."""
+    from esp_audio_libs_tpu_torch.models import mp3_pipeline
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    mf = cs.tools_import("mp3frames")
+    (fmt, vindex, huff, side), = cs.mp3_run_operands(
+        cs.mp3_streams("tonal", cs.MP3_STREAMS, cs.MP3_FRAMES, 5000), cs.MP3_FRAMES)
+    runs = [("tonal", fmt, vindex, huff, side, mp3f32_zero_state(huff.shape[1]))]
+    for ci, cfg in enumerate(mf.BATCH_CFGS):
+        streams = cs.mp3_streams("mixed", 5, 8, 100 * ci, cfg)
+        (fmt, vindex, huff, side), = cs.mp3_run_operands([s[: len(s) // 2] for s in streams], 4)
+        state = mp3f32_zero_state(5)
+        runs.append((f"fmt{ci}_run0", fmt, vindex, huff, side, state))
+        state = mk.mp3_granules_f32_plain(huff, side, *state, vindex, ver=fmt[0], sr_idx=fmt[1],
+                                          nch=fmt[2], cutoff=fmt[3])[1]
+        vindex = mp3_pipeline._advance_vindex(vindex, huff.shape[0])
+        (fmt, _, huff, side), = cs.mp3_run_operands([s[len(s) // 2:] for s in streams], 4)
+        runs.append((f"fmt{ci}_run1", fmt, vindex, huff, side, state))
+    wants = [mk.mp3_granules_f32_plain(huff, side, *state, vindex, ver=fmt[0], sr_idx=fmt[1],
+                                       nch=fmt[2], cutoff=fmt[3])
+             for _, fmt, vindex, huff, side, state in runs]
+    return runs, wants
+
+
+def mp3f32_errors(lib, runs, wants) -> tuple:
+    """``lib``'s eal_mp3_granules_f32 on every run (one launch each, from
+    copies of the state) against the plain results: (worst PCM difference
+    in LSB, worst f32 state difference relative to its scale, whether the
+    integer state is equal)."""
+    lsb, rel, ints = 0, 0.0, True
+    for (_, fmt, vindex, huff, side, state), want in zip(runs, wants):
+        launch = mp3f32_launcher(huff, side, state, fmt, vindex, lib)
+        pcm = launch()
+        torch.cuda.synchronize()
+        lsb = max(lsb, int((pcm.transpose(0, 1).int() - want[0].int()).abs().max()))
+        for a, b in zip(launch.keep[3], want[1]):
+            if a.dtype == torch.float32:
+                rel = max(rel, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            else:
+                ints = ints and torch.equal(a, b)
+    return lsb, rel, ints
+
+
+def mp3f32_main(args, card: str) -> None:
+    """--mp3f32: the mirror tier's kernel, its variants, earlier sources and
+    their probes at phase 11's timed shapes (B = 256 and 2048 x G = 16)."""
+    names = list(MP3F32_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "mp3_granules_f32.cu"
+    sources = [src, kernels.CSRC / "mp3_common.cuh"]
+    dirs = {name: make_variant(f"mp3f32_{name}", src.name, MP3F32_VARIANTS[name], sources)
+            for name in names}
+    dirs.update(parent_dirs(args.mp3f32_parent, args.parent_probes, MP3F32_PARENT_PROBES,
+                            "mp3f32", src.name, sources))
+    libs = build_all(dirs, ("eal_mp3_granules_f32",))
+    report_libs(libs, dirs, MP3F32_SASS_KERNEL)
+
+    runs, wants = mp3f32_checks()
+    _, fmt, vindex, huff, side, _ = runs[0]
+    shapes = {}
+    for B in (cs.MP3_STREAMS, 8 * cs.MP3_STREAMS):
+        h = huff.repeat(1, B // cs.MP3_STREAMS, 1, 1).contiguous()
+        sd = side.repeat(1, B // cs.MP3_STREAMS, 1).contiguous()
+        shapes[f"b{B}"] = (h, sd, mp3f32_zero_state(B))
+        nbytes, bound_ms, bound_by = cs.mp3f32_work(h, sd)[:3]
+        print(f"b{B}: G={h.shape[0]} B={B} stereo: {nbytes} B; bound {bound_ms:.4f} ms ({bound_by})")
+
+    def row_of(lib):
+        lsb, rel, ints = mp3f32_errors(lib, runs, wants)
+        row = {"pcm_lsb": float(lsb), "state_rel": rel,
+               "within": float(lsb <= 1 and rel <= cs.MP3F_STATE_RTOL and ints)}
+        for key, (h, sd, state) in shapes.items():
+            row[f"{key}_ms"] = cs.cuda_time(mp3f32_launcher(h, sd, state, fmt, vindex, lib),
+                                            iters=20)
+        return row
+    means = timed_turns(libs, row_of)
+    for name, m in means.items():
+        print(f"{name}: B=256 {m['b256_ms']:.4f} ms, B=2048 {m['b2048_ms']:.4f} ms, within 1 LSB "
+              f"and {cs.MP3F_STATE_RTOL} of the state's scale {m['within'] == 1.0} (worst "
+              f"{m['pcm_lsb']:.0f} LSB, {m['state_rel']:.3g}; means of 2 turns, 20 direct "
+              f"launches each)")
+    h, sd, state = shapes[f"b{8 * cs.MP3_STREAMS}"]
+    launch = mp3f32_launcher(h, sd, state, fmt, vindex, next(iter(libs.values()))[0])
+    print(f"SM clock while the first variant's B=2048 launches run: {sm_clock(launch)}")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
+def mxu_pre_call(lib, yx, ip, over, pt, pws, npv, vbuf, px, *, nch):
+    """``lib``'s eal_mp3_mxu_pre as ``mp3mxu.mp3_mxu_pre_cuda`` (uncounted)."""
+    from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
+    B = over.shape[0]
+    ofvc = torch.empty((B * nch, mk.MXU_IN), dtype=torch.float32, device=yx.device)
+    if lib.eal_mp3_mxu_pre(yx.data_ptr(), ip.data_ptr(), over.data_ptr(), pt.data_ptr(),
+                           pws.data_ptr(), npv.data_ptr(), vbuf.data_ptr(), px.data_ptr(),
+                           ofvc.data_ptr(), B, nch, torch.cuda.current_stream().cuda_stream) != 0:
+        cs.fail("eal_mp3_mxu_pre refused its arguments")
+    return ofvc
+
+
+def mxu_plain_steps(pre_kernel=None):
+    """Swap ``mp3mxu``'s step kernels for their plain versions (pre: for
+    ``pre_kernel`` when given); returns a function that restores them."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    real = mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda
+
+    def pre(yx, ip, over, pt, pws, npv, vbuf, px, *, nch):
+        ofvc, *new = mp3mxu.mxu_pre_plain(yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        for t, n in zip((over, pt, pws, npv), new):
+            t.copy_(n)
+        return ofvc
+
+    def post(acc, newv, vbuf, keep, out, *, nch):
+        pcm, nv = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
+        out.copy_(pcm)
+        vbuf.copy_(nv)
+
+    mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = pre_kernel or pre, post
+
+    def restore():
+        mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = real
+    return restore
+
+
+def mxu_pre_errors(lib, runs) -> tuple:
+    """``lib``'s eal_mp3_mxu_pre at every granule step of each run (through
+    ``mp3mxu.mxu_run``, the other parts plain) against ``mxu_pre_plain`` on
+    the same inputs, the run continuing from the kernel's results: (worst
+    absolute difference of its f32 outputs, worst f32 state difference
+    relative to its scale, whether the integer state is equal)."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    worst = [0.0, 0.0, True]
+
+    def pre(yx, ip, over, pt, pws, npv, vbuf, px, *, nch):
+        want = mp3mxu.mxu_pre_plain(yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        got = mxu_pre_call(lib, yx, ip, over, pt, pws, npv, vbuf, px, nch=nch)
+        torch.cuda.synchronize()
+        for a, b in zip((got, over, pt, pws, npv), want):
+            if a.dtype == torch.float32:
+                err = float((a - b).abs().max())
+                worst[0] = max(worst[0], err)
+                worst[1] = max(worst[1], err / max(float(b.abs().max()), 1e-30))
+            else:
+                worst[2] = worst[2] and torch.equal(a, b)
+        return got
+
+    restore = mxu_plain_steps(pre)
+    try:
+        for _, fmt, vindex, huff, side, state in runs:
+            mp3mxu.mxu_run(huff, side, *state, vindex, ver=fmt[0], sr_idx=fmt[1], nch=fmt[2],
+                           cutoff=fmt[3])
+    finally:
+        restore()
+    return tuple(worst)
+
+
+def mxu_pre_main(args, card: str) -> None:
+    """--mxu-pre: the MXU tier's first step kernel, its variants, earlier
+    sources and their probes at phase 11b's timed shapes (B = 256 and 2048,
+    granule 0 of the tonal run, from the state the run leaves)."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    names = list(MXU_PRE_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "mp3_mxu_step.cu"
+    dirs = {name: make_variant(f"mxu_pre_{name}", src.name, MXU_PRE_VARIANTS[name], [src])
+            for name in names}
+    dirs.update(parent_dirs(args.mxu_pre_parent, args.parent_probes, MXU_PRE_PARENT_PROBES,
+                            "mxu_pre", src.name, [src]))
+    libs = build_all(dirs, ("eal_mp3_mxu_pre",))
+    report_libs(libs, dirs, MXU_PRE_SASS_KERNEL)
+
+    runs = mp3f32_checks()[0]
+    _, fmt, vindex, huff, side, _ = runs[0]
+    kw = dict(ver=fmt[0], sr_idx=fmt[1], nch=fmt[2], cutoff=fmt[3])
+    ops = mp3mxu.device_operators(torch.device("cuda"))
+    shapes = {}
+    for B in (cs.MP3_STREAMS, 8 * cs.MP3_STREAMS):
+        h = huff.repeat(1, B // cs.MP3_STREAMS, 1, 1).contiguous()
+        sd = side.repeat(1, B // cs.MP3_STREAMS, 1).contiguous()
+        with torch.no_grad():
+            yx, ip = mp3mxu.mxu_prelude(h, sd, **kw)
+            st = mp3f32_zero_state(B)
+            pcm = torch.empty((B, h.shape[0], 576 * fmt[2]), dtype=torch.int16, device="cuda")
+            restore = mxu_plain_steps()
+            try:
+                mp3mxu.mxu_steps(yx, ip, st, vindex, pcm, nch=fmt[2])
+            finally:
+                restore()
+        pre_bytes = cs.mxu_step_bytes(ip[0], ops["keep"][vindex], B, fmt[2])[0]
+        shapes[f"b{B}"] = (yx[0].contiguous(), ip[0].contiguous(), st)
+        print(f"b{B}: B={B} stereo, granule 0 of the run from the state it leaves: {pre_bytes} "
+              f"B; bound {pre_bytes / cs.PEAK_BYTES * 1e3:.4f} ms (bytes)")
+        del yx, ip
+
+    def row_of(lib):
+        err, rel, ints = mxu_pre_errors(lib, runs)
+        row = {"max_abs_err": err, "state_rel": rel,
+               "within": float(rel <= cs.MP3F_STATE_RTOL and ints)}
+        for key, (yx, ip, st) in shapes.items():
+            st2 = tuple(t.clone() for t in st)
+            row[f"{key}_ms"] = cs.cuda_time(
+                lambda: mxu_pre_call(lib, yx, ip, *st2, ops["PX"], nch=fmt[2]), iters=20)
+            row[f"{key}_queued_ms"] = cs.cuda_time_queued(
+                lambda: mxu_pre_call(lib, yx, ip, *st2, ops["PX"], nch=fmt[2]), iters=20)
+        return row
+    means = timed_turns(libs, row_of)
+    for name, m in means.items():
+        print(f"{name}: B=256 {m['b256_ms']:.4f} ms (queued {m['b256_queued_ms']:.4f}), B=2048 "
+              f"{m['b2048_ms']:.4f} ms (queued {m['b2048_queued_ms']:.4f}), within "
+              f"{cs.MP3F_STATE_RTOL} of the state's scale {m['within'] == 1.0} (worst "
+              f"{m['max_abs_err']:.3g}, {m['state_rel']:.3g}; means of 2 turns, 20 direct "
+              f"launches each)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
 def sm_clock(launch, seconds: float = 1.5) -> str:
     """The SM clock (nvidia-smi, sampled every 50 ms) while ``launch()``
     runs back to back for ``seconds``: median and range in MHz, to turn a
@@ -960,15 +1340,28 @@ def main() -> None:
     ap.add_argument("--mp3-parent", type=Path, nargs="+", default=[],
                     help="with --mp3: earlier mp3_granules.cu files, each timed as a variant "
                          "named by its directory")
+    ap.add_argument("--mp3f32", action="store_true",
+                    help="probe the mirror tier's MP3 kernel instead of the banded main loop")
+    ap.add_argument("--mp3f32-parent", type=Path, nargs="+", default=[],
+                    help="with --mp3f32: earlier mp3_granules_f32.cu files, each timed as a "
+                         "variant named by its directory")
+    ap.add_argument("--mxu-pre", action="store_true",
+                    help="probe the MXU tier's first step kernel instead of the banded main loop")
+    ap.add_argument("--mxu-pre-parent", type=Path, nargs="+", default=[],
+                    help="with --mxu-pre: earlier mp3_mxu_step.cu files, each timed as a "
+                         "variant named by its directory")
     ap.add_argument("--parent-probes", nargs="+", default=[],
                     choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)
-                                   | set(MP3_PARENT_PROBES) | set(DOT_PARENT_PROBES)),
-                    help="with --polyphase-exact-parent, --flac-parent, --mp3-parent or "
-                         "--dotprod-parent: these probes of each parent too")
+                                   | set(MP3_PARENT_PROBES) | set(DOT_PARENT_PROBES)
+                                   | set(MP3F32_PARENT_PROBES) | set(MXU_PRE_PARENT_PROBES)),
+                    help="with --polyphase-exact-parent, --flac-parent, --mp3-parent, "
+                         "--dotprod-parent, --mp3f32-parent or --mxu-pre-parent: these probes "
+                         "of each parent too")
     ap.add_argument("--variants", nargs="*", default=None,
                     choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)
                                    | set(FLAC_VARIANTS) | set(MP3_VARIANTS)
-                                   | set(DOT_VARIANTS)))
+                                   | set(DOT_VARIANTS) | set(MP3F32_VARIANTS)
+                                   | set(MXU_PRE_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -991,6 +1384,12 @@ def main() -> None:
         return
     if args.mp3:
         mp3_main(args, card)
+        return
+    if args.mp3f32:
+        mp3f32_main(args, card)
+        return
+    if args.mxu_pre:
+        mxu_pre_main(args, card)
         return
     names = args.variants or list(VARIANTS)
     sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
