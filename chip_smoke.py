@@ -102,15 +102,18 @@ Phases, each printing a line:
                against their plain versions on phase 11's parsed runs (its
                formats and frame kinds, two runs in a row, the escape tier):
                PCM within 1 LSB, f32 state within MP3F_STATE_RTOL of its
-               scale, the rest equal; the operators are probed on the host's
-               CPU in phase 2; (c) timed by
+               scale, the rest equal; mp3_mxu_post bit for bit, there and on
+               mxu_post_cases (accumulators past int16 and on half-ties,
+               masks mixed within groups of four, mono, wide PCM rows); the
+               operators are probed on the host's CPU in phase 2; (c) timed by
                direct launches (CUDA events) at B = 256 and 2048 x G = 16
                (phase 11's tonal run): mp3_granules_f32 beside its bound (its
                bytes at 3.35 TB/s or FP32 operations at 67 TFLOP/s,
                mp3f32_work) and, at B = 256, its plain version; the MXU run,
                its prelude and its steps (ms a granule), each step kernel
                beside its bytes bound (mxu_step_bytes: what this step's data
-               needs) and plain version, the two GEMMs alone,
+               needs) and plain version (pre and post queued behind a
+               sleeping kernel, and unqueued), the two GEMMs alone,
                and the step's bound (its GEMM flop at 67 TFLOP/s); (d) phase
                13's 256 streams x 8 frames through BatchedMP3Decoder(fast=
                "mirror") and (fast="mxu"), decode_run(to_device=True):
@@ -1557,14 +1560,100 @@ def mxu_step_bytes(ip, keep, B, nch):
     active = int(torch.clamp(torch.maximum(ip[:, 0], ip[:, 1]), 0, 32).sum())
     pre = (active * 27 * 4 + rows * 5 * 4 + 2 * rows * (288 + 3) * 4 + 9 * 72 * 4
            + rows * (1088 + 1664) * 4)
-    written = 1088 - int(keep.sum())
-    post = rows * (576 + 2 * written) * 4 + 1088 * 4 + rows * 576 * 2
-    return pre, post
+    return pre, mxu_post_bytes(keep, B, nch)
+
+
+def mxu_post_bytes(keep, B, nch):
+    """Bytes of one mp3_mxu_post launch on this step's data (see
+    :func:`mxu_step_bytes`)."""
+    rows = B * nch
+    written = 1088 - int((keep == 1.0).sum())
+    return rows * (576 + 2 * written) * 4 + 1088 * 4 + rows * 576 * 2
 
 
 def mxu_step_flop(B, nch):
     """FP32 flop of one MXU granule step's two GEMMs."""
     return 2 * B * nch * (1664 * 576 + 576 * 1088)
+
+
+MXU_POST_PAD = 0x5A5A   # fills the PCM rows around mp3_mxu_post's output in its direct check
+
+
+def mxu_post_cases(keeps, device):
+    """Operands of mp3_mxu_post's direct check: [(label, nch, acc, newv,
+    vbuf, keep, buf, out)], ``out`` a view of the int16 buffer ``buf``. The
+    accumulators mix values past the int16 range, exact half-ties (k + 0.5
+    for negative and positive k), integers and the clip's edges; the masks
+    are the probed ``keeps`` and random ones mixed within groups of four
+    (beside groups kept or written whole); mono and stereo; B of 1, 3 and
+    37; PCM rows wider than 576 nch (the step's pitch G 576 nch at g = 5 of
+    G = 16, and 24 nch samples more than a row); ``buf`` holds MXU_POST_PAD
+    outside ``out``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1800)
+    edges = np.array([-32768.5, -32768.0, -32767.5, -32767.0, -2.5, -1.5, -0.5, -0.0, 0.0, 0.5,
+                      1.5, 2.5, 32766.5, 32767.0, 32767.5, 32768.0, 0.49999997, -0.49999997,
+                      1e9, -1e9], np.float32)
+
+    def mixed_mask():
+        keep = (rng.random(1088) < 0.5).astype(np.float32)
+        keep[:4], keep[4:8] = 1.0, 0.0
+        return keep
+
+    def operands(B, nch):
+        n = B * nch * 576
+        kind = rng.integers(0, 4, n)
+        acc = np.where(kind == 0, rng.standard_normal(n) * 30000.0,
+                       np.where(kind == 1, rng.integers(-40000, 40000, n) + 0.5,
+                                np.where(kind == 2, rng.integers(-40000, 40000, n).astype(float),
+                                         rng.choice(edges, n)))).astype(np.float32)
+        newv = (rng.standard_normal((B * nch, 1088)) * 1e5).astype(np.float32)
+        vbuf = (rng.standard_normal((B, 2176)) * 1e5).astype(np.float32)
+        return acc.reshape(B * nch, 576), newv, vbuf
+
+    cases = []
+    for nch in (1, 2):
+        width = 576 * nch
+        shapes = [(f"probed mask of phase {v}", keep, 3, 16 * width, 5 * width)
+                  for v, keep in enumerate(keeps)]
+        shapes += [("mixed mask, wide rows", mixed_mask(), 37, width + 24 * nch, 0),
+                   ("mixed mask, B = 1", mixed_mask(), 1, width, 0)]
+        for label, keep, B, pitch, col in shapes:
+            acc, newv, vbuf = operands(B, nch)
+            buf = torch.full((B, pitch), MXU_POST_PAD, dtype=torch.int16, device=device)
+            cases.append((f"{label}, nch {nch}, B {B}, pitch {pitch}", nch,
+                          *(torch.as_tensor(a, device=device) for a in (acc, newv, vbuf)),
+                          torch.as_tensor(keep, dtype=torch.float32, device=device), buf,
+                          buf[:, col:col + width]))
+    return cases
+
+
+def mxu_post_mismatches(post, cases) -> list:
+    """``post(acc, newv, vbuf, keep, out, nch=...)`` (mp3_mxu_post's
+    contract: vbuf and out in place) on each of ``cases``
+    (:func:`mxu_post_cases`) against ``mxu_post_plain`` on the same inputs:
+    the labels whose PCM, vbuf (bit for bit) or PCM row padding differ."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    bad = []
+    for label, nch, acc, newv, vbuf, keep, buf, out in cases:
+        want_pcm, want_vbuf = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
+        pad = buf.clone()
+        pad[:, out.storage_offset():out.storage_offset() + out.shape[1]] = 0
+        got_vbuf = vbuf.clone()
+        post(acc, newv, got_vbuf, keep, out, nch=nch)
+        if acc.is_cuda:
+            torch.cuda.synchronize()
+        rest = buf.clone()
+        rest[:, out.storage_offset():out.storage_offset() + out.shape[1]] = 0
+        for what, same in (("pcm", torch.equal(out, want_pcm)),
+                           ("vbuf", same_bits(got_vbuf, want_vbuf)),
+                           ("padding", torch.equal(rest, pad))):
+            if not same:
+                bad.append(f"{label}: {what}")
+    return bad
 
 
 def mp3_fast_check(fmt, vindex, huff, side, state, label, esc=None):
@@ -1623,11 +1712,12 @@ def mp3_fast_check(fmt, vindex, huff, side, state, label, esc=None):
         close(None, None, (ofvc, over, pt, pws, npv), want, "mp3_mxu_pre")
         return ofvc
 
-    def post(acc, newv, vbuf, keep, out, *, nch):
+    def post(acc, newv, vbuf, keep, out, *, nch):   # no sum to reorder: bit for bit
         want_pcm, want_vbuf = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
         real_post(acc, newv, vbuf, keep, out, nch=nch)
         torch.cuda.synchronize()
-        close(out, want_pcm, (vbuf,), (want_vbuf,), "mp3_mxu_post")
+        if not (torch.equal(out, want_pcm) and same_bits(vbuf, want_vbuf)):
+            fail(f"mp3_mxu_post differs from its plain version (PCM or vbuf): {label}")
 
     mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = pre, post
     try:
@@ -1655,6 +1745,29 @@ def direct_launcher(name, *args):
         if fn(*ptrs, stream) != 0:
             fail(f"{name} refused its arguments")
         launch.keep = args
+    return launch
+
+
+def mxu_post_launcher(sets, nch, lib=None):
+    """A function that launches mp3_mxu_post through eal_mp3_mxu_post (of
+    ``lib``, else the package's library) on the operand sets ``sets`` ([(acc,
+    newv, vbuf, keep, out), ...]) in turn, one set a call, the pointers
+    prepared once; not counted. Its timing reads device memory, not L2, when
+    the sets together exceed L2."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.runtime import kernels
+    fn = (lib or kernels.library()).eal_mp3_mxu_post
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [(acc.data_ptr(), newv.data_ptr(), vbuf.data_ptr(), keep.data_ptr(), out.data_ptr(),
+             out.stride(0), vbuf.shape[0], nch, stream) for acc, newv, vbuf, keep, out in sets]
+    turn = [0]
+
+    def launch():
+        if fn(*args[turn[0] % len(args)]) != 0:
+            fail("eal_mp3_mxu_post refused its arguments")
+        turn[0] += 1
+    launch.keep = sets
     return launch
 
 
@@ -1715,8 +1828,9 @@ def mp3_fast_phase():
     (c) timed at B = 256 and 2048 x G = 16 (phase 11's tonal run) beside
     their bounds and plain versions; (d) phase 13's fleet through
     BatchedMP3Decoder(fast="mirror") and (fast="mxu"), decode_run(to_device=
-    True), against the exact tier, launches counted. Returns the three
-    kernels-line entries."""
+    True), against the exact tier, launches counted. mp3_mxu_post is held to
+    its plain version bit for bit, at every step and on mxu_post_cases.
+    Returns the three kernels-line entries."""
     import numpy as np
     import torch
 
@@ -1769,11 +1883,20 @@ def mp3_fast_phase():
         note(mp3_fast_check(fmt, vindex, huff, side, zero_state(huff.shape[1]), "escape tier",
                             esc=esc)[1])
         esc_runs += 1
+    post_cases = mxu_post_cases(list(mp3mxu.device_operators(torch.device("cuda"))["keep"]),
+                                "cuda")
+    bad = mxu_post_mismatches(mk.mp3_mxu_post_cuda, post_cases)
+    if bad:
+        fail(f"mp3_mxu_post differs from its plain version: {'; '.join(bad[:4])}")
+    print(f"mp3_mxu_post bit for bit on {len(post_cases)} direct cases (mxu_post_cases: "
+          f"accumulators past int16 and on half-ties, the probed and mixed masks, mono and "
+          f"stereo, B 1 / 3 / 37, wide PCM rows, the padding untouched)")
     regs = {k: ptxas_of(k + "_kernel") for k in ("mp3_granules_f32", "mp3_mxu_pre")}
+    regs["mp3_mxu_post"] = ptxas_of("mp3_mxu_post_kernelILi2E")   # the stereo instance
     print("ptxas (sm_90a): " + "; ".join(
         f"{k}_kernel {r['registers']} registers, {r['stack']} bytes stack frame, "
         f"{r['spill_stores']} / {r['spill_loads']} bytes spill stores / loads" if r else
-        f"{k}_kernel: no report" for k, r in regs.items()))
+        f"{k}_kernel: no report" for k, r in regs.items()) + " (mp3_mxu_post: nch = 2)")
     print(f"mp3 fast kernels: {n_runs} runs of {len(cfgs)} formats and {esc_runs} escape-tier "
           f"runs, mp3_granules_f32 and both MXU step kernels (at every step) against their "
           f"plain versions, PCM within 1 LSB and f32 state within {MP3F_STATE_RTOL} of its "
@@ -1819,9 +1942,10 @@ def mp3_fast_phase():
                                          ofvc, B, nch)
             pre_direct_ms = cuda_time(pre_launch, iters=20)
             pre_ms = cuda_time_queued(pre_launch, iters=20)   # shorter than a ctypes launch
-            post_ms = cuda_time(direct_launcher("eal_mp3_mxu_post", acc, newv, st2[4],
-                                                ops["keep"][vindex], pcm, pcm.stride(0), B,
-                                                nch), iters=20)
+            post_launch = mxu_post_launcher([(acc, newv, st2[4], ops["keep"][vindex],
+                                              pcm[:, 0])], nch)
+            post_direct_ms = cuda_time(post_launch, iters=20)
+            post_ms = cuda_time_queued(post_launch, iters=20)
 
             def gemms():
                 torch.matmul(ofvc, ops["S"][vindex], out=acc)
@@ -1833,8 +1957,7 @@ def mp3_fast_phase():
         flop = mxu_step_flop(B, nch)
         step_bound = max(flop / PEAK_FP32 * 1e3, (pre_bytes + post_bytes) / PEAK_BYTES * 1e3)
         r.update(run_ms=run_ms, prelude_ms=prelude_ms, step_ms=steps_ms / G, pre_ms=pre_ms,
-                 pre_direct_ms=pre_direct_ms,
-                 post_ms=post_ms, gemm_ms=gemm_ms, pre_bound=pre_bytes / PEAK_BYTES * 1e3,
+                 pre_direct_ms=pre_direct_ms, post_ms=post_ms, post_direct_ms=post_direct_ms, gemm_ms=gemm_ms, pre_bound=pre_bytes / PEAK_BYTES * 1e3,
                  post_bound=post_bytes / PEAK_BYTES * 1e3, step_bound=step_bound)
         if B == MP3_STREAMS:   # the plain versions, at B = 256 only
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1860,8 +1983,9 @@ def mp3_fast_phase():
               f"launches and 2 GEMMs each); mp3_mxu_pre {pre_ms:.4f} ms per direct launch queued "
               f"behind a sleeping kernel ({pre_direct_ms:.4f} unqueued; bound "
               f"{r['pre_bound']:.4f}, bytes: {pre_bytes} B, {r['pre_bound'] / pre_ms:.1%} of it), "
-              f"mp3_mxu_post {post_ms:.4f} ms "
-              f"(bound {r['post_bound']:.4f}, bytes: {post_bytes} B)"
+              f"mp3_mxu_post {post_ms:.4f} ms queued ({post_direct_ms:.4f} unqueued; bound "
+              f"{r['post_bound']:.4f}, bytes: {post_bytes} B, {r['post_bound'] / post_ms:.1%} of "
+              f"it)"
               + (f", plain {r['pre_plain_ms']:.4f} / {r['post_plain_ms']:.4f} ms"
                  if "pre_plain_ms" in r else "")
               + f"; the two GEMMs alone {gemm_ms:.4f} ms a step ([{rows}, 1664] x [1664, 576] "
@@ -1957,12 +2081,13 @@ def mp3_fast_phase():
                   "bound_by": "operations", "run_ms": r["run_ms"], "prelude_ms": r["prelude_ms"],
                   "ms_per_granule_b2048": r8["step_ms"], "gemm_ms_b2048": r8["gemm_ms"],
                   "decode_msps": n_in / med["mxu"] / 1e6}},
-        {"name": "mp3_mxu_post", **common("mp3_mxu_post"),
+        {"name": "mp3_mxu_post", **common("mp3_mxu_post"), **regs["mp3_mxu_post"],
          "source": "esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu",
          "replaces": "esp_audio_libs_tpu/models/mp3_pipeline.py:315",
          "launches": launches["mxu"]["mp3_mxu_post"], "ms": r["post_ms"],
          "plain_ms": r["post_plain_ms"], "bound_ms": r["post_bound"], "bound_by": "bytes",
-         "ms_b2048": r8["post_ms"]}]
+         "ms_b2048": r8["post_ms"], "ms_unqueued": r["post_direct_ms"],
+         "ms_b2048_unqueued": r8["post_direct_ms"]}]
 
 
 def mp3_corpus_phase():

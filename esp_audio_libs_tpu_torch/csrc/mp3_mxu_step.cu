@@ -19,7 +19,7 @@
 //     the channel's block of the FIFO (column 576 + row * 32 + slot).
 //   eal_mp3_mxu_post: the tail of subband_granule_mxu: the written FIFO
 //     slots (of @ W[v]) merged into the interleaved [34, 64] FIFO where
-//     keep[v] is 0, and the accumulators ([of | vc] @ S[v], PCM units)
+//     keep[v] is not 1, and the accumulators ([of | vc] @ S[v], PCM units)
 //     quantized, floor(acc + 0.5) clipped to int16, channels interleaved.
 //
 // pre runs one block of 288 threads per (stream, channel) row, every access
@@ -35,13 +35,37 @@
 // --mxu-pre, PERF.md). The overlap product is a chain of FMAs over the nine
 // inputs in order, as the plain version's FP32 GEMM forms it.
 //
-// What bounds them: bytes. pre reads the granule's x-side products (27 floats
-// a long or short block) and writes the 1664-float GEMM row of each stream
-// and channel; post reads the GEMMs' 1664 outputs a row and the FIFO and
-// writes it back and the PCM. The GEMMs take most of a step's arithmetic
-// (2 * 1664 * 576 + 2 * 576 * 1088 flop a row). Sums run in the plain
-// versions' order, so through tools/cuda_cpu_shim.h both equal their plain
-// versions bit for bit; on the card they are held to them by tolerance.
+// post runs two blocks of 288 threads per stream, both channels, and moves
+// everything in 16-byte words. A thread takes four consecutive positions of
+// the granule's PCM: one float4 of each channel's accumulators, and for
+// stereo the eight int16 (channels interleaved in registers) leave as one
+// 16-byte store, for mono four as one 8-byte store. The FIFO merge goes by
+// aligned groups of four slots: a group that keep[v] keeps whole is not
+// touched (no read of newv, no write), a group it writes whole is one float4
+// load and one float4 store, and a group mixed within itself goes slot by
+// slot (the probed masks have none: each phase keeps 32 slots, four whole
+// groups a channel). The groups are laid out so that a warp's stores cover
+// whole FIFO rows of both channels. Each thread starts its loads (keep's
+// groups through the read-only path, the accumulators, the written newv
+// groups) before its first store. Two blocks a stream beat one (more loads
+// in flight at B = 2048, more blocks than SMs at B = 256). The first design
+// (a block per (stream, channel), a thread per int16 stored nch samples
+// apart, every slot of newv and keep read four bytes at a time) took 0.0046
+// ms at B = 256 (queued, its operands in L2) and 0.0262 ms at B = 2048 (past
+// L2) on an H100, this one 0.0032 and 0.0197 (tools/kernel_variants.py
+// --mxu-post, PERF.md).
+//
+// What bounds them. pre: bytes; it reads the granule's x-side products (27
+// floats a long or short block) and writes the 1664-float GEMM row of each
+// stream and channel. post: where its operands miss L2 (B = 2048), bytes:
+// the accumulators, the written newv slots, the FIFO slots it writes and the
+// PCM; at B = 256 the GEMMs have just written its 6.1 MB, which L2 holds, and
+// the latency of its few loads a thread and the launch set its time. The
+// GEMMs take most of a step's arithmetic (2 * 1664 * 576 + 2 * 576 * 1088
+// flop a row). pre's sums run in the plain version's order and post rounds
+// nothing but floor(acc + 0.5), so through tools/cuda_cpu_shim.h both equal
+// their plain versions bit for bit; on the card pre is held to its plain
+// version by tolerance (nvcc may contract), post bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -57,7 +81,10 @@ constexpr int N_V = 34 * 32;             // one channel's FIFO block
 constexpr int ROW = N_OUT + N_V;         // one GEMM row
 constexpr int PRE_THREADS = 288;         // one block per (stream, channel): 2 outputs a thread
 constexpr int YS = 27;                   // x-side values a long or short block reads: 18 | 9
-constexpr int POST_THREADS = 256;
+constexpr int POST_THREADS = 288;        // a block's threads
+constexpr int POST_PARTS = 2;            // blocks a stream
+constexpr int POST_SPAN = POST_THREADS * POST_PARTS;                 // threads a stream
+constexpr int POST_GROUPS = (2 * N_V / 4 + POST_SPAN - 1) / POST_SPAN;   // FIFO groups a thread
 constexpr unsigned FULL = 0xffffffffu;
 
 // the four-way select of a window type: 0, 1, 2, else 3 (ops/mp3fast.py _sel4_index)
@@ -187,20 +214,88 @@ struct PostArgs {
   int B, nch;
 };
 
-// one block per (stream, channel)
+__device__ __forceinline__ uint32_t pcm_pair(float lo, float hi) {   // floor(x + 0.5), int16
+  const float a = fminf(fmaxf(floorf(lo + 0.5f), -32768.0f), 32767.0f);
+  const float b = fminf(fmaxf(floorf(hi + 0.5f), -32768.0f), 32767.0f);
+  return static_cast<uint32_t>(static_cast<uint16_t>(static_cast<int16_t>(a))) |
+         (static_cast<uint32_t>(static_cast<uint16_t>(static_cast<int16_t>(b))) << 16);
+}
+
+__device__ __forceinline__ bool kept(float k) { return k == 1.0f; }
+__device__ __forceinline__ bool all_kept(float4 k) {
+  return kept(k.x) && kept(k.y) && kept(k.z) && kept(k.w);
+}
+__device__ __forceinline__ bool none_kept(float4 k) {
+  return !kept(k.x) && !kept(k.y) && !kept(k.z) && !kept(k.w);
+}
+
+// POST_PARTS blocks per stream (blockIdx.y). Thread u of the stream takes
+// FIFO groups j = u + POST_SPAN r: FIFO row j / (8 NCH), channel (j / 8) %
+// NCH, slots 4 (j % 8) .. + 3 of the channel's 32 (so a warp's stores cover
+// whole rows of the interleaved FIFO), and PCM quad k = u: positions 4k ..
+// 4k + 3 of every channel.
+template <int NCH>
 __global__ void __launch_bounds__(POST_THREADS) mp3_mxu_post_kernel(PostArgs a) {
-  const int row = blockIdx.x;
-  const int b = row / a.nch, ch = row % a.nch;
-  const float* nv = a.newv + (size_t)row * N_V;
-  float* vb = a.vbuf + (size_t)b * 2176 + 32 * ch;
-  for (int e = threadIdx.x; e < N_V; e += POST_THREADS)
-    if (a.keep[e] != 1.0f) vb[64 * (e >> 5) + (e & 31)] = nv[e];
-  const float* acc = a.acc + (size_t)row * N_OUT;
+  static_assert(POST_SPAN >= N_OUT / 4, "one PCM quad a thread");
+  constexpr int GROUPS = NCH * N_V / 4;
+  const int b = blockIdx.x;
+  const int u = blockIdx.y * POST_THREADS + threadIdx.x;
+  const float4* __restrict__ keep4 = reinterpret_cast<const float4*>(a.keep);
+  const float4* __restrict__ acc4 =
+      reinterpret_cast<const float4*>(a.acc) + (size_t)b * NCH * (N_OUT / 4);
+  const float4* __restrict__ nv4 =
+      reinterpret_cast<const float4*>(a.newv) + (size_t)b * NCH * (N_V / 4);
+  float* __restrict__ vb = a.vbuf + (size_t)b * 2176;
+  const int k = u;
+  const bool quad = k < N_OUT / 4;
+
+  // every load before the first store: keep's groups, the accumulators, then
+  // the newv groups that keep does not keep whole
+  float4 kp[POST_GROUPS], nv[POST_GROUPS], x[NCH];
+  int vi[POST_GROUPS];   // the group's first slot in the stream's FIFO, -1 past the end
+#pragma unroll
+  for (int r = 0; r < POST_GROUPS; ++r) {
+    const int j = u + r * POST_SPAN;
+    vi[r] = -1;
+    if (j < GROUPS) {
+      const int row = j / (8 * NCH), ch = (j / 8) % NCH, c4 = j % 8;
+      kp[r] = __ldg(keep4 + 8 * row + c4);
+      vi[r] = 64 * row + 32 * ch + 4 * c4;
+    }
+  }
+  if (quad) {
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) x[ch] = acc4[ch * (N_OUT / 4) + k];
+  }
+#pragma unroll
+  for (int r = 0; r < POST_GROUPS; ++r) {
+    const int j = u + r * POST_SPAN;
+    if (vi[r] >= 0 && !all_kept(kp[r]))
+      nv[r] = nv4[((j / 8) % NCH) * (N_V / 4) + 8 * (j / (8 * NCH)) + j % 8];
+  }
+
+#pragma unroll
+  for (int r = 0; r < POST_GROUPS; ++r) {
+    if (vi[r] < 0 || all_kept(kp[r])) continue;
+    float* v = vb + vi[r];
+    if (none_kept(kp[r])) {
+      *reinterpret_cast<float4*>(v) = nv[r];
+    } else {   // mixed: slot by slot
+      if (!kept(kp[r].x)) v[0] = nv[r].x;
+      if (!kept(kp[r].y)) v[1] = nv[r].y;
+      if (!kept(kp[r].z)) v[2] = nv[r].z;
+      if (!kept(kp[r].w)) v[3] = nv[r].w;
+    }
+  }
+  if (!quad) return;
   int16_t* out = a.pcm + (size_t)b * a.pitch;
-  for (int e = threadIdx.x; e < N_OUT; e += POST_THREADS) {
-    const float q = fminf(fmaxf(floorf(acc[e] + 0.5f), -32768.0f), 32767.0f);
-    const int t = e >> 5, i = e & 31;
-    out[t * 32 * a.nch + i * a.nch + ch] = static_cast<int16_t>(q);
+  if constexpr (NCH == 2) {
+    const uint4 w = make_uint4(pcm_pair(x[0].x, x[1].x), pcm_pair(x[0].y, x[1].y),
+                               pcm_pair(x[0].z, x[1].z), pcm_pair(x[0].w, x[1].w));
+    reinterpret_cast<uint4*>(out)[k] = w;
+  } else {
+    const uint2 w = make_uint2(pcm_pair(x[0].x, x[0].y), pcm_pair(x[0].z, x[0].w));
+    reinterpret_cast<uint2*>(out)[k] = w;
   }
 }
 
@@ -232,7 +327,12 @@ extern "C" int eal_mp3_mxu_pre(const void* yx, const void* ip, void* over, void*
 
 extern "C" int eal_mp3_mxu_post(const void* acc, const void* newv, void* vbuf, const void* keep,
                                 void* pcm, long long pitch, int B, int nch, void* stream) {
-  if (B < 1 || (nch != 1 && nch != 2) || pitch < 576LL * nch)
+  // the kernel moves acc, newv, vbuf and keep in 16-byte words and stores the
+  // PCM 8 nch bytes at a time: pitch is in int16 samples
+  const uintptr_t words = reinterpret_cast<uintptr_t>(acc) | reinterpret_cast<uintptr_t>(newv) |
+                          reinterpret_cast<uintptr_t>(vbuf) | reinterpret_cast<uintptr_t>(keep);
+  if (B < 1 || (nch != 1 && nch != 2) || pitch < 576LL * nch || (words & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(pcm) & (8 * nch - 1)) != 0 || (pitch * 2) % (8 * nch) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   PostArgs a;
   a.acc = static_cast<const float*>(acc);
@@ -243,6 +343,8 @@ extern "C" int eal_mp3_mxu_post(const void* acc, const void* newv, void* vbuf, c
   a.pitch = pitch;
   a.B = B;
   a.nch = nch;
-  mp3_mxu_post_kernel<<<B * nch, POST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(B, POST_PARTS);
+  const auto kernel = nch == 2 ? mp3_mxu_post_kernel<2> : mp3_mxu_post_kernel<1>;
+  kernel<<<grid, POST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

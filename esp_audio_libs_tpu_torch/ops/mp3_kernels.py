@@ -304,6 +304,12 @@ def mp3_mxu_post_cuda(acc, newv, vbuf, keep, out, *, nch: int):
       keep: f32 ``[1088]``, the phase's 0/1 survivor mask.
       out: int16 ``[B, 576 * nch]`` (rows may be strided), gets the PCM:
         ``floor(acc + 0.5)`` clipped to int16, channels interleaved.
+
+    The kernel moves ``acc``, ``newv``, ``vbuf`` and ``keep`` in 16-byte
+    words and stores the PCM in ``8 * nch``-byte words: it refuses (a
+    RuntimeError here) operands off 16 bytes, or an ``out`` whose base or
+    row pitch in bytes is not a multiple of ``8 * nch``. ``mxu_steps``'
+    ``pcm[:, g]`` always qualifies.
     """
     if _route(acc, newv, vbuf, keep, out) == "cpu":
         from .mp3mxu import mxu_post_plain

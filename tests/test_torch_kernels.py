@@ -19,7 +19,9 @@ kernel (csrc/mp3_granules.cu) is held to its plain version byte for byte,
 new state included, on real parsed runs of tools/mp3frames.py streams; the
 relaxed tiers' kernels (csrc/mp3_granules_f32.cu, csrc/mp3_mxu_step.cu) to
 theirs within 1 LSB of PCM and a relative tolerance of state, step by step
-for the MXU tier's two step kernels, with the escape tier and ragged B.
+for the MXU tier's two step kernels, with the escape tier and ragged B;
+mp3_mxu_post, which rounds nothing but floor(acc + 0.5), bit for bit, also
+on chip_smoke.mxu_post_cases, and its wrapper raises on misaligned operands.
 The exact dot kernel (csrc/dotprod_exact.cu) is held to its plain version
 bit for bit on ragged, unaligned and subnormal operands, and the DSP layer
 (ops/dsp.py) and the MP3 fleet's pipelined runs and checkpoints on the card
@@ -660,7 +662,7 @@ def test_flac_frame_kernel_dispatch_shape(cuda, F):
 
 @pytest.mark.parametrize("table", ["VARIANTS", "BIQUAD_VARIANTS", "EXACT_VARIANTS",
                                    "FLAC_VARIANTS", "MP3_VARIANTS", "DOT_VARIANTS",
-                                   "MP3F32_VARIANTS", "MXU_PRE_VARIANTS"])
+                                   "MP3F32_VARIANTS", "MXU_PRE_VARIANTS", "MXU_POST_VARIANTS"])
 def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     """Every text edit of tools/kernel_variants.py still matches the
     sources it edits exactly once (the tool stops on the card otherwise)."""
@@ -670,7 +672,7 @@ def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
               "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu",
               "MP3_VARIANTS": "mp3_granules.cu", "DOT_VARIANTS": "dotprod_exact.cu",
               "MP3F32_VARIANTS": "mp3_granules_f32.cu",
-              "MXU_PRE_VARIANTS": "mp3_mxu_step.cu"}[table]
+              "MXU_PRE_VARIANTS": "mp3_mxu_step.cu", "MXU_POST_VARIANTS": "mp3_mxu_step.cu"}[table]
     sources = sorted(kernels.CSRC.glob("*.cu*"))
     for name, edits in getattr(kv, table).items():
         assert (kv.make_variant(name, target, edits, sources) / target).exists()
@@ -1144,12 +1146,13 @@ def mxu_steps_checked(monkeypatch, label):
                       (got, over, pt, pws, npv), want, f"{label}: pre")
         return got
 
-    def post(acc, newv, vbuf, keep, out, *, nch):
+    def post(acc, newv, vbuf, keep, out, *, nch):   # no sum: bit for bit
         want_pcm, want_vbuf = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
         mk.mp3_mxu_post_cuda(acc, newv, vbuf, keep, out, nch=nch)
         torch.cuda.synchronize()
-        close_pcm(out, want_pcm, f"{label}: post")
-        close_tensors(("vbuf",), (vbuf,), (want_vbuf,), f"{label}: post")
+        assert torch.equal(out, want_pcm), f"{label}: post PCM"
+        assert torch.equal(vbuf.view(torch.int32), want_vbuf.view(torch.int32)), \
+            f"{label}: post vbuf"
 
     monkeypatch.setattr(mp3mxu, "mp3_mxu_pre_cuda", pre)
     monkeypatch.setattr(mp3mxu, "mp3_mxu_post_cuda", post)
@@ -1176,6 +1179,50 @@ def test_mp3_mxu_step_kernels_match_plain(cuda, monkeypatch, cfg_i, B):
             monkeypatch.undo()
             want = mp3mxu.mxu_run(h.cpu(), sd.cpu(), *(t.cpu() for t in state), vindex, **kw)
             close_mp3_run(got, want, f"run {r_i} card vs CPU")
+
+
+def mxu_post_cases(device):
+    import kernel_variants as kv
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    return kv.cs, kv.cs.mxu_post_cases(list(mp3mxu.device_operators(device)["keep"]), device)
+
+
+@pytest.mark.cuda
+def test_mp3_mxu_post_kernel_cases(cuda):
+    """mp3_mxu_post against its plain version bit for bit on the card on
+    chip_smoke.mxu_post_cases: accumulators past the int16 range and on
+    half-ties, the probed masks and masks mixed within groups of four, mono
+    and stereo, B of 1, 3 and 37, PCM rows wider than a granule (the padding
+    untouched)."""
+    cs, cases = mxu_post_cases(cuda)
+    assert cs.mxu_post_mismatches(mk.mp3_mxu_post_cuda, cases) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [1, 2])
+def test_mp3_mxu_post_kernel_refuses_misaligned(cuda, nch):
+    """A PCM view whose base or row pitch is not a multiple of the kernel's
+    8 nch-byte stores, or an accumulator view off 16 bytes, raises; nothing
+    is written and nothing falls back."""
+    B, width = 3, 576 * nch
+    flat = torch.zeros(B * nch * 576 + 1, device=cuda)
+    acc, off = flat[:-1].view(B * nch, 576), flat[1:].view(B * nch, 576)   # off: 4 bytes on
+    newv = torch.zeros((B * nch, 1088), device=cuda)
+    vbuf, keep = torch.zeros((B, 2176), device=cuda), torch.zeros(1088, device=cuda)
+    shifted = torch.full((B, width + 8), 7, dtype=torch.int16, device=cuda)
+    wide = torch.full((B, width + 4 * nch - 1), 7, dtype=torch.int16, device=cuda)
+    for label, a, out in (("pcm base", acc, shifted[:, 1:1 + width]),
+                          ("pcm pitch", acc, wide[:, :width]),
+                          ("acc", off, shifted[:, :width])):
+        mk.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="mp3_mxu_post"):
+            mk.mp3_mxu_post_cuda(a, newv, vbuf, keep, out, nch=nch)
+        torch.cuda.synchronize()
+        assert mk.mp3_mxu_post_cuda.launches == 0, label
+        assert bool((shifted == 7).all()) and bool((wide == 7).all()), label
+    mk.mp3_mxu_post_cuda(acc, newv, vbuf, keep, shifted[:, :width], nch=nch)
+    torch.cuda.synchronize()
+    assert mk.mp3_mxu_post_cuda.launches == 1 and not bool((shifted[:, :width] == 7).any())
 
 
 @pytest.mark.cuda

@@ -23,7 +23,10 @@ bit for bit to its plain version with ``torch.exp2`` / ``torch.log2`` taken
 from that C library, and within 1 LSB of PCM and 1e-5 of the f32 state's
 scale to the plain version as it is (the tolerance of the card, where nvcc
 may also contract products into FMAs: tests/test_torch_kernels.py). Any
-sanitizer report fails the test.
+sanitizer report fails the test. ``eal_mp3_mxu_post`` is also held to
+``mxu_post_plain`` bit for bit on chip_smoke.mxu_post_cases (accumulators
+past int16 and on half-ties, masks mixed within groups of four, wide PCM
+rows), and must refuse operands its 16- and 8-byte words cannot take.
 
 The test needs g++ (skipped without it) and no card.
 """
@@ -277,19 +280,71 @@ def test_shim_kernels_random_state(libs, capfd, monkeypatch, tier, second):
               vindex, fmt, "random state" + (", run 1" if second else ""))
 
 
+def shim_post(lib):
+    """``mp3_mxu_post_cuda``'s contract through the shim's eal_mp3_mxu_post."""
+    def post(acc, newv, vbuf, keep, out, *, nch):
+        rc = lib.eal_mp3_mxu_post(acc.data_ptr(), newv.data_ptr(), vbuf.data_ptr(),
+                                  keep.data_ptr(), out.data_ptr(), out.stride(0), vbuf.shape[0],
+                                  nch, None)
+        assert rc == 0
+    return post
+
+
+@pytest.mark.parametrize("nch", [1, 2])
+def test_shim_mxu_post_cases(libs, capfd, nch):
+    """eal_mp3_mxu_post against ``mxu_post_plain`` bit for bit on the
+    direct check's cases (chip_smoke.mxu_post_cases): accumulators past the
+    int16 range and on half-ties, the eight probed masks and masks mixed
+    within groups of four, B of 1, 3 and 37, PCM rows wider than a granule;
+    the rows' padding untouched."""
+    keeps = list(mp3mxu.device_operators(torch.device("cpu"))["keep"])
+    cases = [c for c in kv.cs.mxu_post_cases(keeps, "cpu") if c[1] == nch]
+    capfd.readouterr()
+    assert kv.cs.mxu_post_mismatches(shim_post(libs["mxu"]), cases) == []
+    err = capfd.readouterr().err
+    assert "runtime error" not in err, err
+
+
+@pytest.mark.parametrize("nch", [1, 2])
+@pytest.mark.parametrize("operand", ["acc", "newv", "vbuf", "keep", "pcm", "pitch"])
+def test_shim_mxu_post_refuses_misaligned(libs, operand, nch):
+    """eal_mp3_mxu_post returns cudaErrorInvalidValue, and writes nothing,
+    unless acc, newv, vbuf and keep are 16-byte aligned and the PCM base and
+    row pitch are multiples of its 8 nch-byte stores."""
+    B, width = 2, 576 * nch
+    acc, newv, vbuf, keep = (torch.zeros(n + 4) for n in (B * nch * 576, B * nch * 1088,
+                                                         B * 2176, 1088))
+    pitch = width + (4 * nch - 1 if operand == "pitch" else 0)
+    buf = torch.full((B * pitch + 8,), 7, dtype=torch.int16)
+    ptr = {k: t.data_ptr() for k, t in (("acc", acc), ("newv", newv), ("vbuf", vbuf),
+                                        ("keep", keep), ("pcm", buf))}
+    ptr[operand] = ptr.get(operand, 0) + (2 if operand == "pcm" else 4)
+    if operand == "pitch":
+        ptr.pop("pitch")
+    rc = libs["mxu"].eal_mp3_mxu_post(ptr["acc"], ptr["newv"], ptr["vbuf"], ptr["keep"],
+                                      ptr["pcm"], pitch, B, nch, None)
+    assert rc == 1   # cudaErrorInvalidValue
+    assert bool((buf == 7).all()) and not vbuf.any()
+    good = libs["mxu"].eal_mp3_mxu_post(acc.data_ptr(), newv.data_ptr(), vbuf.data_ptr(),
+                                        keep.data_ptr(), buf.data_ptr(), width, B, nch, None)
+    assert good == 0 and not bool((buf[:B * width] == 7).any())
+
+
 VARIANT_CASES = ([("mp3_granules_f32.cu", 1, name, edits)
                   for name, edits in sorted(kv.MP3F32_VARIANTS.items())]
                  + [("mp3_mxu_step.cu", 2, name, edits)
-                    for name, edits in sorted(kv.MXU_PRE_VARIANTS.items())])
+                    for name, edits in sorted(kv.MXU_PRE_VARIANTS.items())]
+                 + [("mp3_mxu_step.cu", 2, f"post_{name}", edits)
+                    for name, edits in sorted(kv.MXU_POST_VARIANTS.items())])
 
 
 @pytest.mark.parametrize("source, launches, variant, edits", VARIANT_CASES,
                          ids=[f"{s.split('.')[0]}-{n}" for s, _, n, _ in VARIANT_CASES])
 def test_kernel_variant_compiles(gxx, tmp_path, monkeypatch, source, launches, variant, edits):
-    """Each ``--mp3f32`` and ``--mxu-pre`` variant of tools/kernel_variants.py,
-    its edits applied to its source, still compiles (g++ -fsyntax-only
-    through the shim): the tool builds every variant at once on the card and
-    stops at the first that nvcc refuses."""
+    """Each ``--mp3f32``, ``--mxu-pre`` and ``--mxu-post`` variant of
+    tools/kernel_variants.py, its edits applied to its source, still
+    compiles (g++ -fsyntax-only through the shim): the tool builds every
+    variant at once on the card and stops at the first that nvcc refuses."""
     monkeypatch.setattr(kv, "OUT", tmp_path / "variants")
     cu = kv.make_variant(f"{variant}", source, edits, [kernels.CSRC / source]) / source
     src = shim_source(cu, cu.parent, launches)

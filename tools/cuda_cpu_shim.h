@@ -7,7 +7,8 @@
 // `kernel<<<grid, block, smem, stream>>>(args)` into
 // `eal_shim_launch(kernel, grid, block, args)`
 // (tests/test_torch_mp3_kernel_cpu.py does both). The launch runs the blocks
-// one after another, each with one std::thread per CUDA thread:
+// one after another (x fastest, then y), each with one std::thread per CUDA
+// thread:
 //   - __global__, __device__, __constant__, __forceinline__ and
 //     __launch_bounds__ are nothing; __shared__ is `static`: one copy, used
 //     by one block at a time;
@@ -19,8 +20,9 @@
 //     the warp's threads must call them together, as a full mask demands on
 //     the card;
 //   - atomicOr, atomicMax, __clz, __mulhi, int min and max, long long min,
-//     int4, make_int4, float4, make_float4 and __fmul_rn are builtins with
-//     CUDA's results;
+//     int4, make_int4, uint2, make_uint2, uint4, make_uint4, float4,
+//     make_float4 and __fmul_rn are builtins with CUDA's results; __ldg and
+//     __ldcs are plain loads, __stcs a plain store;
 //   - mul_ftz and add_ftz stand in for the inline-PTX mul/add.rn.ftz.f32
 //     helpers of csrc/exact_async.cuh: one IEEE f32
 //     op (compile with -ffp-contract=off) with subnormal operands and
@@ -88,6 +90,28 @@ struct alignas(16) float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+template <class T>
+inline T __ldcs(const T* p) {
+  return *p;
+}
+template <class T>
+inline void __stcs(T* p, T v) {
+  *p = v;
+}
 inline float __fmul_rn(float a, float b) { return a * b; }
 
 inline float eal_shim_flush(float x) {
@@ -312,23 +336,24 @@ inline void eal_shim_launch(void (*kernel)(P...), dim3 grid, dim3 block, A... ar
   gridDim = grid;
   blockDim = block;
   const unsigned n = block.x;
-  for (unsigned b = 0; b < grid.x; ++b) {
-    eal_shim::Block blk;
-    blk.bar = std::make_unique<std::barrier<>>(n);
-    for (unsigned w = 0; w * 32 < n; ++w) {
-      blk.warps.emplace_back();
-      blk.warps.back().bar = std::make_unique<std::barrier<>>(std::min(32u, n - 32 * w));
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned b = 0; b < grid.x; ++b) {
+      eal_shim::Block blk;
+      blk.bar = std::make_unique<std::barrier<>>(n);
+      for (unsigned w = 0; w * 32 < n; ++w) {
+        blk.warps.emplace_back();
+        blk.warps.back().bar = std::make_unique<std::barrier<>>(std::min(32u, n - 32 * w));
+      }
+      eal_shim::block = &blk;
+      std::vector<std::thread> threads;
+      threads.reserve(n);
+      for (unsigned t = 0; t < n; ++t)
+        threads.emplace_back([&, t, b, by] {
+          threadIdx = dim3(t);
+          blockIdx = dim3(b, by);
+          kernel(args...);
+        });
+      for (auto& th : threads) th.join();
+      eal_shim::block = nullptr;
     }
-    eal_shim::block = &blk;
-    std::vector<std::thread> threads;
-    threads.reserve(n);
-    for (unsigned t = 0; t < n; ++t)
-      threads.emplace_back([&, t, b] {
-        threadIdx = dim3(t);
-        blockIdx = dim3(b);
-        kernel(args...);
-      });
-    for (auto& th : threads) th.join();
-    eal_shim::block = nullptr;
-  }
 }

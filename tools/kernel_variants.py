@@ -234,6 +234,43 @@ granule 0 of phase 11b's tonal run from the state the run leaves, at B =
 ``mxu_pre_plain`` within ``MP3F_STATE_RTOL`` of the scale, the integer state
 equal, the run continuing from the kernel's results.
 
+``--mxu-post``: the MXU tier's second step kernel (``mp3_mxu_step.cu``,
+built alone; ``eal_mp3_mxu_post``):
+
+  as_is       the sources unchanged;
+  parts1      one block a stream (its first layout), two FIFO groups and
+              at most one PCM quad a thread;
+  t160x4      four blocks of 160 threads a stream;
+  pcm_high    the PCM quads on the stream's last threads (which have the
+              fewest FIFO groups) instead of its first;
+  streaming   evict-first loads of acc and newv (``__ldcs``) and streaming
+              PCM stores (``__stcs``);
+  keep_plain  keep's groups read by plain loads instead of the read-only
+              path;
+  no_pcm      no PCM: the FIFO merge alone (a speed probe);
+  no_fifo     no FIFO merge: the quantization alone (a speed probe);
+  <dir>       with ``--mxu-post-parent DIR/mp3_mxu_step.cu ...``: each such
+              file as mp3_mxu_step.cu, named by its directory; with
+              ``--parent-probes`` also that file's probes ``no_pcm`` and
+              ``no_fifo``, edits of the first design (``git show
+              0bdb5de:esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu``),
+              named ``<dir>_<probe>``.
+
+It times one launch (CUDA events, mean of 40 direct launches after 2
+warm-ups, unqueued and queued behind a sleeping kernel, in turns) on the
+accumulators and written slots of granule 0 of phase 11b's tonal run (the
+plain step from zero state, the probed mask of its phase) at B = 256 and
+2048 stereo and B = 256 mono, each on one operand set (hot: the GEMMs have
+just written it, L2 holds it at B = 256) and rotated over enough copies
+(at least four, 100 MB together) that L2 cannot serve them, beside the
+bytes bound (``chip_smoke.mxu_post_bytes``), and a run of
+``mp3mxu.mxu_steps`` (the tonal run's 16 granule steps: the package's pre
+kernel, the two GEMMs and the variant's post; mean of 5 after 2, the state
+carried on) at B = 256 and 2048. It holds each exact variant to
+``mxu_post_plain`` bit for bit on ``chip_smoke.mxu_post_cases`` and at
+every granule step of the checks of ``--mp3f32`` (``mp3mxu.mxu_run`` with
+the rest of each step plain, the run continuing from the kernel's results).
+
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
@@ -250,6 +287,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
         [--mp3f32-parent build/pr16/mp3_granules_f32.cu --parent-probes no_pqmf no_hist_copy]
     python3 tools/kernel_variants.py --mxu-pre \
         [--mxu-pre-parent build/pr16/mp3_mxu_step.cu --parent-probes no_fifo]
+    python3 tools/kernel_variants.py --mxu-post [--variants ...] \
+        [--mxu-post-parent build/parent/mp3_mxu_step.cu --parent-probes no_pcm no_fifo]
 
 The last line is one JSON object with the means.
 """
@@ -553,6 +592,38 @@ MXU_PRE_PARENT_PROBES = {
                "for (int i = 0; i < 1; ++i) t += xp[i] * px[72 * i + j];")],
 }
 MXU_PRE_SASS_KERNEL = "mp3_mxu_pre_kernel"
+# the MXU tier's second step kernel (csrc/mp3_mxu_step.cu, eal_mp3_mxu_post)
+def _post_shape(threads, parts):
+    return [("constexpr int POST_THREADS = 288;", f"constexpr int POST_THREADS = {threads};"),
+            ("constexpr int POST_PARTS = 2;", f"constexpr int POST_PARTS = {parts};")]
+
+
+_POST_STREAMING = [   # evict-first loads of acc and newv, streaming PCM stores
+    ("x[ch] = acc4[ch * (N_OUT / 4) + k];", "x[ch] = __ldcs(acc4 + ch * (N_OUT / 4) + k);"),
+    ("nv[r] = nv4[((j / 8) % NCH) * (N_V / 4) + 8 * (j / (8 * NCH)) + j % 8];",
+     "nv[r] = __ldcs(nv4 + ((j / 8) % NCH) * (N_V / 4) + 8 * (j / (8 * NCH)) + j % 8);"),
+    ("reinterpret_cast<uint4*>(out)[k] = w;", "__stcs(reinterpret_cast<uint4*>(out) + k, w);"),
+    ("reinterpret_cast<uint2*>(out)[k] = w;", "__stcs(reinterpret_cast<uint2*>(out) + k, w);"),
+]
+MXU_POST_VARIANTS = {
+    "as_is": [],
+    "parts1": _post_shape(288, 1),
+    "t160x4": _post_shape(160, 4),
+    "pcm_high": [("  const int k = u;\n", "  const int k = POST_SPAN - 1 - u;\n")],
+    "streaming": _POST_STREAMING,
+    "keep_plain": [("kp[r] = __ldg(keep4 + 8 * row + c4);", "kp[r] = keep4[8 * row + c4];")],
+    "no_pcm": [("const bool quad = k < N_OUT / 4;", "const bool quad = false;")],
+    "no_fifo": [("    if (j < GROUPS) {", "    if (j < 0) {")],
+}
+MXU_POST_EXACT = ("as_is", "parts1", "t160x4", "pcm_high", "streaming", "keep_plain")
+# probes of the first design (`git show 0bdb5de:esp_audio_libs_tpu_torch/csrc/mp3_mxu_step.cu`)
+MXU_POST_PARENT_PROBES = {
+    "no_pcm": [("for (int e = threadIdx.x; e < N_OUT; e += POST_THREADS) {",
+                "for (int e = threadIdx.x; e < 0; e += POST_THREADS) {")],
+    "no_fifo": [("for (int e = threadIdx.x; e < N_V; e += POST_THREADS)\n",
+                 "for (int e = threadIdx.x; e < 0; e += POST_THREADS)\n")],
+}
+MXU_POST_SASS_KERNEL = "mp3_mxu_post_kernel"
 
 def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
     """``sources`` copied into build/variants/<name>/, then ``target`` (there)
@@ -1178,9 +1249,10 @@ def mxu_pre_call(lib, yx, ip, over, pt, pws, npv, vbuf, px, *, nch):
     return ofvc
 
 
-def mxu_plain_steps(pre_kernel=None):
-    """Swap ``mp3mxu``'s step kernels for their plain versions (pre: for
-    ``pre_kernel`` when given); returns a function that restores them."""
+def mxu_plain_steps(pre_kernel=None, post_kernel=None):
+    """Swap ``mp3mxu``'s step kernels for their plain versions (or for
+    ``pre_kernel`` / ``post_kernel`` when given); returns a function that
+    restores them."""
     from esp_audio_libs_tpu_torch.ops import mp3mxu
     real = mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda
 
@@ -1195,7 +1267,7 @@ def mxu_plain_steps(pre_kernel=None):
         out.copy_(pcm)
         vbuf.copy_(nv)
 
-    mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = pre_kernel or pre, post
+    mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = pre_kernel or pre, post_kernel or post
 
     def restore():
         mp3mxu.mp3_mxu_pre_cuda, mp3mxu.mp3_mxu_post_cuda = real
@@ -1292,6 +1364,130 @@ def mxu_pre_main(args, card: str) -> None:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
 
 
+def mxu_post_call(lib, acc, newv, vbuf, keep, out, *, nch):
+    """``lib``'s eal_mp3_mxu_post as ``mp3mxu.mp3_mxu_post_cuda`` (uncounted)."""
+    if lib.eal_mp3_mxu_post(acc.data_ptr(), newv.data_ptr(), vbuf.data_ptr(), keep.data_ptr(),
+                            out.data_ptr(), out.stride(0), vbuf.shape[0], nch,
+                            torch.cuda.current_stream().cuda_stream) != 0:
+        cs.fail("eal_mp3_mxu_post refused its arguments")
+
+
+def mxu_post_errors(lib, runs, cases) -> int:
+    """How often ``lib``'s eal_mp3_mxu_post differs from ``mxu_post_plain``
+    (PCM or vbuf bit for bit, or the PCM rows' padding): on ``cases``
+    (``chip_smoke.mxu_post_cases``) and at every granule step of each run
+    (``mp3mxu.mxu_run`` with the rest plain), the run continuing from the
+    kernel's results."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    bad = len(cs.mxu_post_mismatches(lambda *a, nch: mxu_post_call(lib, *a, nch=nch), cases))
+    steps = [0]
+
+    def post(acc, newv, vbuf, keep, out, *, nch):
+        want_pcm, want_vbuf = mp3mxu.mxu_post_plain(acc, newv, vbuf, keep, nch=nch)
+        mxu_post_call(lib, acc, newv, vbuf, keep, out, nch=nch)
+        torch.cuda.synchronize()
+        steps[0] += not (torch.equal(out, want_pcm) and cs.same_bits(vbuf, want_vbuf))
+
+    restore = mxu_plain_steps(post_kernel=post)
+    try:
+        for _, fmt, vindex, huff, side, state in runs:
+            mp3mxu.mxu_run(huff, side, *state, vindex, ver=fmt[0], sr_idx=fmt[1], nch=fmt[2],
+                           cutoff=fmt[3])
+    finally:
+        restore()
+    return bad + steps[0]
+
+
+MXU_POST_L2_SPAN = 100e6   # bytes the rotated operand sets of --mxu-post cover together
+
+
+def mxu_post_main(args, card: str) -> None:
+    """--mxu-post: the MXU tier's second step kernel, its variants, earlier
+    sources and their probes at B = 256 and 2048 stereo and B = 256 mono,
+    hot and rotated past L2, unqueued and queued."""
+    from esp_audio_libs_tpu_torch.ops import mp3mxu
+    names = list(MXU_POST_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "mp3_mxu_step.cu"
+    dirs = {name: make_variant(f"mxu_post_{name}", src.name, MXU_POST_VARIANTS[name], [src])
+            for name in names}
+    exact = {name for name in names if name in MXU_POST_EXACT}
+    parents = parent_dirs(args.mxu_post_parent, args.parent_probes, MXU_POST_PARENT_PROBES,
+                          "mxu_post", src.name, [src])
+    exact |= {path.resolve().parent.name for path in args.mxu_post_parent}
+    dirs.update(parents)
+    libs = build_all(dirs, ("eal_mp3_mxu_post",))
+    report_libs(libs, dirs, MXU_POST_SASS_KERNEL)
+
+    runs = mp3f32_checks()[0]
+    _, fmt, vindex, huff, side, _ = runs[0]
+    nch, G = fmt[2], huff.shape[0]
+    kw = dict(ver=fmt[0], sr_idx=fmt[1], nch=nch, cutoff=fmt[3])
+    ops = mp3mxu.device_operators(torch.device("cuda"))
+    keep = ops["keep"][vindex]
+    cases = cs.mxu_post_cases(list(ops["keep"]), "cuda")
+    shapes, bounds, step_runs = {}, {}, {}
+    for B in (cs.MP3_STREAMS, 8 * cs.MP3_STREAMS):
+        h = huff.repeat(1, B // cs.MP3_STREAMS, 1, 1).contiguous()
+        sd = side.repeat(1, B // cs.MP3_STREAMS, 1).contiguous()
+        with torch.no_grad():
+            yx, ip = mp3mxu.mxu_prelude(h, sd, **kw)
+            st = mp3f32_zero_state(B)
+            ofvc = mp3mxu.mxu_pre_plain(yx[0], ip[0], *st, ops["PX"], nch=nch)[0]
+            acc, newv = ofvc @ ops["S"][vindex], ofvc[:, :576] @ ops["W"][vindex]
+        step_runs[B] = (yx, ip, st, torch.empty((B, G, 576 * nch), dtype=torch.int16,
+                                                device="cuda"))
+        del ofvc
+        for key, c, rows in ((f"b{B}", nch, B * nch), (f"b{B}m", 1, B)):
+            if c == 1 and B != cs.MP3_STREAMS:
+                continue
+
+            def one_set(c=c, rows=rows):
+                out = torch.empty((B, G, 576 * c), dtype=torch.int16, device="cuda")[:, 0]
+                return (acc[:rows].clone(), newv[:rows].clone(), st[4].clone(), keep, out)
+            first = one_set()
+            nbytes = sum(t.numel() * t.element_size() for t in first[:3]) + B * 576 * c * 2
+            n_sets = max(cs.DOT_ROTATION, math.ceil(MXU_POST_L2_SPAN / nbytes))
+            shapes[key] = ([first], [first] + [one_set() for _ in range(n_sets - 1)], c)
+            post_bytes = cs.mxu_post_bytes(keep, B, c)
+            bounds[key] = post_bytes / cs.PEAK_BYTES * 1e3
+            print(f"{key}: B={B} nch={c}, granule 0 of the tonal run: {post_bytes} B, bound "
+                  f"{bounds[key]:.4f} ms (bytes); rotated over {n_sets} sets of {nbytes} B")
+        del acc, newv
+
+    def row_of(lib):
+        name = next(n for n, v in libs.items() if v[0] is lib)
+        row = {"mismatches": float(mxu_post_errors(lib, runs, cases)) if name in exact
+               else float("nan")}
+        for key, (hot, rotated, c) in shapes.items():
+            for label, sets in (("hot", hot), ("rot", rotated)):
+                launch = cs.mxu_post_launcher(sets, c, lib=lib)
+                row[f"{key}_{label}_ms"] = cs.cuda_time(launch, iters=40)
+                row[f"{key}_{label}_queued_ms"] = cs.cuda_time_queued(launch, iters=40)
+        real = mp3mxu.mp3_mxu_post_cuda
+        mp3mxu.mp3_mxu_post_cuda = lambda *a, nch: mxu_post_call(lib, *a, nch=nch)
+        try:   # the step loop of a run: the package's pre kernel, the GEMMs, this post
+            for B, (yx, ip, st, pcm) in step_runs.items():
+                row[f"b{B}_steps_ms"] = cs.cuda_time(
+                    lambda: mp3mxu.mxu_steps(yx, ip, st, vindex, pcm, nch=nch), iters=5)
+        finally:
+            mp3mxu.mp3_mxu_post_cuda = real
+        return row
+    means = timed_turns(libs, row_of)
+    for name, m in means.items():
+        print(f"{name}: " + "; ".join(
+            f"{key} hot {m[f'{key}_hot_queued_ms']:.4f} ms queued ({bounds[key] / m[f'{key}_hot_queued_ms']:.1%}"
+            f" of the bound), {m[f'{key}_hot_ms']:.4f} unqueued, rotated "
+            f"{m[f'{key}_rot_queued_ms']:.4f} queued ({bounds[key] / m[f'{key}_rot_queued_ms']:.1%}),"
+            f" {m[f'{key}_rot_ms']:.4f} unqueued" for key in shapes)
+              + "; a run of mxu_steps (G = 16) " + ", ".join(
+                  f"B={B} {m[f'b{B}_steps_ms']:.4f} ms" for B in step_runs)
+              + (f"; bit for bit {m['mismatches'] == 0} ({m['mismatches']:.0f} mismatches)"
+                 if name in exact else "; not exact (a probe)")
+              + " (means of 2 turns, 40 direct launches each)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "bounds": bounds,
+                      "variants": means}))
+
+
 def sm_clock(launch, seconds: float = 1.5) -> str:
     """The SM clock (nvidia-smi, sampled every 50 ms) while ``launch()``
     runs back to back for ``seconds``: median and range in MHz, to turn a
@@ -1350,18 +1546,25 @@ def main() -> None:
     ap.add_argument("--mxu-pre-parent", type=Path, nargs="+", default=[],
                     help="with --mxu-pre: earlier mp3_mxu_step.cu files, each timed as a "
                          "variant named by its directory")
+    ap.add_argument("--mxu-post", action="store_true",
+                    help="probe the MXU tier's second step kernel instead of the banded main "
+                         "loop")
+    ap.add_argument("--mxu-post-parent", type=Path, nargs="+", default=[],
+                    help="with --mxu-post: earlier mp3_mxu_step.cu files, each timed as a "
+                         "variant named by its directory")
     ap.add_argument("--parent-probes", nargs="+", default=[],
                     choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)
                                    | set(MP3_PARENT_PROBES) | set(DOT_PARENT_PROBES)
-                                   | set(MP3F32_PARENT_PROBES) | set(MXU_PRE_PARENT_PROBES)),
+                                   | set(MP3F32_PARENT_PROBES) | set(MXU_PRE_PARENT_PROBES)
+                                   | set(MXU_POST_PARENT_PROBES)),
                     help="with --polyphase-exact-parent, --flac-parent, --mp3-parent, "
-                         "--dotprod-parent, --mp3f32-parent or --mxu-pre-parent: these probes "
-                         "of each parent too")
+                         "--dotprod-parent, --mp3f32-parent, --mxu-pre-parent or "
+                         "--mxu-post-parent: these probes of each parent too")
     ap.add_argument("--variants", nargs="*", default=None,
                     choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)
                                    | set(FLAC_VARIANTS) | set(MP3_VARIANTS)
                                    | set(DOT_VARIANTS) | set(MP3F32_VARIANTS)
-                                   | set(MXU_PRE_VARIANTS)))
+                                   | set(MXU_PRE_VARIANTS) | set(MXU_POST_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -1390,6 +1593,9 @@ def main() -> None:
         return
     if args.mxu_pre:
         mxu_pre_main(args, card)
+        return
+    if args.mxu_post:
+        mxu_post_main(args, card)
         return
     names = args.variants or list(VARIANTS)
     sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
