@@ -25,6 +25,7 @@ from ..parallel.mesh import Sharded, is_split, place, shard_streams
 from ..runtime import transport
 from ..runtime.kernels import entry_device
 from ..runtime.native import host_lib
+from ..runtime.trace import span
 from ..utils.errors import MP3Error
 from . import mp3_pipeline
 from .flac import (FLACDecoder, _decode_streams, _to_host, decode_streams_to_device,
@@ -298,7 +299,8 @@ class BatchedMP3Decoder:
         for h, a in zip(host, state):
             h.copy_(a, non_blocking=pinned)
         if pinned:
-            torch.cuda.current_stream(self.device).synchronize()
+            with span("eal.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
         over, pt, pws, npv, vbuf = (h.numpy().copy() for h in host)
         return {"native": [d._native_snapshot() for d in self.decoders],
                 "over": over, "pt": pt, "pws": pws, "npv": npv, "vbuf": vbuf,
@@ -484,20 +486,21 @@ class BatchedMP3Decoder:
         A fleet that breaks those conditions raises ``ValueError`` and is
         left as it was before the call.
         """
-        views = [self._as_view(b) for b in buffers]
-        start = [0] * len(self.decoders)
-        if not to_device:
-            return self._dispatch_run(self._parse_run(views, start, n_frames, use_size))
-        # the parse advances every native bit reservoir before the
-        # conditions can be checked: snapshot, and roll back on failure
-        snaps = [(d._native_snapshot(), d._last_frame) for d in self.decoders]
-        try:
-            return self._dispatch_run(self._parse_run(views, start, n_frames, use_size), True)
-        except ValueError:
-            for d, (blob, lf) in zip(self.decoders, snaps):
-                d._native_restore(blob)
-                d._last_frame = lf
-            raise
+        with span("eal.mp3.decode_run"):
+            views = [self._as_view(b) for b in buffers]
+            start = [0] * len(self.decoders)
+            if not to_device:
+                return self._dispatch_run(self._parse_run(views, start, n_frames, use_size))
+            # the parse advances every native bit reservoir before the
+            # conditions can be checked: snapshot, and roll back on failure
+            snaps = [(d._native_snapshot(), d._last_frame) for d in self.decoders]
+            try:
+                return self._dispatch_run(self._parse_run(views, start, n_frames, use_size), True)
+            except ValueError:
+                for d, (blob, lf) in zip(self.decoders, snaps):
+                    d._native_restore(blob)
+                    d._last_frame = lf
+                raise
 
     def _parse_run(self, views, pos, n_frames, use_size=False):
         """Host phase of a run: parse up to n_frames per stream, stream s
@@ -508,45 +511,46 @@ class BatchedMP3Decoder:
         k + 1 while run k dispatches (:meth:`decode_run_pipelined`). It
         touches no CUDA. Returns the parses, per-stream frame plans and the
         end positions, absolute within the views."""
-        n = len(self.decoders)
-        pos = list(pos)
-        active = [v is not None and v.size > pos[s] for s, v in enumerate(views)]
-        fmt0 = [None] * n
-        perstream = [[] for _ in range(n)]   # (parse index, err, clear, consumed, granules)
-        parses = []
-        for _ in range(n_frames):
-            ins = [None] * n
-            for s in range(n):
-                if not active[s]:
-                    continue
-                fmt = self._peek_format(views[s], pos[s])
-                if fmt is not None and fmt0[s] is not None and fmt != fmt0[s]:
-                    active[s] = False   # a format change: the next call takes it
-                    continue
-                ins[s] = views[s][pos[s]:]
-            if all(v is None for v in ins):
-                break
-            pa = self._parse_batch(ins, use_size)
-            parses.append(pa)
-            for s in range(n):
-                if ins[s] is None or pa["rc"][s] == _SKIP:
-                    continue
-                err = MP3Error(int(pa["rc"][s]))
-                consumed = int(pa["consumed"][s])
-                frame = pa["frame"][s]
-                pos[s] += consumed
-                self.decoders[s]._last_frame = frame
-                if err == MP3Error.NONE:
-                    pos[s] = self._sync_ahead(views[s], pos[s])
-                    ngr = int(frame[6])
-                    fmt0[s] = (int(frame[0]), int(frame[4]), int(frame[5]))
-                else:
-                    ngr = max(int(pa["err_gr"][s]), 0)
-                    active[s] = False
-                perstream[s].append((len(parses) - 1, err, bool(pa["clear"][s]), consumed, ngr))
-                if active[s] and pos[s] >= views[s].size:
-                    active[s] = False
-        return {"parses": parses, "perstream": perstream, "pos": pos}
+        with span("eal.mp3.parse"):
+            n = len(self.decoders)
+            pos = list(pos)
+            active = [v is not None and v.size > pos[s] for s, v in enumerate(views)]
+            fmt0 = [None] * n
+            perstream = [[] for _ in range(n)]   # (parse index, err, clear, consumed, granules)
+            parses = []
+            for _ in range(n_frames):
+                ins = [None] * n
+                for s in range(n):
+                    if not active[s]:
+                        continue
+                    fmt = self._peek_format(views[s], pos[s])
+                    if fmt is not None and fmt0[s] is not None and fmt != fmt0[s]:
+                        active[s] = False   # a format change: the next call takes it
+                        continue
+                    ins[s] = views[s][pos[s]:]
+                if all(v is None for v in ins):
+                    break
+                pa = self._parse_batch(ins, use_size)
+                parses.append(pa)
+                for s in range(n):
+                    if ins[s] is None or pa["rc"][s] == _SKIP:
+                        continue
+                    err = MP3Error(int(pa["rc"][s]))
+                    consumed = int(pa["consumed"][s])
+                    frame = pa["frame"][s]
+                    pos[s] += consumed
+                    self.decoders[s]._last_frame = frame
+                    if err == MP3Error.NONE:
+                        pos[s] = self._sync_ahead(views[s], pos[s])
+                        ngr = int(frame[6])
+                        fmt0[s] = (int(frame[0]), int(frame[4]), int(frame[5]))
+                    else:
+                        ngr = max(int(pa["err_gr"][s]), 0)
+                        active[s] = False
+                    perstream[s].append((len(parses) - 1, err, bool(pa["clear"][s]), consumed, ngr))
+                    if active[s] and pos[s] >= views[s].size:
+                        active[s] = False
+            return {"parses": parses, "perstream": perstream, "pos": pos}
 
     def decode_run_pipelined(self, buffers, n_frames, n_runs, use_size=False, to_device=False):
         """Generator over up to ``n_runs`` successive :meth:`decode_run`
@@ -598,23 +602,24 @@ class BatchedMP3Decoder:
     def _group_arrays(parsed, streams, G):
         """The run arrays of a group: huff [B, G, 2, 576], params, sf,
         frame [B, G, 16], sfjs [B, G, 8], each stream's granules in order."""
-        B = len(streams)
-        huff_g = np.empty((B, G, 2, 576), np.int32)
-        params_g = np.empty((B, G, 2, 24), np.int32)
-        sf_g = np.empty((B, G, 2, 62), np.int32)
-        frame_g = np.empty((B, G, 16), np.int32)
-        sfjs_g = np.empty((B, G, 8), np.int32)
-        for bi, s in enumerate(streams):
-            g = 0
-            for (fi, _err, _clear, _con, k) in parsed["perstream"][s]:
-                pa = parsed["parses"][fi]
-                huff_g[bi, g:g + k] = pa["huff"][s][:k]
-                params_g[bi, g:g + k] = pa["params"][s][:k]
-                sf_g[bi, g:g + k] = pa["sf"][s][:k]
-                frame_g[bi, g:g + k] = pa["frame"][s]
-                sfjs_g[bi, g:g + k] = pa["sfjs"][s]
-                g += k
-        return huff_g, params_g, sf_g, frame_g, sfjs_g
+        with span("eal.mp3.arrays"):
+            B = len(streams)
+            huff_g = np.empty((B, G, 2, 576), np.int32)
+            params_g = np.empty((B, G, 2, 24), np.int32)
+            sf_g = np.empty((B, G, 2, 62), np.int32)
+            frame_g = np.empty((B, G, 16), np.int32)
+            sfjs_g = np.empty((B, G, 8), np.int32)
+            for bi, s in enumerate(streams):
+                g = 0
+                for (fi, _err, _clear, _con, k) in parsed["perstream"][s]:
+                    pa = parsed["parses"][fi]
+                    huff_g[bi, g:g + k] = pa["huff"][s][:k]
+                    params_g[bi, g:g + k] = pa["params"][s][:k]
+                    sf_g[bi, g:g + k] = pa["sf"][s][:k]
+                    frame_g[bi, g:g + k] = pa["frame"][s]
+                    sfjs_g[bi, g:g + k] = pa["sfjs"][s]
+                    g += k
+            return huff_g, params_g, sf_g, frame_g, sfjs_g
 
     def _dispatch_run(self, parsed, to_device=False):
         """Device phase of a run: group, synthesize, assemble the results.

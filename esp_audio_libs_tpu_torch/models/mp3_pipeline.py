@@ -41,6 +41,7 @@ from ..ops.mp3_kernels import mp3_granules_cuda, mp3_granules_f32_cuda
 from ..parallel.mesh import Sharded, is_split, shard_streams, shard_streams_axis
 from ..runtime import transport
 from ..runtime.tables import mp3_tables
+from ..runtime.trace import span
 from .flac import _put, _to_host
 from .mp3 import expand_hp_device, granule_params_compact_blob
 
@@ -395,7 +396,6 @@ def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vind
         dev = mesh.devices[0] if split else dev_state[0].device
         return (torch.zeros((B, 0), dtype=torch.int16, device=dev), tuple(dev_state),
                 torch.zeros(B, dtype=torch.bool, device=dev))
-    fmt, huff_gs, side_gs = run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g)
     if split:   # block i of the streams (axis 1 of the run tensors) on devices[i]
         devices = mesh.devices
         blocks = lambda x: shard_streams_axis(x, 1, mesh).parts
@@ -405,15 +405,18 @@ def decode_granules_run(huff_g, params_g, sf_g, frame_g, sfjs_g, dev_state, vind
         devices = (dev_state[0].device,)
         blocks = lambda x: [_put(x, devices[0])]
         states = [tuple(dev_state)]
-    narrowed = _pack_huff8_sharded(huff_gs, len(devices))
-    if narrowed is not None:
-        plane8, esc_pos, esc_val = narrowed
-        scan = _granules_scan_esc_for(*fmt, fast=fast)
-        operands = [(p, _put(esc_pos[i], d), _put(esc_val[i], d), side) for i, (d, p, side)
-                    in enumerate(zip(devices, blocks(plane8), blocks(side_gs)))]
-    else:
-        scan = _scan_builder(_tier(fast))(*fmt)
-        operands = list(zip(blocks(huff_gs), blocks(side_gs)))
+    with span("eal.mp3.operands"):
+        fmt, huff_gs, side_gs = run_operands(huff_g, params_g, sf_g, frame_g, sfjs_g)
+        narrowed = _pack_huff8_sharded(huff_gs, len(devices))
+    with span("eal.mp3.upload"):
+        if narrowed is not None:
+            plane8, esc_pos, esc_val = narrowed
+            scan = _granules_scan_esc_for(*fmt, fast=fast)
+            operands = [(p, _put(esc_pos[i], d), _put(esc_val[i], d), side) for i, (d, p, side)
+                        in enumerate(zip(devices, blocks(plane8), blocks(side_gs)))]
+        else:
+            scan = _scan_builder(_tier(fast))(*fmt)
+            operands = list(zip(blocks(huff_gs), blocks(side_gs)))
     outs = [scan(*ops, *state, vindex) for ops, state in zip(operands, states)]
     # [G, b, 576 * nch] -> [b, G * 576 * nch] per block
     pcm = [o[0].transpose(0, 1).reshape(o[0].shape[1], -1) for o in outs]

@@ -54,6 +54,7 @@ from ..parallel.mesh import Sharded, is_split, place, shard_streams, to_numpy
 from ..runtime.kernels import entry_device
 from ..runtime.native import design_filterbank_native
 from ..runtime.phase_grid import HISTORY_MARGIN, PhaseState, phase_grid, required_samples
+from ..runtime.trace import span
 
 __all__ = ["ResamplerConfiguration", "ResamplerResults", "Resampler"]
 
@@ -383,67 +384,68 @@ class Resampler:
         Returns: (packed uint8 tensor ``[batch, generated*channels*bps_out]``,
           results). Frames beyond ``results.frames_used`` were not consumed.
         """
-        if not self._initialized:
-            raise RuntimeError("Resampler.initialize() first")
-        ch = self.channels
-        if self.requires_resampling:
-            necessary = required_samples(self.phase, output_frames_free, self.sample_ratio)
-            frames = min(input_frames_available, necessary)
-        else:
-            frames = min(input_frames_available, output_frames_free)
+        with span("eal.resample"):
+            if not self._initialized:
+                raise RuntimeError("Resampler.initialize() first")
+            ch = self.channels
+            if self.requires_resampling:
+                necessary = required_samples(self.phase, output_frames_free, self.sample_ratio)
+                frames = min(input_frames_available, necessary)
+            else:
+                frames = min(input_frames_available, output_frames_free)
 
-        bps_in = q.bytes_per_sample(self.input_bits)
-        factor = q.gain_factor(self.input_bits, gain_db)
-        data = _each(lambda d: d[:, : frames * ch * bps_in], self._to_device(input_bytes))
+            bps_in = q.bytes_per_sample(self.input_bits)
+            factor = q.gain_factor(self.input_bits, gain_db)
+            data = _each(lambda d: d[:, : frames * ch * bps_in], self._to_device(input_bytes))
 
-        if not self.requires_resampling:
-            def passthrough(d):
-                x = q.int_to_float(q.unpack_pcm(d, self.input_bits), factor)
-                samples, clipped = q.float_to_int(x, self.output_bits)
-                return q.pack_pcm(samples, self.output_bits), clipped.sum(-1, dtype=torch.int64)
-            packed, per_stream = _each(passthrough, data)
-            return packed, ResamplerResults(frames, frames, frames, _clip_counts(per_stream))
+            if not self.requires_resampling:
+                def passthrough(d):
+                    x = q.int_to_float(q.unpack_pcm(d, self.input_bits), factor)
+                    samples, clipped = q.float_to_int(x, self.output_bits)
+                    return q.pack_pcm(samples, self.output_bits), clipped.sum(-1, dtype=torch.int64)
+                packed, per_stream = _each(passthrough, data)
+                return packed, ResamplerResults(frames, frames, frames, _clip_counts(per_stream))
 
-        # compute the schedule on a SCRATCH phase and commit it only after
-        # the device work was issued without error: phase_grid advances its
-        # state in place, and a failed call must leave self.phase aligned
-        # with the carried history
-        phase = dataclasses.replace(self.phase)
-        grid = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
-                          self.sample_ratio, frames, output_frames_free)
-        gen = grid.output_generated
-        if self.exact:
-            # gen is host-known: post-filter and quantize only the generated
-            # samples, as the reference does
-            grid_t = self._exact_grids([grid], output_frames_free)[0]
+            # compute the schedule on a SCRATCH phase and commit it only after
+            # the device work was issued without error: phase_grid advances its
+            # state in place, and a failed call must leave self.phase aligned
+            # with the carried history
+            with span("eal.schedule"):
+                phase = dataclasses.replace(self.phase)
+                grid = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
+                                  self.sample_ratio, frames, output_frames_free)
+                grid_t = (self._exact_grids if self.exact else self._device_grids)(
+                    [grid], output_frames_free)[0]
+            gen = grid.output_generated
+            if self.exact:
+                # gen is host-known: post-filter and quantize only the generated
+                # samples, as the reference does
+                def step(d, hist, states):
+                    out, hist, states = self._exact_chunk(self._unpack(d, factor, frames), hist,
+                                                          states, grid_t, hist_from=grid.input_used)
+                    if self.post_filter:
+                        out, states = self._exact_post(out[..., :gen], states, None)
+                    return (*self._quantize(out[..., :gen], gen, gen), hist, states)
 
-            def step(d, hist, states):
-                out, hist, states = self._exact_chunk(self._unpack(d, factor, frames), hist,
-                                                      states, grid_t, hist_from=grid.input_used)
-                if self.post_filter:
-                    out, states = self._exact_post(out[..., :gen], states, None)
-                return (*self._quantize(out[..., :gen], gen, gen), hist, states)
-
-            packed, per_stream, history, states = _each(step, data, self.history,
-                                                        self._biquad_states())
-            self.history = history
-            if self.pre_filter or self.post_filter:
-                self._biquad_state = states
-        else:
-            packed, per_stream, history, post_hist = self._fast_chunk(
-                data, factor, self.history, self._post_hist,
-                self._device_grids([grid], output_frames_free)[0], gen,
-                frames=frames, out_max=output_frames_free, hist_from=grid.input_used)
-            self.history, self._post_hist = history, post_hist
-        self.phase = phase
-        self._hist_gain_zero = gain_db == 0.0
-        bps_out = q.bytes_per_sample(self.output_bits)
-        return _each(lambda p: p[:, : gen * ch * bps_out], packed), ResamplerResults(
-            frames_used=grid.input_used,
-            frames_generated=gen,
-            predicted_frames_used=frames,
-            clipped_samples=_clip_counts(per_stream),
-        )
+                packed, per_stream, history, states = _each(step, data, self.history,
+                                                            self._biquad_states())
+                self.history = history
+                if self.pre_filter or self.post_filter:
+                    self._biquad_state = states
+            else:
+                packed, per_stream, history, post_hist = self._fast_chunk(
+                    data, factor, self.history, self._post_hist, grid_t, gen,
+                    frames=frames, out_max=output_frames_free, hist_from=grid.input_used)
+                self.history, self._post_hist = history, post_hist
+            self.phase = phase
+            self._hist_gain_zero = gain_db == 0.0
+            bps_out = q.bytes_per_sample(self.output_bits)
+            return _each(lambda p: p[:, : gen * ch * bps_out], packed), ResamplerResults(
+                frames_used=grid.input_used,
+                frames_generated=gen,
+                predicted_frames_used=frames,
+                clipped_samples=_clip_counts(per_stream),
+            )
 
     # ------------------------------------------------- exact-path pieces
     def _exact_grids(self, grids, n: int):
@@ -478,14 +480,17 @@ class Resampler:
         dev = xc.device
         states = list(states)
         if self.pre_filter:
-            for stage in range(2):
-                xc, states[stage] = bq.biquad_apply(xc, self._on(self._coeffs_dev, dev),
-                                                    states[stage], exact=True)
-        xext = torch.cat([hist, xc], dim=-1)
-        new_hist = xext[..., hist_from:hist_from + self.hist_len].clone()
-        out = polyphase_apply(xext, self._on(self._filters, dev), *(g.to(dev) for g in grid_t),
-                              half=self.config.number_of_taps // 2, exact=True,
-                              compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
+            with span("eal.biquad"):
+                for stage in range(2):
+                    xc, states[stage] = bq.biquad_apply(xc, self._on(self._coeffs_dev, dev),
+                                                        states[stage], exact=True)
+        with span("eal.polyphase"):
+            xext = torch.cat([hist, xc], dim=-1)
+            new_hist = xext[..., hist_from:hist_from + self.hist_len].clone()
+            out = polyphase_apply(
+                xext, self._on(self._filters, dev), *(g.to(dev) for g in grid_t),
+                half=self.config.number_of_taps // 2, exact=True,
+                compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
         return out, new_hist, states
 
     def _exact_post(self, out, states, valid_len):
@@ -493,9 +498,10 @@ class Resampler:
         streams."""
         states = list(states)
         coeffs = self._on(self._coeffs_dev, out.device)
-        for stage in range(2):
-            out, states[stage] = bq.biquad_apply(out, coeffs, states[stage],
-                                                 exact=True, valid_len=valid_len)
+        with span("eal.biquad"):
+            for stage in range(2):
+                out, states[stage] = bq.biquad_apply(out, coeffs, states[stage],
+                                                     exact=True, valid_len=valid_len)
         return out, states
 
     # -------------------------------------------------- fast-path pieces
@@ -527,24 +533,26 @@ class Resampler:
         """Packed bytes -> f32 [B, ch, frames] (both modes)."""
         B = data.shape[0]
         ch, in_bits = self.channels, self.input_bits
-        if ch == 2 and in_bits == 16:
-            return q.int_to_float(q.unpack_pcm16_planar2(data), factor)
-        x = q.int_to_float(q.unpack_pcm(data, in_bits), factor)
-        return x.reshape(B, frames, ch).transpose(1, 2)
+        with span("eal.unpack"):
+            if ch == 2 and in_bits == 16:
+                return q.int_to_float(q.unpack_pcm16_planar2(data), factor)
+            x = q.int_to_float(q.unpack_pcm(data, in_bits), factor)
+            return x.reshape(B, frames, ch).transpose(1, 2)
 
     def _quantize(self, out, gen: int, out_max: int):
         """f32 [B, ch, out_max] -> (packed bytes, int64 per-stream clip counts
         over the ``gen`` valid outputs), both modes."""
         B = out.shape[0]
         ch, out_bits = self.channels, self.output_bits
-        if ch == 2 and out_bits == 16:
-            samples, clipped = q.float_to_int(out, out_bits)             # [B, 2, T]
-            per_stream = clipped[..., :gen].sum((1, 2), dtype=torch.int64)
-            return q.pack_pcm16_interleave2(samples), per_stream
-        y = out.transpose(1, 2).reshape(B, out_max * ch)
-        samples, clipped = q.float_to_int(y, out_bits)
-        per_stream = clipped[:, : gen * ch].sum(-1, dtype=torch.int64)
-        return q.pack_pcm(samples, out_bits), per_stream
+        with span("eal.quantize"):
+            if ch == 2 and out_bits == 16:
+                samples, clipped = q.float_to_int(out, out_bits)             # [B, 2, T]
+                per_stream = clipped[..., :gen].sum((1, 2), dtype=torch.int64)
+                return q.pack_pcm16_interleave2(samples), per_stream
+            y = out.transpose(1, 2).reshape(B, out_max * ch)
+            samples, clipped = q.float_to_int(y, out_bits)
+            per_stream = clipped[:, : gen * ch].sum(-1, dtype=torch.int64)
+            return q.pack_pcm(samples, out_bits), per_stream
 
     def _conv_post(self, out, oh, gen: int, out_max: int):
         """Post-lowpass (upsampling) as a banded conv over the output stream:
@@ -607,58 +615,59 @@ class Resampler:
           ``[num_chunks, batch]``). Output chunk i holds ``gen[i]*ch*bps_out``
           valid bytes.
         """
-        if not (self._initialized and self.requires_resampling):
-            raise RuntimeError("resample_stream needs an initialized, resampling Resampler")
-        ch = self.channels
-        out_max = int(np.ceil(chunk_frames * float(self.sample_ratio))) + 8
+        with span("eal.resample_stream"):
+            if not (self._initialized and self.requires_resampling):
+                raise RuntimeError("resample_stream needs an initialized, resampling Resampler")
+            ch = self.channels
+            out_max = int(np.ceil(chunk_frames * float(self.sample_ratio))) + 8
 
-        # schedules compute on a SCRATCH phase, committed only after the
-        # device work was issued (retry-safety, like _hist_gain_zero)
-        phase = dataclasses.replace(self.phase)
-        host_grids = []
-        for _ in range(num_chunks):
-            g = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
-                           self.sample_ratio, chunk_frames, out_max)
-            # generous out_max guarantees every input sample is consumed
-            if g.input_used != chunk_frames:
-                raise AssertionError((g.input_used, chunk_frames))
-            host_grids.append(g)
-        gens = [g.output_generated for g in host_grids]
+            # schedules compute on a SCRATCH phase, committed only after the
+            # device work was issued (retry-safety, like _hist_gain_zero)
+            with span("eal.schedule"):
+                phase = dataclasses.replace(self.phase)
+                host_grids = []
+                for _ in range(num_chunks):
+                    g = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
+                                   self.sample_ratio, chunk_frames, out_max)
+                    # generous out_max guarantees every input sample is consumed
+                    if g.input_used != chunk_frames:
+                        raise AssertionError((g.input_used, chunk_frames))
+                    host_grids.append(g)
+                grids = (self._exact_grids if self.exact else self._device_grids)(host_grids,
+                                                                                  out_max)
+            gens = [g.output_generated for g in host_grids]
 
-        bps_in = q.bytes_per_sample(self.input_bits)
-        factor = q.gain_factor(self.input_bits, gain_db)
-        chunk_bytes = chunk_frames * ch * bps_in
-        data = self._to_device(input_bytes)
-        chunks = [_each(lambda d, c=c: d[:, c * chunk_bytes:(c + 1) * chunk_bytes], data)
-                  for c in range(num_chunks)]
+            bps_in = q.bytes_per_sample(self.input_bits)
+            factor = q.gain_factor(self.input_bits, gain_db)
+            chunk_bytes = chunk_frames * ch * bps_in
+            data = self._to_device(input_bytes)
+            chunks = [_each(lambda d, c=c: d[:, c * chunk_bytes:(c + 1) * chunk_bytes], data)
+                      for c in range(num_chunks)]
 
-        # the fused int16 tier is exact only when the carried history shares
-        # this call's gain factor; the flag commits only after the call
-        fused_ok = gain_db == 0.0 and self._hist_gain_zero
-        if self.exact:
-            packed, clipped, history = self._exact_stream(
-                chunks, self._exact_grids(host_grids, out_max), gens, factor, chunk_frames,
-                out_max)
-        elif self._fused_tier_selected(fused_ok):
-            packed, clipped, history = self._fused_stream(
-                chunks, self._device_grids(host_grids, out_max), gens, factor, chunk_frames,
-                out_max)
-        else:
-            grids = self._device_grids(host_grids, out_max)
-            hist, oh = self.history, self._post_hist
-            packed, clipped = [], []
-            for chunk, grid_t, gen in zip(chunks, grids, gens):
-                p, c, hist, oh = self._fast_chunk(
-                    chunk, factor, hist, oh, grid_t, gen,
-                    frames=chunk_frames, out_max=out_max, hist_from=chunk_frames)
-                packed.append(p)
-                clipped.append(c)
-            history = hist
-            self._post_hist = oh
-        self.history = history
-        self.phase = phase
-        self._hist_gain_zero = gain_db == 0.0
-        return _stack_chunks(packed), gens, _clip_counts(_stack_chunks(clipped))
+            # the fused int16 tier is exact only when the carried history shares
+            # this call's gain factor; the flag commits only after the call
+            fused_ok = gain_db == 0.0 and self._hist_gain_zero
+            if self.exact:
+                packed, clipped, history = self._exact_stream(chunks, grids, gens, factor,
+                                                              chunk_frames, out_max)
+            elif self._fused_tier_selected(fused_ok):
+                packed, clipped, history = self._fused_stream(chunks, grids, gens, factor,
+                                                              chunk_frames, out_max)
+            else:
+                hist, oh = self.history, self._post_hist
+                packed, clipped = [], []
+                for chunk, grid_t, gen in zip(chunks, grids, gens):
+                    p, c, hist, oh = self._fast_chunk(
+                        chunk, factor, hist, oh, grid_t, gen,
+                        frames=chunk_frames, out_max=out_max, hist_from=chunk_frames)
+                    packed.append(p)
+                    clipped.append(c)
+                history = hist
+                self._post_hist = oh
+            self.history = history
+            self.phase = phase
+            self._hist_gain_zero = gain_db == 0.0
+            return _stack_chunks(packed), gens, _clip_counts(_stack_chunks(clipped))
 
     def _exact_stream(self, chunks, grids, gens, factor, frames: int, out_max: int):
         """Exact-mode chunk loop: each chunk consumes all its frames; the post

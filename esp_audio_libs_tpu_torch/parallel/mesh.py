@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..runtime.kernels import entry_device
+from ..runtime.trace import span
 
 __all__ = ["StreamMesh", "Sharded", "stream_mesh", "shard_streams", "shard_streams_axis",
            "is_split", "place", "to_numpy"]
@@ -115,7 +116,8 @@ def to_numpy(t) -> np.ndarray:
         return t.numpy()
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
+    with span("eal.wait"):
+        torch.cuda.current_stream(t.device).synchronize()
     return host.numpy()
 
 

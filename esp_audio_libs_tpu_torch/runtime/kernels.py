@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from .trace import span
+
 REPO = Path(__file__).resolve().parent.parent.parent
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = REPO / "build" / "kernels"
@@ -118,9 +120,10 @@ def launch_on(device: torch.device):
     in the block: PyTorch's current device (``torch.cuda.device``) and the
     library's own (``eal_set_device``; nvcc links the CUDA runtime statically
     into the library, so it keeps a current device apart from PyTorch's, and
-    its entry points set kernel attributes and read the SM count there)."""
+    its entry points set kernel attributes and read the SM count there).
+    The ``eal.launch`` span covers the device switch and the block."""
     lib = library()
-    with torch.cuda.device(device):
+    with span("eal.launch"), torch.cuda.device(device):
         index = device.index if device.index is not None else torch.cuda.current_device()
         rc = lib.eal_set_device(index)
         if rc != 0:

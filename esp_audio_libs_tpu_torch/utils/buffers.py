@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..runtime.kernels import entry_device
+from ..runtime.trace import span
 
 __all__ = ["BufferPool", "default_pool", "device_put_pooled"]
 
@@ -78,7 +79,8 @@ class BufferPool:
                 stack.append((arr, ready))
                 return
         if ready is not None:   # dropped: its memory must outlive the copy
-            ready.synchronize()
+            with span("eal.wait"):
+                ready.synchronize()
 
     def clear(self) -> None:
         with self._lock:
@@ -86,7 +88,8 @@ class BufferPool:
         for stack in dropped.values():
             for _arr, ready in stack:
                 if ready is not None:
-                    ready.synchronize()
+                    with span("eal.wait"):
+                        ready.synchronize()
 
     class _Lease:
         def __init__(self, pool, arr):

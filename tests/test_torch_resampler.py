@@ -249,6 +249,7 @@ def test_port_imports_no_jax():
             "import esp_audio_libs_tpu_torch.models.resampler\n"
             "import esp_audio_libs_tpu_torch.ops.polyphase_kernels\n"
             "import esp_audio_libs_tpu_torch.runtime.kernels\n"
+            "import esp_audio_libs_tpu_torch.runtime.trace\n"
             "import esp_audio_libs_tpu_torch.models.flac\n"
             "import esp_audio_libs_tpu_torch.models.batch\n"
             "import esp_audio_libs_tpu_torch.ops.lpc\n"

@@ -18,8 +18,6 @@ chunk. It reports for each:
     band-range kernel each launches first, also shown alone; exact mode:
     the biquad and exact polyphase kernels, each also alone), the rest of
     the device time (glue) and the idle share of that traced wall;
-  * the idle share estimated from the untraced median wall minus the traced
-    busy time (two different calls, so an estimate, printed as such);
   * one call traced with CPU + CUDA activity: the top ops by device time,
     written to ``--out`` when given.
 
@@ -112,8 +110,7 @@ def profile_tier(fused: bool, data, args) -> tuple[dict, str]:
            "device_busy_ms": busy, "kernel_ms": kernel, "band_ranges_ms": band,
            "biquad_ms": biquad, "polyphase_ms": poly,
            "other_device_ms": busy - kernel,
-           "traced_idle_share": 1.0 - busy / traced_wall,
-           "estimated_idle_share_untraced": 1.0 - busy / median}
+           "traced_idle_share": 1.0 - busy / traced_wall}
     return row, table
 
 
@@ -155,8 +152,7 @@ def main() -> None:
               f"(kernel {row['kernel_ms']:.3f}: biquad {row['biquad_ms']:.3f}, polyphase "
               f"{row['polyphase_ms']:.3f}, band ranges {row['band_ranges_ms']:.3f}; "
               f"other {row['other_device_ms']:.3f}), "
-              f"traced idle {row['traced_idle_share']:.3f}, "
-              f"estimated untraced idle {row['estimated_idle_share_untraced']:.3f}")
+              f"traced idle {row['traced_idle_share']:.3f}")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(tables))
