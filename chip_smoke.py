@@ -72,12 +72,18 @@ Phases, each printing a line:
                and the bound; for the biquad at both shapes, each also with
                one lane alone (the measured step time) and an estimated
                serial chain, for the polyphase the FMA-free issue floor (an
-               estimate; text lines only).
+               estimate; text lines only). Then the quantize-and-pack kernel
+               (csrc/pcm_quantize16.cu) byte for byte against its plain
+               version on quantize16_cases (NaN, infinities, 2^31 and its
+               neighbours, half-ties, subnormals, gen < T and 0, odd T,
+               strided inputs, padded rows left untouched) and at both
+               cells' chunks ([2048, 2, 2981] and [2048, 2, 22587]), timed
+               by direct launches beside its bytes bound and one wrapper call.
  10. exact e2e - Resampler(2048) (exact, the default) resample_stream(data,
                8192, 8) on the phase-4 bytes, its packed bytes, counts and
                state equal to a CPU run of the plain path on 8 streams, with
-               its launches asserted (2 biquad and 1 polyphase_exact per
-               chunk); the same for 16 kHz -> 44.1 kHz at batch 256 (the
+               its launches asserted (2 biquad, 1 polyphase_exact and 1
+               quantize_pack16 per chunk); the same for 16 kHz -> 44.1 kHz at batch 256 (the
                post-filter runs with valid_len); BatchedResample((2048, 2),
                exact=True).process on one 8192-sample chunk; the
                biquad_cascade_2x_stereo configuration of bench_all.py (2048 x
@@ -1093,6 +1099,146 @@ def exact_kernels_phase(data):
              "ms_wrapper": ms_pw}]
 
 
+QUANT_PAD = 0xA5   # the bytes around each quantize16 case's output rows
+
+
+def quantize16_edges():
+    """f32 samples at the edges of float_to_int(x, 16): NaN, infinities,
+    +-2^31 and +-2^31 / 32768 (where x * 32768 meets the x86 cast's range)
+    with their f32 neighbours, +-0, subnormals, values that overflow, exact
+    half-ties (k + 0.5) / 32768 (near 0 and at full scale) and values just
+    either side of +-1."""
+    import numpy as np
+    f32 = np.float32
+    near = [f32(2.0 ** 31), f32(65536.0)]
+    near = [v for a in near for v in (a, np.nextafter(a, f32(0)), np.nextafter(a, f32(np.inf)))]
+    one = [v for a in (f32(1.0), f32(-1.0)) for v in (a, np.nextafter(a, f32(0)),
+                                                      np.nextafter(a, 2 * a))]
+    ties = (np.concatenate([np.arange(-40, 40), np.arange(32760, 32770),
+                            np.arange(-32771, -32760)]) + 0.5) / 32768.0
+    return np.concatenate([
+        np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40, 1e-45, -1e-45,
+                  1.1754942e-38, 1.17549435e-38, 1e30, -1e30, 3.4e38, -3.4e38], f32),
+        np.array(near, f32), -np.array(near, f32), np.array(one, f32), ties.astype(f32)])
+
+
+def quantize16_cases(device):
+    """Operands of quantize_pack16's checks: [(label, x, gen, buf, out)], x
+    f32 [B, 2, T] (a strided view in some), ``out`` the view of the uint8
+    rows ``buf`` (QUANT_PAD around it) that the frames go to. Samples are
+    uniform in +-1.3 (so some clip) with about 10 % drawn from
+    quantize16_edges, and the edges in order at the start of stream 0."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2200)
+    edges = quantize16_edges()
+
+    def samples(shape):
+        x = rng.uniform(-1.3, 1.3, shape).astype(np.float32)
+        pick = rng.random(shape) < 0.1
+        x[pick] = rng.choice(edges, int(pick.sum()))
+        flat = x.reshape(-1)
+        flat[:min(len(edges), flat.size)] = edges[:flat.size]
+        return torch.as_tensor(x, device=device)
+
+    cases = []
+    for label, B, T, gen, layout in (
+            ("edges, down chunk width", 3, 2981, 2960, "dense"),
+            ("odd T of the up chunk, gen = T", 2, 22587, 22587, "dense"),
+            ("gen < T", 5, 1000, 517, "dense"),
+            ("gen = 0", 2, 515, 0, "dense"),
+            ("gen past T", 2, 300, 345, "dense"),
+            ("column view of wider rows, wider output pitch", 4, 777, 700, "columns"),
+            ("channel-major planes", 3, 1031, 1031, "planes"),
+            ("B = 1, T = 1", 1, 1, 1, "dense"),
+            ("T = 0", 2, 0, 0, "dense")):
+        if layout == "columns":       # x = wide[..., 5:5 + T]: stream and channel pitches > T
+            x = samples((B, 2, T + 20))[..., 5:5 + T]
+        elif layout == "planes":      # [2, B, T] seen as [B, 2, T]
+            x = samples((2, B, T)).transpose(0, 1)
+        else:
+            x = samples((B, 2, T))
+        col, pitch = (8, T * 4 + 24) if layout == "columns" else (0, T * 4)
+        buf = torch.full((B, pitch), QUANT_PAD, dtype=torch.uint8, device=device)
+        cases.append((f"{label}: B {B}, T {T}, gen {gen}", x, gen, buf, buf[:, col:col + T * 4]))
+    return cases
+
+
+def quantize16_mismatches(quantize, cases) -> list:
+    """The labels of the cases where ``quantize(x, gen, out, clips)`` differs
+    from quantize_pack16_plain in a byte of ``buf`` (the padding included)
+    or in a clip count."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops.quantization_kernels import quantize_pack16_plain
+    bad = []
+    for label, x, gen, buf, out in cases:
+        want_buf = buf.cpu().clone()
+        packed, counts = quantize_pack16_plain(x.cpu(), gen)
+        col = out.data_ptr() - buf.data_ptr() if buf.numel() else 0
+        want_buf[:, col:col + packed.shape[1]] = packed
+        clips = torch.full((x.shape[0],), -1, dtype=torch.int64, device=x.device)
+        quantize(x, gen, out, clips)
+        if not (torch.equal(buf.cpu(), want_buf) and torch.equal(clips.cpu(), counts)):
+            bad.append(label)
+    return bad
+
+
+def quantize16_bytes(B, T) -> int:
+    """The bytes one launch must move: f32 [B, 2, T] in, s16 [B, T, 2] out,
+    one int64 count a stream."""
+    return B * T * 12 + B * 8
+
+
+def quantize16_phase():
+    """Phase 9b: the quantize-and-pack kernel byte for byte against its
+    plain version on quantize16_cases, then at both cells' chunk shapes on
+    hot and clipping samples; timed by direct launches (queued behind a
+    sleeping kernel, so the host's enqueue does not count) beside its bytes
+    bound, one wrapper call and the plain version. Returns the kernels-line
+    entry without its launch count."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
+
+    bad = quantize16_mismatches(qk.quantize_pack16_cuda, quantize16_cases("cuda"))
+    if bad:
+        fail(f"quantize_pack16 differs from its plain version: {bad}")
+    timing = {}
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for key, T in (("down", 2981), ("up", 22587)):
+        x = torch.empty((BATCH, 2, T), device="cuda").uniform_(-1.06, 1.06, generator=gen)
+        out = torch.empty((BATCH, T * 4), dtype=torch.uint8, device="cuda")
+        clips = torch.empty(BATCH, dtype=torch.int64, device="cuda")
+        g = T - 8
+        qk.quantize_pack16_cuda(x, g, out, clips)
+        p, c = qk.quantize_pack16_plain(x, g)
+        if not (torch.equal(out, p) and torch.equal(clips, c)):
+            fail(f"quantize_pack16 differs from its plain version at [{BATCH}, 2, {T}]")
+        launch = direct_launcher("eal_quantize_pack16", x, x.stride(0), x.stride(1), out, T,
+                                 clips, BATCH, T, g)
+        ms = cuda_time_queued(launch, iters=40)
+        ms_wrapper = cuda_time(lambda: qk.quantize_pack16_cuda(x, g, out, clips), iters=20)
+        plain_ms = cuda_time(lambda: qk.quantize_pack16_plain(x, g), iters=5)
+        nbytes = quantize16_bytes(BATCH, T)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        timing[key] = (ms, bound_ms, plain_ms, ms_wrapper)
+        print(f"kernel quantize_pack16 {key} [{BATCH}, 2, {T}] gen {g}: {ms:.4f} ms per launch "
+              f"(queued; one wrapper call {ms_wrapper:.4f} ms), bound {bound_ms:.4f} ms (bytes: "
+              f"{nbytes} B at 3.35 TB/s), {bound_ms / ms:.1%} of the bound; plain version "
+              f"{plain_ms:.4f} ms; {int(c.sum())} clipped samples")
+        del x, out, p
+    print("kernel quantize_pack16: byte-identical to the plain version on quantize16_cases and "
+          "at both chunk shapes")
+    return {"name": "quantize_pack16", "route": "cuda",
+            "source": "esp_audio_libs_tpu_torch/csrc/pcm_quantize16.cu",
+            "replaces": "ops/quantization.py float_to_int + pack_pcm16_interleave2 (torch ops)",
+            "launches": 0, "max_abs_err": 0, "bit_exact": True, "ms": timing["down"][0],
+            "plain_ms": timing["down"][2], "bound_ms": timing["down"][1], "bound_by": "bytes",
+            "library_ms": None, "ms_wrapper": timing["down"][3], "ms_upsample": timing["up"][0],
+            "bound_ms_upsample": timing["up"][1], "plain_ms_upsample": timing["up"][2]}
+
+
 def exact_stream(src, dst, batch, data, label, reps=5):
     """Phase 10's Resampler paths: exact resample_stream on the card with
     its launches counted and asserted, bytes, counts and state against a
@@ -1102,6 +1248,7 @@ def exact_stream(src, dst, batch, data, label, reps=5):
 
     from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
     from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
 
     r = make_resampler(src, dst, batch, "cuda", exact=True)
     if not r.exact:
@@ -1109,6 +1256,7 @@ def exact_stream(src, dst, batch, data, label, reps=5):
     data_dev = torch.as_tensor(data, device="cuda")
     bk.reset_launch_counts()
     pk.reset_launch_counts()
+    qk.reset_launch_counts()
     first = r.resample_stream(data_dev, FRAMES, CHUNKS)
     torch.cuda.synchronize()
     state = r.get_state()
@@ -1120,9 +1268,10 @@ def exact_stream(src, dst, batch, data, label, reps=5):
         times.append(time.perf_counter() - t0)
     launches = {"biquad_exact": bk.biquad_df1_cuda.launches,
                 "polyphase_exact": pk.polyphase_exact_cuda.launches,
+                "quantize_pack16": qk.quantize_pack16_cuda.launches,
                 "polyphase_banded": pk.polyphase_banded_cuda.launches}
     want = {"biquad_exact": 2 * CHUNKS * (reps + 1), "polyphase_exact": CHUNKS * (reps + 1),
-            "polyphase_banded": 0}
+            "quantize_pack16": CHUNKS * (reps + 1), "polyphase_banded": 0}
     if launches != want:
         fail(f"{label}: launched {launches}, expected {want}")
     ref = make_resampler(src, dst, CMP_STREAMS, "cpu", exact=True)
@@ -3180,6 +3329,7 @@ def launch_counts() -> dict:
     from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
     from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
     from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
+    from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
     return {"polyphase_banded": pk.polyphase_banded_cuda.launches,
             "polyphase_fused16": pk.polyphase_fused16_cuda.launches,
             "polyphase_banded_sharded": pk.polyphase_banded_sharded.launches,
@@ -3191,7 +3341,8 @@ def launch_counts() -> dict:
             "mp3_granules_f32": mk.mp3_granules_f32_cuda.launches,
             "mp3_mxu_pre": mk.mp3_mxu_pre_cuda.launches,
             "mp3_mxu_post": mk.mp3_mxu_post_cuda.launches,
-            "dotprod_exact": dk.dotprod_exact_cuda.launches}
+            "dotprod_exact": dk.dotprod_exact_cuda.launches,
+            "quantize_pack16": qk.quantize_pack16_cuda.launches}
 
 
 def reset_all_counts() -> None:
@@ -3200,7 +3351,8 @@ def reset_all_counts() -> None:
     from esp_audio_libs_tpu_torch.ops import flac_kernels as fk
     from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
     from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
-    for mod in (bk, dk, fk, mk, pk):
+    from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
+    for mod in (bk, dk, fk, mk, pk, qk):
         mod.reset_launch_counts()
 
 
@@ -3352,10 +3504,12 @@ def mesh_resampler(m, data, path):
         msh = Resampler(BATCH, exact=exact, device="cuda", mesh=m)
         msh.initialize(cfg)
         got, counts, ms = path.run(lambda: msh.resample_stream(data_dev, FRAMES, CHUNKS))
-        expect = ({"polyphase_exact": S * CHUNKS, "biquad_exact": 2 * S * CHUNKS} if exact else
+        expect = ({"polyphase_exact": S * CHUNKS, "biquad_exact": 2 * S * CHUNKS,
+                   "quantize_pack16": S * CHUNKS} if exact else
                   {"polyphase_fused16": S * CHUNKS, "polyphase_fused16_sharded": S * CHUNKS}
                   if fused else
-                  {"polyphase_banded": S * CHUNKS, "polyphase_banded_sharded": S * CHUNKS})
+                  {"polyphase_banded": S * CHUNKS, "polyphase_banded_sharded": S * CHUNKS,
+                   "quantize_pack16": S * CHUNKS})
         if {k: counts[k] for k in expect} != expect or sum(counts.values()) != sum(expect.values()):
             fail(f"mesh resampler {label}: launches {counts}, expected {expect}")
         if not (isinstance(got[0], Sharded) and got[0].axis == 1
@@ -3845,9 +3999,12 @@ def main() -> None:
     # 9-10. exact mode
     exact_entries = exact_kernels_phase(data)
     torch.cuda.empty_cache()
+    exact_entries.append(quantize16_phase())
+    torch.cuda.empty_cache()
     exact_main, exact_other = exact_phase(data)
     exact_entries[0]["launches"] = exact_main["biquad_exact"]
     exact_entries[1]["launches"] = exact_main["polyphase_exact"]
+    exact_entries[2]["launches"] = exact_main["quantize_pack16"]
     exact_entries[0]["launches_other_paths"] = {
         "upsample": exact_other["upsample"]["biquad_exact"], "cascade": exact_other["cascade"]}
     exact_entries[1]["launches_other_paths"] = {

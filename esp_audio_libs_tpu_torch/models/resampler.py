@@ -11,7 +11,9 @@ Exact mode (the default, bit-exact against the JAX package's exact mode):
 each chunk runs unpack -> two exact pre-filter biquad stages (downsampling;
 the kernel ops/biquad_kernels.py::biquad_df1_cuda) -> the ordered-dot
 polyphase kernel (ops/polyphase_kernels.py::polyphase_exact_cuda) -> two
-exact post-filter stages (upsampling) -> quantize + pack.
+exact post-filter stages (upsampling) -> quantize + pack (stereo s16: one
+kernel, ops/quantization_kernels.py::quantize_pack16_cuda, which writes each
+chunk's bytes and clip counts into the call's output buffers).
 
 Fast mode: the pre-filter biquads are folded into the filterbank on the
 host; each chunk then runs on the device as unpack -> banded weight build ->
@@ -50,6 +52,7 @@ from ..ops import sinc
 from ..ops.polyphase import TILE, banded_K, banded_weights_device, polyphase_apply
 from ..ops.polyphase_kernels import (polyphase_banded_cuda, polyphase_banded_sharded,
                                      polyphase_fused16_cuda, polyphase_fused16_sharded)
+from ..ops.quantization_kernels import quantize_pack16_cuda
 from ..parallel.mesh import Sharded, is_split, place, shard_streams, to_numpy
 from ..runtime.kernels import entry_device
 from ..runtime.native import design_filterbank_native
@@ -138,14 +141,12 @@ def _each(fn, *args):
     return _join([fn(*_shard_view(args, i)) for i in range(mesh.size)], mesh)
 
 
-def _stack_chunks(items):
-    """Per-chunk ``[B, ...]`` results -> ``[chunks, B, ...]``; split results
-    stay split, along the stream axis 1."""
-    if isinstance(items[0], Sharded):
-        mesh = items[0].mesh
-        return Sharded([torch.stack([it.parts[i] for it in items]) for i in range(mesh.size)],
-                       1, mesh)
-    return torch.stack(items)
+def _chunk_of(buf, c: int):
+    """Chunk ``c`` of a ``[chunks, B, ...]`` output buffer; of one split along
+    the stream axis 1, the shards' chunk ``c``, split along axis 0."""
+    if isinstance(buf, Sharded):
+        return Sharded([p[c] for p in buf.parts], 0, buf.mesh)
+    return buf[c]
 
 
 class Resampler:
@@ -205,6 +206,19 @@ class Resampler:
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def _outputs(self, lead: tuple, width: int):
+        """A call's output buffers, unfilled: packed bytes uint8 ``[*lead,
+        batch, width]`` and int64 clip counts ``[*lead, batch]``; under a mesh
+        one block of streams per shard, split along the stream axis."""
+        def make(dev, b):
+            return (torch.empty((*lead, b, width), dtype=torch.uint8, device=dev),
+                    torch.empty((*lead, b), dtype=torch.int64, device=dev))
+
+        if not is_split(self.mesh):
+            return make(self.device, self.batch)
+        parts = [make(dev, self.batch // self.mesh.size) for dev in self.mesh.devices]
+        return tuple(Sharded([p[k] for p in parts], len(lead), self.mesh) for k in range(2))
 
     def initialize(self, config: ResamplerConfiguration) -> bool:
         """Reference Resampler::initialize (resampler.cpp:21-98)."""
@@ -417,34 +431,36 @@ class Resampler:
                 grid_t = (self._exact_grids if self.exact else self._device_grids)(
                     [grid], output_frames_free)[0]
             gen = grid.output_generated
+            # gen is host-known: quantize only the generated samples, as the
+            # reference does
+            packed, clips = self._outputs((), gen * ch * q.bytes_per_sample(self.output_bits))
             if self.exact:
-                # gen is host-known: post-filter and quantize only the generated
-                # samples, as the reference does
-                def step(d, hist, states):
+                # and post-filter only them
+                def step(d, hist, states, p, c):
                     out, hist, states = self._exact_chunk(self._unpack(d, factor, frames), hist,
                                                           states, grid_t, hist_from=grid.input_used)
                     if self.post_filter:
                         out, states = self._exact_post(out[..., :gen], states, None)
-                    return (*self._quantize(out[..., :gen], gen, gen), hist, states)
+                    self._quantize(out, gen, p, c)
+                    return hist, states
 
-                packed, per_stream, history, states = _each(step, data, self.history,
-                                                            self._biquad_states())
+                history, states = _each(step, data, self.history, self._biquad_states(), packed,
+                                        clips)
                 self.history = history
                 if self.pre_filter or self.post_filter:
                     self._biquad_state = states
             else:
-                packed, per_stream, history, post_hist = self._fast_chunk(
-                    data, factor, self.history, self._post_hist, grid_t, gen,
+                history, post_hist = self._fast_chunk(
+                    data, factor, self.history, self._post_hist, grid_t, gen, packed, clips,
                     frames=frames, out_max=output_frames_free, hist_from=grid.input_used)
                 self.history, self._post_hist = history, post_hist
             self.phase = phase
             self._hist_gain_zero = gain_db == 0.0
-            bps_out = q.bytes_per_sample(self.output_bits)
-            return _each(lambda p: p[:, : gen * ch * bps_out], packed), ResamplerResults(
+            return packed, ResamplerResults(
                 frames_used=grid.input_used,
                 frames_generated=gen,
                 predicted_frames_used=frames,
-                clipped_samples=_clip_counts(per_stream),
+                clipped_samples=_clip_counts(clips),
             )
 
     # ------------------------------------------------- exact-path pieces
@@ -539,20 +555,24 @@ class Resampler:
             x = q.int_to_float(q.unpack_pcm(data, in_bits), factor)
             return x.reshape(B, frames, ch).transpose(1, 2)
 
-    def _quantize(self, out, gen: int, out_max: int):
-        """f32 [B, ch, out_max] -> (packed bytes, int64 per-stream clip counts
-        over the ``gen`` valid outputs), both modes."""
-        B = out.shape[0]
-        ch, out_bits = self.channels, self.output_bits
+    def _quantize(self, out, gen: int, packed, clips) -> None:
+        """f32 [B, ch, >= T] -> the first T frames, quantized and packed into
+        ``packed`` (uint8 [B, T*ch*bps], which sets T), and the int64
+        per-stream clip counts over the ``gen`` valid outputs into ``clips``;
+        both modes. Stereo s16 is one kernel launch on the card
+        (ops/quantization_kernels.py); other formats run the torch ops."""
+        B, ch = out.shape[:2]
+        out_bits = self.output_bits
+        T = packed.shape[-1] // (ch * q.bytes_per_sample(out_bits))
+        out = out[..., :T]
         with span("eal.quantize"):
             if ch == 2 and out_bits == 16:
-                samples, clipped = q.float_to_int(out, out_bits)             # [B, 2, T]
-                per_stream = clipped[..., :gen].sum((1, 2), dtype=torch.int64)
-                return q.pack_pcm16_interleave2(samples), per_stream
-            y = out.transpose(1, 2).reshape(B, out_max * ch)
+                quantize_pack16_cuda(out, gen, packed, clips)
+                return
+            y = out.transpose(1, 2).reshape(B, T * ch)
             samples, clipped = q.float_to_int(y, out_bits)
-            per_stream = clipped[:, : gen * ch].sum(-1, dtype=torch.int64)
-            return q.pack_pcm(samples, out_bits), per_stream
+            packed.copy_(q.pack_pcm(samples, out_bits))
+            clips.copy_(clipped[:, : gen * ch].sum(-1, dtype=torch.int64))
 
     def _conv_post(self, out, oh, gen: int, out_max: int):
         """Post-lowpass (upsampling) as a banded conv over the output stream:
@@ -572,11 +592,12 @@ class Resampler:
         Wt2 = self._post_W2[None].expand(nt2, K2, TILE)
         return self._poly()(xe, Wt2, starts2, T=out_max), new_oh
 
-    def _fast_chunk(self, chunk, factor, hist, oh, grid_t, gen: int, *,
+    def _fast_chunk(self, chunk, factor, hist, oh, grid_t, gen: int, packed, clips, *,
                     frames: int, out_max: int, hist_from: int):
-        """One chunk of the f32 fast path. ``hist_from`` is the number of
-        input frames consumed: the new history is xext[hist_from : +hist_len].
-        Returns (packed, per-stream clip counts, new history, new post hist)."""
+        """One chunk of the f32 fast path, its output quantized into
+        ``packed`` and ``clips`` (:meth:`_quantize`). ``hist_from`` is the
+        number of input frames consumed: the new history is xext[hist_from :
+        +hist_len]. Returns (new history, new post hist)."""
         hist_len = self.hist_len
         L = self._slab_len(frames)
 
@@ -591,8 +612,8 @@ class Resampler:
         out = self._poly()(xext, Wt, starts, T=out_max)
         if self.post_filter:
             out, oh = self._conv_post(out, oh, gen, out_max)
-        packed, per_stream = _each(lambda o: self._quantize(o, gen, out_max), out)
-        return packed, per_stream, new_hist, oh
+        _each(lambda o, p, c: self._quantize(o, gen, p, c), out, packed, clips)
+        return new_hist, oh
 
     # ------------------------------------------------------------ streaming
     def resample_stream(self, input_bytes, chunk_frames: int, num_chunks: int,
@@ -643,53 +664,52 @@ class Resampler:
             data = self._to_device(input_bytes)
             chunks = [_each(lambda d, c=c: d[:, c * chunk_bytes:(c + 1) * chunk_bytes], data)
                       for c in range(num_chunks)]
+            # each chunk quantizes into its slab of the call's outputs
+            packed, clips = self._outputs((num_chunks,),
+                                          out_max * ch * q.bytes_per_sample(self.output_bits))
+            slabs = [(_chunk_of(packed, c), _chunk_of(clips, c)) for c in range(num_chunks)]
 
             # the fused int16 tier is exact only when the carried history shares
             # this call's gain factor; the flag commits only after the call
             fused_ok = gain_db == 0.0 and self._hist_gain_zero
             if self.exact:
-                packed, clipped, history = self._exact_stream(chunks, grids, gens, factor,
-                                                              chunk_frames, out_max)
+                history = self._exact_stream(chunks, grids, gens, slabs, factor, chunk_frames)
             elif self._fused_tier_selected(fused_ok):
-                packed, clipped, history = self._fused_stream(chunks, grids, gens, factor,
-                                                              chunk_frames, out_max)
+                history = self._fused_stream(chunks, grids, gens, slabs, factor, chunk_frames,
+                                             out_max)
             else:
                 hist, oh = self.history, self._post_hist
-                packed, clipped = [], []
-                for chunk, grid_t, gen in zip(chunks, grids, gens):
-                    p, c, hist, oh = self._fast_chunk(
-                        chunk, factor, hist, oh, grid_t, gen,
+                for chunk, grid_t, gen, (p, c) in zip(chunks, grids, gens, slabs):
+                    hist, oh = self._fast_chunk(
+                        chunk, factor, hist, oh, grid_t, gen, p, c,
                         frames=chunk_frames, out_max=out_max, hist_from=chunk_frames)
-                    packed.append(p)
-                    clipped.append(c)
                 history = hist
                 self._post_hist = oh
             self.history = history
             self.phase = phase
             self._hist_gain_zero = gain_db == 0.0
-            return _stack_chunks(packed), gens, _clip_counts(_stack_chunks(clipped))
+            return packed, gens, _clip_counts(clips)
 
-    def _exact_stream(self, chunks, grids, gens, factor, frames: int, out_max: int):
+    def _exact_stream(self, chunks, grids, gens, slabs, factor, frames: int):
         """Exact-mode chunk loop: each chunk consumes all its frames; the post
         stages run over the chunk's ``out_max`` outputs with ``valid_len`` =
-        its generated count. The biquad states commit here, the history and
-        phase in the caller. Returns (packed chunks, clip counts, history)."""
+        its generated count; chunk c quantizes into ``slabs[c]`` (packed
+        bytes, clip counts). The biquad states commit here, the history and
+        phase in the caller. Returns the history."""
         hist, states = self.history, self._biquad_states()
-        packed, clipped = [], []
-        for chunk, grid_t, gen in zip(chunks, grids, gens):
-            def step(c, h, st):
-                out, h, st = self._exact_chunk(self._unpack(c, factor, frames), h, st, grid_t,
+        for chunk, grid_t, gen, (packed, clips) in zip(chunks, grids, gens, slabs):
+            def step(x, h, st, p, c):
+                out, h, st = self._exact_chunk(self._unpack(x, factor, frames), h, st, grid_t,
                                                hist_from=frames)
                 if self.post_filter:
                     out, st = self._exact_post(out, st, gen)
-                return (*self._quantize(out, gen, out_max), h, st)
+                self._quantize(out, gen, p, c)
+                return h, st
 
-            p, c, hist, states = _each(step, chunk, hist, states)
-            packed.append(p)
-            clipped.append(c)
+            hist, states = _each(step, chunk, hist, states, packed, clips)
         if self.pre_filter or self.post_filter:
             self._biquad_state = states
-        return packed, clipped, hist
+        return hist
 
     def _fused_tier_selected(self, fused_ok: bool) -> bool:
         """The fused int16 tier serves s16 in/out without a post stage, on
@@ -706,22 +726,22 @@ class Resampler:
                 and (not is_split(self.mesh)
                      or (self.batch * self.channels // self.mesh.size) % 16 == 0))
 
-    def _fused_stream(self, chunks, grids, gens, factor, frames: int, out_max: int):
+    def _fused_stream(self, chunks, grids, gens, slabs, factor, frames: int, out_max: int):
         """Fused-tier chunk loop: samples stay RAW int16 end to end (int16
         history carry, gain folded into the weight tiles) and the fused
-        kernel does contraction + quantize in one pass. The f32
+        kernel does contraction + quantize in one pass; chunk c's packed
+        bytes and clip counts are copied into ``slabs[c]``. The f32
         ``self.history`` contract holds at the call boundary: history values
         are ``int16 * factor`` products whenever the history was produced
         under the same gain factor as this call (the ``fused_ok``
         precondition), so f32 -> raw -> f32 round-trips to identical floats.
-        Returns (packed chunks, clip counts, new f32 history)."""
+        Returns the new f32 history."""
         ch, hist_len = self.channels, self.hist_len
         L = self._slab_len(frames)
         fac = torch.tensor(factor, dtype=torch.float32, device=self.device)
         hist_raw = _each(lambda h: torch.clamp(torch.round(h / fac.to(h.device)),
                                                -32768.0, 32767.0).to(torch.int16), self.history)
-        packed, clipped = [], []
-        for chunk, grid_t, gen in zip(chunks, grids, gens):
+        for chunk, grid_t, gen, (packed, clips) in zip(chunks, grids, gens, slabs):
             def extend(c, h):
                 if ch == 2:
                     xc = q.unpack_pcm16_planar2_raw(c)
@@ -743,7 +763,6 @@ class Resampler:
             Wt, starts = banded_weights_device(
                 self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
             p, c = _each(finish, *self._poly16()(x2, Wt * fac, starts))
-            packed.append(p)
-            clipped.append(c)
-        return packed, clipped, _each(lambda h: h.to(torch.float32) * fac.to(h.device),
-                                      hist_raw)
+            _each(lambda dst, cdst, src, csrc: (dst.copy_(src), cdst.copy_(csrc)),
+                  packed, clips, p, c)
+        return _each(lambda h: h.to(torch.float32) * fac.to(h.device), hist_raw)

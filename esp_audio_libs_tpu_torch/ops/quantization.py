@@ -176,7 +176,6 @@ def float_to_int(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor
 
     # two eager ops: the product is rounded before the add (:61)
     y = torch.floor(torch.mul(x, scalar).add(0.5))
-    nan = torch.isnan(y)
     if bits < 32:
         # x86 cvttss2si: NaN or |y| >= 2^31 converts to INT_MIN, so hugely
         # positive inputs clip to NEGATIVE full scale (:61)
@@ -189,6 +188,7 @@ def float_to_int(x: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor
         # For 32-bit the reference tests the float input directly (:70-78);
         # the clip branch overrides every lane whose y leaves int32 range,
         # and a NaN lane (no clip) converts to 0 as in the JAX reference.
+        nan = torch.isnan(y)
         clip_hi = x >= 1.0
         clip_lo = x < -1.0
         clipped = clip_hi | clip_lo

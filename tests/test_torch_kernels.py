@@ -23,7 +23,9 @@ for the MXU tier's two step kernels, with the escape tier and ragged B;
 mp3_mxu_post, which rounds nothing but floor(acc + 0.5), bit for bit, also
 on chip_smoke.mxu_post_cases, and its wrapper raises on misaligned operands.
 The exact dot kernel (csrc/dotprod_exact.cu) is held to its plain version
-bit for bit on ragged, unaligned and subnormal operands, and the DSP layer
+bit for bit on ragged, unaligned and subnormal operands; the quantize-and-pack
+kernel (csrc/pcm_quantize16.cu) byte for byte, clip counts included, on
+chip_smoke.quantize16_cases and inside exact resample_stream calls; the DSP layer
 (ops/dsp.py) and the MP3 fleet's pipelined runs and checkpoints on the card
 to CPU runs.
 """
@@ -51,10 +53,12 @@ from esp_audio_libs_tpu_torch.ops import mp3_kernels as mk
 from esp_audio_libs_tpu_torch.ops import polyphase as tpoly
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 from esp_audio_libs_tpu_torch.ops import quantization as q
+from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
 from esp_audio_libs_tpu_torch.runtime import kernels, transport
 from esp_audio_libs_tpu_torch.runtime.phase_grid import HISTORY_MARGIN, PhaseState, phase_grid
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import chip_smoke  # noqa: E402
 import flac_kernel_fleet as fleet  # noqa: E402
 import mp3frames as mf  # noqa: E402
 
@@ -662,7 +666,8 @@ def test_flac_frame_kernel_dispatch_shape(cuda, F):
 
 @pytest.mark.parametrize("table", ["VARIANTS", "BIQUAD_VARIANTS", "EXACT_VARIANTS",
                                    "FLAC_VARIANTS", "MP3_VARIANTS", "DOT_VARIANTS",
-                                   "MP3F32_VARIANTS", "MXU_PRE_VARIANTS", "MXU_POST_VARIANTS"])
+                                   "MP3F32_VARIANTS", "MXU_PRE_VARIANTS", "MXU_POST_VARIANTS",
+                                   "QUANT16_VARIANTS"])
 def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
     """Every text edit of tools/kernel_variants.py still matches the
     sources it edits exactly once (the tool stops on the card otherwise)."""
@@ -672,7 +677,8 @@ def test_kernel_variant_edits_apply(tmp_path, monkeypatch, table):
               "EXACT_VARIANTS": "polyphase_exact.cu", "FLAC_VARIANTS": "flac_frame.cu",
               "MP3_VARIANTS": "mp3_granules.cu", "DOT_VARIANTS": "dotprod_exact.cu",
               "MP3F32_VARIANTS": "mp3_granules_f32.cu",
-              "MXU_PRE_VARIANTS": "mp3_mxu_step.cu", "MXU_POST_VARIANTS": "mp3_mxu_step.cu"}[table]
+              "MXU_PRE_VARIANTS": "mp3_mxu_step.cu", "MXU_POST_VARIANTS": "mp3_mxu_step.cu",
+              "QUANT16_VARIANTS": "pcm_quantize16.cu"}[table]
     sources = sorted(kernels.CSRC.glob("*.cu*"))
     for name, edits in getattr(kv, table).items():
         assert (kv.make_variant(name, target, edits, sources) / target).exists()
@@ -1384,6 +1390,117 @@ def test_mp3_pipelined_and_restored_fleet_on_card(cuda):
         np.testing.assert_array_equal(a, b)
 
 
+# ------------------------------------------------------ quantize and pack
+
+
+def hot_pcm(seed, B, frames):
+    """Interleaved stereo s16 bytes: a full-scale square wave (its filtered
+    overshoot clips) over noise, a different period per stream."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames)
+    square = np.where((t[None, :] // (17 + 3 * np.arange(B)[:, None])) % 2, 32767, -32768)
+    x = np.stack([square, rng.integers(-9000, 9000, (B, frames))], axis=-1)
+    return x.astype(np.int16).reshape(B, -1).view(np.uint8)
+
+
+def test_quantize_pack16_routes_cpu_to_plain():
+    """On CPU tensors the wrapper runs its plain version and launches
+    nothing: into the given output views (padding untouched) and counts,
+    the same bytes and counts as float_to_int + pack_pcm16_interleave2."""
+    qk.reset_launch_counts()
+    cases = chip_smoke.quantize16_cases("cpu")
+    assert chip_smoke.quantize16_mismatches(qk.quantize_pack16_cuda, cases) == []
+    x = cases[0][1]
+    packed, clips = qk.quantize_pack16_cuda(x, 100, torch.empty((3, 2981 * 4), dtype=torch.uint8),
+                                            torch.empty(3, dtype=torch.int64))
+    want = qk.quantize_pack16_plain(x, 100)
+    assert torch.equal(packed, want[0]) and torch.equal(clips, want[1])
+    samples, clipped = q.float_to_int(x, 16)
+    assert torch.equal(packed, q.pack_pcm16_interleave2(samples))
+    assert torch.equal(clips, clipped[..., :100].sum((1, 2)))
+    assert qk.quantize_pack16_cuda.launches == 0
+
+
+def test_quantize_pack16_refuses_bad_operands():
+    x = torch.zeros((2, 2, 8))
+    out, clips = torch.zeros((2, 32), dtype=torch.uint8), torch.zeros(2, dtype=torch.int64)
+    for label, args in (("x dtype", (x.double(), 8, out, clips)),
+                        ("mono x", (x[:, :1], 8, out, clips)),
+                        ("negative gen", (x, -1, out, clips)),
+                        ("out width", (x, 8, out[:, :28], clips)),
+                        ("out dtype", (x, 8, out.short(), clips)),
+                        ("clips dtype", (x, 8, out, clips.int())),
+                        ("clips shape", (x, 8, out, clips[:1]))):
+        with pytest.raises(ValueError):
+            qk.quantize_pack16_cuda(*args)
+            pytest.fail(label)
+    with pytest.raises(ValueError, match="device"):
+        qk.quantize_pack16_cuda(x.to("meta"), 8, out.to("meta"), clips.to("meta"))
+
+
+@pytest.mark.cuda
+def test_quantize_pack16_kernel_cases(cuda):
+    """The kernel against its plain version byte for byte, clip counts
+    included, on chip_smoke.quantize16_cases: NaN, infinities, +-2^31 and
+    +-2^31 / 32768 with their neighbours, -0, subnormals, half-ties, values
+    either side of +-1, gen < T, 0 and past T, odd T (2981, 22587), strided
+    inputs, output rows inside padded rows (the padding untouched), B = 1,
+    T = 0. One launch a case."""
+    qk.reset_launch_counts()
+    cases = chip_smoke.quantize16_cases(cuda)
+    assert chip_smoke.quantize16_mismatches(qk.quantize_pack16_cuda, cases) == []
+    assert qk.quantize_pack16_cuda.launches == len(cases)
+
+
+@pytest.mark.cuda
+def test_quantize_pack16_kernel_refuses_misaligned(cuda):
+    """An output view off 4 bytes in its base or its row pitch, or input
+    samples that are not contiguous, raise; nothing is written and nothing
+    falls back."""
+    B, T = 2, 33
+    x = torch.rand((B, 2, T), device=cuda)
+    clips = torch.full((B,), -1, dtype=torch.int64, device=cuda)
+    shifted = torch.full((B, T * 4 + 8), 7, dtype=torch.uint8, device=cuda)
+    wide = torch.full((B, T * 4 + 3), 7, dtype=torch.uint8, device=cuda)
+    qk.reset_launch_counts()
+    for label, xi, out, match in (
+            ("out base", x, shifted[:, 1:1 + T * 4], "aligned"),
+            ("out pitch", x, wide[:, :T * 4], "aligned"),
+            ("x samples", torch.rand((B, T, 2), device=cuda).transpose(1, 2),
+             shifted[:, :T * 4], "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            qk.quantize_pack16_cuda(xi, T, out, clips)
+        torch.cuda.synchronize()
+        assert qk.quantize_pack16_cuda.launches == 0, label
+        assert bool((shifted == 7).all()) and bool((wide == 7).all()), label
+        assert bool((clips == -1).all()), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [(44100.0, 16000.0), (16000.0, 44100.0)])
+def test_exact_stream_quantizes_once_per_chunk(cuda, src, dst):
+    """An exact resample_stream call launches quantize_pack16 once per
+    chunk, into the call's output buffer; bytes, generated counts, clip
+    counts (some nonzero) and history equal a CPU run of the plain path,
+    two calls in a row."""
+    B, frames, n = 4, 1024, 3
+    cfg = ResamplerConfiguration(src, dst, 16, 16, 2, True, True, 64, 32)
+    card, cpu = Resampler(B, device=cuda), Resampler(B, device="cpu")
+    card.initialize(cfg)
+    cpu.initialize(cfg)
+    for call in range(2):
+        data = hot_pcm(call, B, frames * n)
+        qk.reset_launch_counts()
+        pg, gg, cg = card.resample_stream(torch.as_tensor(data, device=cuda), frames, n)
+        assert qk.quantize_pack16_cuda.launches == n
+        pc, gc, cc = cpu.resample_stream(data, frames, n)
+        assert pg.shape == pc.shape and pg.dtype == torch.uint8
+        assert list(gg) == list(gc) and torch.equal(pg.cpu(), pc)
+        np.testing.assert_array_equal(cg, cc)
+        assert cc.sum() > 0
+        assert torch.equal(card.history.cpu(), cpu.history)
+
+
 @pytest.mark.cuda
 def test_every_kernel_launches_on_the_last_device(cuda):
     """Every kernel launched on the last visible card (the second of a
@@ -1453,4 +1570,11 @@ def test_every_kernel_launches_on_the_last_device(cuda):
 
     for label, a, b in dot_cases(dev)[3:]:
         assert same_bits(counted(dk.dotprod_exact_cuda, a, b), dk.dotprod_exact_plain(a, b)), label
+
+    xq = torch.as_tensor(rng.uniform(-1.2, 1.2, (37, 2, 1001)), dtype=torch.float32, device=dev)
+    packed, clips = counted(qk.quantize_pack16_cuda, xq, 990,
+                            torch.empty((37, 1001 * 4), dtype=torch.uint8, device=dev),
+                            torch.empty(37, dtype=torch.int64, device=dev))
+    want = qk.quantize_pack16_plain(xq.cpu(), 990)
+    assert torch.equal(packed.cpu(), want[0]) and torch.equal(clips.cpu(), want[1])
     assert torch.cuda.current_device() == 0

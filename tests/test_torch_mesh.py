@@ -41,6 +41,7 @@ from esp_audio_libs_tpu_torch.models import Resampler, ResamplerConfiguration
 from esp_audio_libs_tpu_torch.ops import polyphase_kernels as pk
 from esp_audio_libs_tpu_torch.parallel.mesh import (Sharded, shard_streams, shard_streams_axis,
                                                     stream_mesh)
+from tests.test_torch_kernels import hot_pcm
 
 N = 8
 CFG = (44100.0, 16000.0, 16, 16, 2, True, True, 64, 32)
@@ -273,6 +274,43 @@ def test_resampler_mesh_matches_jax_mesh(jmesh, mesh, exact, src, dst):
                     np.testing.assert_array_equal(a, b)
                 else:
                     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-30)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("src,dst", [(44100.0, 16000.0), (16000.0, 44100.0)])
+def test_resample_stream_outputs_and_clips_match_jax(jmesh, mesh, src, dst, exact, split):
+    """resample_stream's packed output (one uint8 [chunks, B, out_max * 4]
+    buffer the chunks quantize into, split along the stream axis 1 under the
+    mesh), generated counts and per-stream clip counts, with and without the
+    CPU mesh, on hot input whose clip counts are nonzero, two calls in a row:
+    against JAX's Resampler with the same mesh or none (exact mode without
+    subsample interpolation byte for byte and every clip count equal; fast
+    mode within 1 LSB), and against the port's other layout byte for byte."""
+    B, frames, n_chunks = 8, 512, 3
+    cfg = (src, dst, 16, 16, 2, True, not exact, 64, 32)
+    j = JaxResampler(batch=B, exact=exact, mesh=jmesh if split else None)
+    j.initialize(JaxConfig(*cfg))
+    t, other = _port(B, mesh if split else None, exact, cfg), _port(B, None if split else mesh,
+                                                                  exact, cfg)
+    for call in range(2):
+        data = hot_pcm(call, B, n_chunks * frames)
+        pj, gj, cj = j.resample_stream(jnp.asarray(data), frames, n_chunks)
+        pt, gt, ct = t.resample_stream(data, frames, n_chunks)
+        po, go, co = other.resample_stream(data, frames, n_chunks)
+        assert isinstance(pt, Sharded) == split and (not split or pt.axis == 1)
+        whole = pt.gather("cpu") if split else pt
+        assert whole.dtype == torch.uint8 and tuple(whole.shape) == np.asarray(pj).shape
+        assert ct.dtype == np.uint32 and ct.shape == (n_chunks, B) and ct.sum() > 0
+        assert list(gt) == list(gj) == list(go)
+        np.testing.assert_array_equal(_s16(pt), _s16(po))
+        np.testing.assert_array_equal(ct, co)
+        d = np.abs(_s16(pt) - np.asarray(pj).view(np.int16).astype(np.int32))
+        if exact:
+            assert d.max() == 0, f"call {call}"
+            np.testing.assert_array_equal(ct, np.asarray(cj))
+        else:
+            assert d.max() <= 1, f"call {call}"
 
 
 def test_resampler_mesh_resample_matches_single(mesh):

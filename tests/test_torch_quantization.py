@@ -8,8 +8,10 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 from esp_audio_libs_tpu.ops import quantization as jq
 from esp_audio_libs_tpu_torch.ops import quantization as tq
+from esp_audio_libs_tpu_torch.ops import quantization_kernels as tqk
 
 torch.set_num_threads(2)
 
@@ -138,3 +140,28 @@ def test_float_to_quantized_exact(bits):
     ref, ref_clipped = jq.float_to_quantized(jnp.asarray(x), bits)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert int(clipped) == int(ref_clipped) > 0
+
+
+@pytest.mark.parametrize("gen", [0, 1, 700, 1031, 1500])
+def test_quantize_pack16_matches_jax(gen):
+    """The quantize-and-pack wrapper on CPU tensors (its plain version) on
+    chip_smoke.quantize16_edges and the hard floats above, a strided view:
+    the bytes equal float_to_int + pack_pcm16_interleave2 of both packages,
+    and the clip count each package's clip mask summed over the first gen
+    frames of both channels."""
+    rng = np.random.default_rng(gen)
+    pool = np.concatenate([chip_smoke.quantize16_edges(), _hard_floats(rng)])
+    wide = rng.choice(pool, (3, 2, 1031 + 9)).astype(np.float32)
+    wide[0, 0, :len(pool)] = pool[:1031 + 9]
+    x = torch.from_numpy(wide)[..., 4:4 + 1031]
+    xn = np.ascontiguousarray(x.numpy())
+    packed, clips = tqk.quantize_pack16_cuda(x, gen, torch.empty((3, 1031 * 4), dtype=torch.uint8),
+                                             torch.empty(3, dtype=torch.int64))
+    s_t, c_t = tq.float_to_int(x, 16)
+    s_j, c_j = jq.float_to_int(jnp.asarray(xn), 16)
+    np.testing.assert_array_equal(packed.numpy(), tq.pack_pcm16_interleave2(s_t).numpy())
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jq.pack_pcm16_interleave2(s_j)))
+    assert clips.dtype == torch.int64 and clips.shape == (3,)
+    np.testing.assert_array_equal(clips.numpy(), c_t[..., :gen].sum((1, 2)).numpy())
+    np.testing.assert_array_equal(clips.numpy(), np.asarray(c_j)[..., :gen].sum((1, 2)))
+    assert gen == 0 or clips.sum() > 0

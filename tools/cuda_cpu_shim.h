@@ -21,7 +21,8 @@
 //     the card;
 //   - atomicOr, atomicMax, __clz, __mulhi, int min and max, long long min,
 //     int4, make_int4, uint2, make_uint2, uint4, make_uint4, float4,
-//     make_float4 and __fmul_rn are builtins with CUDA's results; __ldg and
+//     make_float4, __fmul_rn and __fadd_rn are builtins with CUDA's results
+//     (compile with -ffp-contract=off); __ldg and
 //     __ldcs are plain loads, __stcs a plain store;
 //   - mul_ftz and add_ftz stand in for the inline-PTX mul/add.rn.ftz.f32
 //     helpers of csrc/exact_async.cuh: one IEEE f32
@@ -113,6 +114,7 @@ inline void __stcs(T* p, T v) {
   *p = v;
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 
 inline float eal_shim_flush(float x) {
   return std::fabs(x) < 0x1p-126f ? std::copysign(0.0f, x) : x;

@@ -271,6 +271,23 @@ carried on) at B = 256 and 2048. It holds each exact variant to
 every granule step of the checks of ``--mp3f32`` (``mp3mxu.mxu_run`` with
 the rest of each step plain, the run continuing from the kernel's results).
 
+``--quantize16``: the quantize-and-pack kernel (``pcm_quantize16.cu``,
+built alone):
+
+  as_is       the sources unchanged (1024 threads, 4 frames in flight each);
+  u2, u8      2 or 8 frames in flight a thread instead of 4;
+  t256, t512  blocks of 256 (the first design) or 512 threads instead of
+              1024; ``t256_u8``, ``t512_u8``: with 8 frames in flight;
+  streaming   evict-first loads (``__ldcs``) and streaming stores
+              (``__stcs``); ``ldcs``, ``stcs``: one of the two.
+
+It times one launch (CUDA events, mean of 40 direct launches after 2
+warm-ups, queued behind a sleeping kernel, in turns) at both cells' chunks,
+[2048, 2, 2981] and [2048, 2, 22587], on chip_smoke.py phase 9b's samples,
+beside the bytes bound (``chip_smoke.quantize16_bytes``), and holds every
+variant to ``quantize_pack16_plain`` byte for byte there and on
+``chip_smoke.quantize16_cases``.
+
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/kernel_variants.py [--variants as_is one_pass ...]
@@ -289,6 +306,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
         [--mxu-pre-parent build/pr16/mp3_mxu_step.cu --parent-probes no_fifo]
     python3 tools/kernel_variants.py --mxu-post [--variants ...] \
         [--mxu-post-parent build/parent/mp3_mxu_step.cu --parent-probes no_pcm no_fifo]
+    python3 tools/kernel_variants.py --quantize16 [--variants as_is t256 ...]
 
 The last line is one JSON object with the means.
 """
@@ -624,6 +642,33 @@ MXU_POST_PARENT_PROBES = {
                  "for (int e = threadIdx.x; e < 0; e += POST_THREADS)\n")],
 }
 MXU_POST_SASS_KERNEL = "mp3_mxu_post_kernel"
+
+_Q_THREADS, _Q_UNROLL = "constexpr int THREADS = 1024;", "constexpr int UNROLL = 4;"
+
+
+def _q(threads=None, unroll=None):
+    """Edits of pcm_quantize16.cu's block shape: threads a block and frames
+    in flight a thread."""
+    return ([(_Q_THREADS, f"constexpr int THREADS = {threads};")] if threads else []) + \
+        ([(_Q_UNROLL, f"constexpr int UNROLL = {unroll};")] if unroll else [])
+
+
+_Q_LDCS = [("l[u] = t < T ? __ldg(left + t) : 0.0f;", "l[u] = t < T ? __ldcs(left + t) : 0.0f;"),
+           ("r[u] = t < T ? __ldg(right + t) : 0.0f;", "r[u] = t < T ? __ldcs(right + t) : 0.0f;")]
+_Q_STCS = [("row[t] = word;", "__stcs(row + t, word);")]
+QUANT16_VARIANTS = {
+    "as_is": [],
+    "u2": _q(unroll=2),
+    "u8": _q(unroll=8),
+    "t256": _q(threads=256),
+    "t256_u8": _q(threads=256, unroll=8),
+    "t512": _q(threads=512),
+    "t512_u8": _q(threads=512, unroll=8),
+    "streaming": _Q_LDCS + _Q_STCS,
+    "ldcs": _Q_LDCS,
+    "stcs": _Q_STCS,
+}
+QUANT16_SASS_KERNEL = "quantize_pack16_kernel"
 
 def make_variant(name: str, target: str, edits, sources, replace_with=None) -> Path:
     """``sources`` copied into build/variants/<name>/, then ``target`` (there)
@@ -1488,6 +1533,51 @@ def mxu_post_main(args, card: str) -> None:
                       "variants": means}))
 
 
+def quantize16_main(args, card: str) -> None:
+    """--quantize16: the quantize-and-pack kernel's variants at both cells'
+    chunk shapes, byte for byte against the plain version."""
+    from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
+    names = list(QUANT16_VARIANTS) if args.variants is None else args.variants
+    src = kernels.CSRC / "pcm_quantize16.cu"
+    dirs = {name: make_variant(f"quantize16_{name}", src.name, QUANT16_VARIANTS[name], [src])
+            for name in names}
+    libs = build_all(dirs, ("eal_quantize_pack16",))
+    report_libs(libs, dirs, QUANT16_SASS_KERNEL)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    shapes = {}
+    for key, T in (("down", 2981), ("up", 22587)):
+        x = torch.empty((cs.BATCH, 2, T), device="cuda").uniform_(-1.06, 1.06, generator=gen)
+        shapes[key] = (x, T - 8, qk.quantize_pack16_plain(x, T - 8))
+
+    def row_of(lib):
+        def quantize(x, g, out, clips):
+            B, _, T = x.shape
+            rc = lib.eal_quantize_pack16(x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(),
+                                         out.stride(0) // 4, clips.data_ptr(), B, T, min(g, T),
+                                         torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"eal_quantize_pack16: cudaError {rc}")
+        row = {"cases_exact": float(cs.quantize16_mismatches(
+            quantize, cs.quantize16_cases("cuda")) == [])}
+        for key, (x, g, (want, want_clips)) in shapes.items():
+            T = x.shape[-1]
+            out = torch.empty((cs.BATCH, T * 4), dtype=torch.uint8, device="cuda")
+            clips = torch.empty(cs.BATCH, dtype=torch.int64, device="cuda")
+            quantize(x, g, out, clips)
+            row[f"{key}_exact"] = float(torch.equal(out, want) and torch.equal(clips, want_clips))
+            ms = cs.cuda_time_queued(lambda: quantize(x, g, out, clips), iters=40)
+            row[f"{key}_ms"] = ms
+            row[f"{key}_share"] = cs.quantize16_bytes(cs.BATCH, T) / cs.PEAK_BYTES * 1e3 / ms
+        return row
+
+    means = timed_turns(libs, row_of)
+    for name, m in means.items():
+        print(f"{name}: down {m['down_ms']:.4f} ms ({m['down_share']:.1%} of the bound), up "
+              f"{m['up_ms']:.4f} ms ({m['up_share']:.1%}), byte-exact "
+              f"{min(m['cases_exact'], m['down_exact'], m['up_exact']) == 1.0} (means of 2 turns)")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "variants": means}))
+
+
 def sm_clock(launch, seconds: float = 1.5) -> str:
     """The SM clock (nvidia-smi, sampled every 50 ms) while ``launch()``
     runs back to back for ``seconds``: median and range in MHz, to turn a
@@ -1552,6 +1642,8 @@ def main() -> None:
     ap.add_argument("--mxu-post-parent", type=Path, nargs="+", default=[],
                     help="with --mxu-post: earlier mp3_mxu_step.cu files, each timed as a "
                          "variant named by its directory")
+    ap.add_argument("--quantize16", action="store_true",
+                    help="the quantize-and-pack kernel's variants at both cells' chunk shapes")
     ap.add_argument("--parent-probes", nargs="+", default=[],
                     choices=sorted(set(PR4_PROBES) | set(FLAC_PARENT_PROBES)
                                    | set(MP3_PARENT_PROBES) | set(DOT_PARENT_PROBES)
@@ -1564,7 +1656,8 @@ def main() -> None:
                     choices=sorted(set(VARIANTS) | set(BIQUAD_VARIANTS) | set(EXACT_VARIANTS)
                                    | set(FLAC_VARIANTS) | set(MP3_VARIANTS)
                                    | set(DOT_VARIANTS) | set(MP3F32_VARIANTS)
-                                   | set(MXU_PRE_VARIANTS) | set(MXU_POST_VARIANTS)))
+                                   | set(MXU_PRE_VARIANTS) | set(MXU_POST_VARIANTS)
+                                   | set(QUANT16_VARIANTS)))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
@@ -1596,6 +1689,9 @@ def main() -> None:
         return
     if args.mxu_post:
         mxu_post_main(args, card)
+        return
+    if args.quantize16:
+        quantize16_main(args, card)
         return
     names = args.variants or list(VARIANTS)
     sources = list(kernels.CSRC.glob("*.cu")) + list(kernels.CSRC.glob("*.cuh"))
