@@ -607,11 +607,14 @@ class Resampler:
                     xext[..., hist_from:hist_from + hist_len].clone())
 
         xext, new_hist = _each(extend, chunk, hist)
-        Wt, starts = banded_weights_device(
-            self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
-        out = self._poly()(xext, Wt, starts, T=out_max)
+        with span("eal.weights"):
+            Wt, starts = banded_weights_device(
+                self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
+        with span("eal.polyphase"):
+            out = self._poly()(xext, Wt, starts, T=out_max)
         if self.post_filter:
-            out, oh = self._conv_post(out, oh, gen, out_max)
+            with span("eal.post"):
+                out, oh = self._conv_post(out, oh, gen, out_max)
         _each(lambda o, p, c: self._quantize(o, gen, p, c), out, packed, clips)
         return new_hist, oh
 

@@ -1,6 +1,7 @@
 """The port's spans (``runtime/trace.py``): a shared no-op with no profiler
 running, and under a CPU ``torch.profiler.profile`` the layer spans of the
-exact resampler, each nested in time inside its call's span."""
+exact resampler and of its fast tier, each nested in time inside its call's
+span."""
 
 import functools
 
@@ -15,8 +16,8 @@ FRAMES, CHUNKS = 256, 3
 RATES = {"down": (44100.0, 16000.0), "up": (16000.0, 44100.0)}
 
 
-def _resampler(direction: str) -> Resampler:
-    r = Resampler(4, exact=True, device="cpu")
+def _resampler(direction: str, exact: bool = True) -> Resampler:
+    r = Resampler(4, exact=exact, device="cpu")
     r.initialize(ResamplerConfiguration(*RATES[direction], 16, 16, 2, True, True, 64, 32))
     return r
 
@@ -41,9 +42,9 @@ def test_span_without_profiler_is_one_shared_noop(monkeypatch):
 
 
 @functools.lru_cache(None)
-def _traced(direction: str, method: str):
+def _traced(direction: str, method: str, exact: bool = True):
     """The host events ``(start_ns, end_ns, name)`` of one traced call."""
-    r = _resampler(direction)
+    r = _resampler(direction, exact)
     data = _pcm(FRAMES * CHUNKS)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         if method == "resample_stream":
@@ -62,7 +63,23 @@ def _traced(direction: str, method: str):
 def test_call_emits_layer_spans_inside_its_span(direction, method, name, per_call, per_chunk):
     """One call span (``eal.<method>``) holds ``per_call`` + ``per_chunk``
     per chunk of the spans ``name``; the plain kernels launch nothing."""
-    events = _traced(direction, method)
+    _assert_spans(_traced(direction, method), method, name, per_call, per_chunk)
+
+
+@pytest.mark.parametrize("name, per_chunk", [
+    ("eal.weights", {"down": 1, "up": 1}), ("eal.polyphase", {"down": 1, "up": 1}),
+    ("eal.post", {"down": 0, "up": 1}), ("eal.unpack", {"down": 1, "up": 1}),
+    ("eal.quantize", {"down": 1, "up": 1}), ("eal.biquad", {"down": 0, "up": 0})])
+@pytest.mark.parametrize("method", ["resample_stream", "resample"])
+@pytest.mark.parametrize("direction", ["down", "up"])
+def test_fast_call_emits_layer_spans_inside_its_span(direction, method, name, per_chunk):
+    """The fast tier's call span holds, per chunk, one weight build and one
+    banded contraction, the post-filter conv only when upsampling, and no
+    biquad (its filters are folded into the banded weights)."""
+    _assert_spans(_traced(direction, method, exact=False), method, name, 0, per_chunk[direction])
+
+
+def _assert_spans(events, method: str, name: str, per_call: int, per_chunk: int) -> None:
     calls = [e for e in events if e[2] == f"eal.{method}"]
     assert len(calls) == 1
     (cs, ce, _), = calls
