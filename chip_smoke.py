@@ -430,14 +430,12 @@ def chunk_operands(r, data_dev):
 
     from esp_audio_libs_tpu_torch.ops import quantization as q
     from esp_audio_libs_tpu_torch.ops.polyphase import banded_weights_device
-    from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
     out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
-    g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
-                   r.sample_ratio, FRAMES, out_max)
+    (grid_t,), (gen,), _ = r._schedule(dataclasses.replace(r.phase), FRAMES, out_max, 1)
     L = r._slab_len(FRAMES)
-    Wt, starts = banded_weights_device(r._filters, r._direct, *r._device_grids([g], out_max)[0],
-                                       g.output_generated, K=r._K, taps_p=r._taps_p, L=L)
+    Wt, starts = banded_weights_device(r._filters, r._direct, *grid_t, gen,
+                                       K=r._K, taps_p=r._taps_p, L=L)
     raw = q.unpack_pcm16_planar2_raw(data_dev[:, : FRAMES * 4])
     raw = F.pad(torch.cat([torch.zeros_like(raw[..., : r.hist_len]), raw], -1),
                 (0, L - r.hist_len - FRAMES))
@@ -823,7 +821,6 @@ def biquad_operands(data):
     import torch
 
     from esp_audio_libs_tpu_torch.ops import quantization as q
-    from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
     factor = q.gain_factor(16, 0.0)
     ops = {}
@@ -835,11 +832,9 @@ def biquad_operands(data):
         vl = None
         if key == "upsample":
             out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
-            g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters,
-                           r.bank_flags, r.sample_ratio, FRAMES, out_max)
-            x = r._exact_chunk(x, r.history, r._biquad_states(), r._exact_grids([g], out_max)[0],
+            (grid_t,), (vl,), _ = r._schedule(dataclasses.replace(r.phase), FRAMES, out_max, 1)
+            x = r._exact_chunk(x, r.history, r._biquad_states(), grid_t,
                                hist_from=FRAMES)[0].contiguous()
-            vl = g.output_generated
         zero = tuple(torch.zeros(x.shape[:-1], device="cuda") for _ in range(4))
         ops[key] = (x, r._coeffs_dev, zero, vl)
     return ops
@@ -907,7 +902,6 @@ def polyphase_operands(data, main_input=None):
     from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
     from esp_audio_libs_tpu_torch.ops import quantization as q
     from esp_audio_libs_tpu_torch.ops import sinc
-    from esp_audio_libs_tpu_torch.runtime.phase_grid import phase_grid
 
     factor = q.gain_factor(16, 0.0)
     ops = {}
@@ -924,11 +918,10 @@ def polyphase_operands(data, main_input=None):
             for stage in range(2):
                 x, states[stage] = bk.biquad_df1_cuda(x, r._coeffs_dev, states[stage])
         out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
-        g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
-                       r.sample_ratio, FRAMES, out_max)
+        (grid_t,), _, _ = r._schedule(dataclasses.replace(r.phase), FRAMES, out_max, 1)
         xext = torch.cat([torch.zeros((*x.shape[:-1], r.hist_len), device="cuda"), x], dim=-1)
         ops[key] = (xext.reshape(-1, xext.shape[-1]).contiguous(), r._filters,
-                    r._exact_grids([g], out_max)[0], r.config.number_of_taps // 2,
+                    grid_t, r.config.number_of_taps // 2,
                     bool(r.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
     return ops
 

@@ -33,7 +33,12 @@ kernels per shard. The JAX package's ``mesh`` argument does the same with
 ``jax.sharding``.
 
 The host runs only the f32 phase-grid control plane; all per-stream state
-lives in tensors on the Resampler's device.
+lives in tensors on the Resampler's device. The schedule depends only on the
+configuration, the chunk counts and the carried phase, so once a call of
+``resample_stream`` repeats the shape of the call before, it also builds the
+next call's schedule and starts its upload after issuing its own device
+work, while the card still runs it; the next call takes it over when its
+key still matches (:meth:`Resampler.resample_stream`).
 """
 
 from __future__ import annotations
@@ -141,6 +146,84 @@ def _each(fn, *args):
     return _join([fn(*_shard_view(args, i)) for i in range(mesh.size)], mesh)
 
 
+class _ScheduleStage:
+    """Where a call's schedule is built and uploaded: one reused host buffer
+    (pinned on a card) that the rows are written into, and two device slots
+    that it is uploaded into in turn, so that an upload never lands in the
+    slot that the latest schedule's call reads. Each buffer grows to the
+    largest schedule it has held.
+
+    On a card the upload runs on a stream of its own, so that it overlaps
+    the work already queued; the current stream then waits for it, so that
+    work issued later, and the call's own synchronise, come after it. An
+    upload into a slot waits for the work that was issued before the
+    previous upload: it holds every reader of that slot."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.slot = 1               # the slot of the latest upload
+        self._host = None           # (int32, f32) flat host buffers
+        self._slots = [None, None]  # (int32, f32) flat device buffers
+        self._stream = None
+        self._copied = None         # the latest upload's completion
+        self._issued = None         # the work issued before the latest upload
+
+    def host(self, chunks: int, width: int):
+        """Views ``[chunks, 4, width]`` int32 and ``[chunks, width]`` f32 of
+        the host buffer, once the latest upload from it has completed."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        n = chunks * width
+        if self._host is None or self._host[1].numel() < n:
+            self._host = (torch.empty(4 * n, dtype=torch.int32, pin_memory=self.cuda),
+                          torch.empty(n, dtype=torch.float32, pin_memory=self.cuda))
+        gi, gw = self._host
+        return (gi[:4 * n].numpy().reshape(chunks, 4, width),
+                gw[:n].numpy().reshape(chunks, width))
+
+    def upload(self, chunks: int, width: int):
+        """Copy the host buffer's first ``chunks`` rows into the next slot.
+        Returns its device views, shaped as :meth:`host`'s."""
+        s = self.slot = self.slot ^ 1
+        n = chunks * width
+        fresh = self._slots[s] is None or self._slots[s][1].numel() < n
+        if fresh:
+            self._slots[s] = (torch.empty(4 * n, dtype=torch.int32, device=self.device),
+                              torch.empty(n, dtype=torch.float32, device=self.device))
+        (hi, hw), (di, dw) = self._host, self._slots[s]
+        pairs = ((di[:4 * n], hi[:4 * n]), (dw[:n], hw[:n]))
+        if not self.cuda:
+            for dst, src in pairs:
+                dst.copy_(src)
+        else:
+            cur = torch.cuda.current_stream(self.device)
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            if fresh:   # a new block is free in the current stream's order only
+                self._stream.wait_stream(cur)
+            elif self._issued is not None:
+                self._stream.wait_event(self._issued)
+            self._issued = cur.record_event()
+            with torch.cuda.stream(self._stream):
+                for dst, src in pairs:
+                    dst.copy_(src, non_blocking=True)
+            self._copied = self._stream.record_event()
+            cur.wait_event(self._copied)
+        return di[:4 * n].view(chunks, 4, width), dw[:n].view(chunks, width)
+
+
+@dataclasses.dataclass
+class _Prefetch:
+    """A schedule built ahead for the next call: its key, the per-chunk
+    device tuples, the generated counts and the phase after it."""
+
+    key: tuple
+    grids: list
+    gens: list
+    phase: PhaseState
+
+
 def _chunk_of(buf, c: int):
     """Chunk ``c`` of a ``[chunks, B, ...]`` output buffer; of one split along
     the stream axis 1, the shards' chunk ``c``, split along axis 0."""
@@ -180,6 +263,11 @@ class Resampler:
         self.batch = batch
         self.exact = exact
         self._initialized = False
+        self._stage = _ScheduleStage(self.device)
+        self._prefetch = None
+        self._last_shape = None
+        self.schedule_hits = 0
+        self.schedule_misses = 0
 
     def _on(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
         """A constant tensor of this instance on ``dev``: itself on its own
@@ -223,6 +311,8 @@ class Resampler:
     def initialize(self, config: ResamplerConfiguration) -> bool:
         """Reference Resampler::initialize (resampler.cpp:21-98)."""
         f32 = np.float32
+        self._prefetch = None
+        self._last_shape = None
         self.config = config
         self.input_bits = config.source_bits_per_sample
         self.output_bits = config.target_bits_per_sample
@@ -362,6 +452,7 @@ class Resampler:
             raise RuntimeError("Resampler.initialize() first")
         as_dev = lambda a: place(torch.as_tensor(np.array(a, np.float32), device=self.device),
                                  self.mesh)
+        self._prefetch = None
         if self.requires_resampling:
             self.phase.offset = np.float32(st["phase_offset"])
             self.phase.input_index = int(st["phase_input_index"])
@@ -423,14 +514,12 @@ class Resampler:
             # compute the schedule on a SCRATCH phase and commit it only after
             # the device work was issued without error: phase_grid advances its
             # state in place, and a failed call must leave self.phase aligned
-            # with the carried history
+            # with the carried history. The frame count is the caller's: the
+            # schedule is built here, never ahead.
             with span("eal.schedule"):
+                self._prefetch = None
                 phase = dataclasses.replace(self.phase)
-                grid = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
-                                  self.sample_ratio, frames, output_frames_free)
-                grid_t = (self._exact_grids if self.exact else self._device_grids)(
-                    [grid], output_frames_free)[0]
-            gen = grid.output_generated
+                (grid_t,), (gen,), used = self._schedule(phase, frames, output_frames_free, 1)
             # gen is host-known: quantize only the generated samples, as the
             # reference does
             packed, clips = self._outputs((), gen * ch * q.bytes_per_sample(self.output_bits))
@@ -438,7 +527,7 @@ class Resampler:
                 # and post-filter only them
                 def step(d, hist, states, p, c):
                     out, hist, states = self._exact_chunk(self._unpack(d, factor, frames), hist,
-                                                          states, grid_t, hist_from=grid.input_used)
+                                                          states, grid_t, hist_from=used)
                     if self.post_filter:
                         out, states = self._exact_post(out[..., :gen], states, None)
                     self._quantize(out, gen, p, c)
@@ -452,36 +541,81 @@ class Resampler:
             else:
                 history, post_hist = self._fast_chunk(
                     data, factor, self.history, self._post_hist, grid_t, gen, packed, clips,
-                    frames=frames, out_max=output_frames_free, hist_from=grid.input_used)
+                    frames=frames, out_max=output_frames_free, hist_from=used)
                 self.history, self._post_hist = history, post_hist
             self.phase = phase
             self._hist_gain_zero = gain_db == 0.0
             return packed, ResamplerResults(
-                frames_used=grid.input_used,
+                frames_used=used,
                 frames_generated=gen,
                 predicted_frames_used=frames,
                 clipped_samples=_clip_counts(clips),
             )
 
-    # ------------------------------------------------- exact-path pieces
-    def _exact_grids(self, grids, n: int):
-        """Per chunk, the raw grid tensors (win0 + hist_len, idx1, idx2,
-        weight, mode) of length ``n`` on the device, as the JAX package's
-        exact mode feeds them: entries past the generated count stay as the
-        phase grid leaves them (mode 0). All chunks ship in two transfers."""
-        gi = np.zeros((len(grids), 4, n), np.int32)
-        gw = np.zeros((len(grids), n), np.float32)
-        for c, g in enumerate(grids):
-            gi[c, 0] = g.win0[:n] + self.hist_len
-            gi[c, 1] = g.idx1[:n]
-            gi[c, 2] = g.idx2[:n]
-            gi[c, 3] = g.mode[:n]
-            gw[c] = g.weight[:n]
-        gi_d = torch.as_tensor(gi, device=self.device)
-        gw_d = torch.as_tensor(gw, device=self.device)
-        return [(gi_d[c, 0], gi_d[c, 1], gi_d[c, 2], gw_d[c], gi_d[c, 3])
-                for c in range(len(grids))]
+    # ------------------------------------------------------------ schedule
+    def _schedule(self, phase: PhaseState, frames: int, n: int, chunks: int, *,
+                  whole: bool = False):
+        """Build the schedules of ``chunks`` chunks of ``frames`` input and
+        ``n`` output frames from ``phase`` (advanced in place), straight into
+        the stage's host buffer, and upload them into its next slot.
+        ``whole``: every chunk must consume all its frames.
 
+        The layout is the kernels': exact mode takes each grid as generated
+        (win0 + hist_len; entries past the generated count as the phase grid
+        leaves them, mode 0); the fast tiers take rows padded to a tile
+        multiple, window starts shifted into xext coordinates, the pad
+        repeating the last window start. Returns (per chunk the device tuple
+        (win0, idx1, idx2, weight, mode), the generated counts, the frames
+        the last chunk used); the tuples view a slot that the upload after
+        the next one overwrites."""
+        width, shift = n, self.hist_len
+        if not self.exact:
+            width, shift = _ceil_to(n, TILE), self.hist_len - self._fold_offset
+        gi, gw = self._stage.host(chunks, width)
+        mode = np.empty(n, np.int8)
+        gens, used = [], frames
+        for c in range(chunks):
+            g = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
+                           self.sample_ratio, frames, n,
+                           out=(gi[c, 0, :n], gi[c, 1, :n], gi[c, 2, :n], gw[c, :n], mode))
+            # generous out_max guarantees every input sample is consumed
+            if whole and g.input_used != frames:
+                raise AssertionError((g.input_used, frames))
+            gi[c, 3, :n] = mode
+            gi[c, 0, :n] += shift
+            gi[c, 0, n:] = gi[c, 0, n - 1] if n else 0
+            gi[c, 1:, n:] = 0
+            gw[c, n:] = 0
+            gens.append(g.output_generated)
+            used = g.input_used
+        di, dw = self._stage.upload(chunks, width)
+        return [(di[c, 0], di[c, 1], di[c, 2], dw[c], di[c, 3]) for c in range(chunks)], gens, used
+
+    def _schedule_key(self, chunk_frames: int, num_chunks: int, out_max: int) -> tuple:
+        """What a stream call's schedule depends on, the carried phase by
+        its f32 bits."""
+        p = self.phase
+        return (np.float32(p.offset).tobytes(), p.input_index, p.num_taps,
+                self.config.number_of_filters, self.bank_flags,
+                np.float32(self.sample_ratio).tobytes(), chunk_frames, num_chunks, out_max,
+                self.exact, self.hist_len, self._fold_offset, self.device, self.mesh)
+
+    def _prefetch_next(self, chunk_frames: int, num_chunks: int, out_max: int) -> None:
+        """Build the schedule of a next call of this shape from the committed
+        phase and start its upload, while the card runs this call. A failed
+        build leaves no prefetch, and the next call then builds at its head
+        and raises there."""
+        try:
+            with span("eal.schedule"):
+                phase = dataclasses.replace(self.phase)
+                grids, gens, _ = self._schedule(phase, chunk_frames, out_max, num_chunks,
+                                                whole=True)
+        except Exception:
+            return
+        self._prefetch = _Prefetch(self._schedule_key(chunk_frames, num_chunks, out_max),
+                                   grids, gens, phase)
+
+    # ------------------------------------------------- exact-path pieces
     def _biquad_states(self) -> list:
         """The carried states of the two biquad stages ([] without a filter)."""
         return list(self._biquad_state) if (self.pre_filter or self.post_filter) else []
@@ -521,26 +655,6 @@ class Resampler:
         return out, states
 
     # -------------------------------------------------- fast-path pieces
-    def _device_grids(self, grids, out_len: int):
-        """Per chunk, the grid tensors (win0x, idx1, idx2, weight, mode) on
-        the device: padded to a tile multiple, window starts shifted into
-        xext coordinates. All chunks ship in two transfers (one int32 and
-        one f32 array), whatever their number."""
-        T = _ceil_to(out_len, TILE)
-        gi = np.zeros((len(grids), 4, T), np.int32)
-        gw = np.zeros((len(grids), T), np.float32)
-        for c, g in enumerate(grids):
-            gi[c, 0, :out_len] = g.win0[:out_len] + (self.hist_len - self._fold_offset)
-            gi[c, 0, out_len:] = gi[c, 0, out_len - 1] if out_len else 0
-            gi[c, 1, :out_len] = g.idx1[:out_len]
-            gi[c, 2, :out_len] = g.idx2[:out_len]
-            gi[c, 3, :out_len] = g.mode[:out_len]
-            gw[c, :out_len] = g.weight[:out_len]
-        gi_d = torch.as_tensor(gi, device=self.device)
-        gw_d = torch.as_tensor(gw, device=self.device)
-        return [(gi_d[c, 0], gi_d[c, 1], gi_d[c, 2], gw_d[c], gi_d[c, 3])
-                for c in range(len(grids))]
-
     def _slab_len(self, frames: int) -> int:
         """xext's padded time length: at least one slab, a multiple of 128."""
         return _ceil_to(max(self.hist_len + frames, self._K), TILE)
@@ -626,7 +740,12 @@ class Resampler:
         The host precomputes the phase grids of all chunks up front (they
         are data-independent) and ships them in one transfer; the chunk loop
         then issues device work only, carrying the history (and post-filter
-        tail) on the device.
+        tail) on the device. When this call's shape repeats the call
+        before's, it then builds the schedule of a next call of the same
+        shape from the committed phase, before the clip counts' synchronise,
+        so the card runs this call meanwhile; the next call takes it over
+        (``eal.schedule.hit``, ``schedule_hits``) when its key matches, and
+        builds at its head otherwise (``schedule_misses``).
 
         Args:
           input_bytes: uint8 ``[batch, >= num_chunks*chunk_frames*ch*bps]``,
@@ -647,19 +766,18 @@ class Resampler:
 
             # schedules compute on a SCRATCH phase, committed only after the
             # device work was issued (retry-safety, like _hist_gain_zero)
-            with span("eal.schedule"):
-                phase = dataclasses.replace(self.phase)
-                host_grids = []
-                for _ in range(num_chunks):
-                    g = phase_grid(phase, self.config.number_of_filters, self.bank_flags,
-                                   self.sample_ratio, chunk_frames, out_max)
-                    # generous out_max guarantees every input sample is consumed
-                    if g.input_used != chunk_frames:
-                        raise AssertionError((g.input_used, chunk_frames))
-                    host_grids.append(g)
-                grids = (self._exact_grids if self.exact else self._device_grids)(host_grids,
-                                                                                  out_max)
-            gens = [g.output_generated for g in host_grids]
+            pre, self._prefetch = self._prefetch, None
+            if pre is not None and pre.key == self._schedule_key(chunk_frames, num_chunks,
+                                                                 out_max):
+                with span("eal.schedule.hit"):
+                    grids, gens, phase = pre.grids, pre.gens, pre.phase
+                self.schedule_hits += 1
+            else:
+                self.schedule_misses += 1
+                with span("eal.schedule"):
+                    phase = dataclasses.replace(self.phase)
+                    grids, gens, _ = self._schedule(phase, chunk_frames, out_max, num_chunks,
+                                                    whole=True)
 
             bps_in = q.bytes_per_sample(self.input_bits)
             factor = q.gain_factor(self.input_bits, gain_db)
@@ -691,6 +809,9 @@ class Resampler:
             self.history = history
             self.phase = phase
             self._hist_gain_zero = gain_db == 0.0
+            shape, self._last_shape = self._last_shape, (chunk_frames, num_chunks)
+            if shape == self._last_shape:
+                self._prefetch_next(chunk_frames, num_chunks, out_max)
             return packed, gens, _clip_counts(clips)
 
     def _exact_stream(self, chunks, grids, gens, slabs, factor, frames: int):

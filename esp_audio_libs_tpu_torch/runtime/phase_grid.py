@@ -25,6 +25,9 @@ __all__ = ["HISTORY_MARGIN", "PhaseState", "PhaseGrid", "phase_grid",
 # asserted per chunk.
 HISTORY_MARGIN = 8
 
+# the dtypes of a grid's win0, idx1, idx2, weight and mode
+_DTYPES = (np.int32, np.int32, np.int32, np.float32, np.int8)
+
 
 @dataclasses.dataclass
 class PhaseState:
@@ -77,14 +80,21 @@ def phase_grid(
     ratio: float,
     num_input_frames: int,
     num_output_frames: int,
+    out=None,
 ) -> PhaseGrid:
-    """Generate the schedule for one chunk, advancing ``state`` in place."""
+    """Generate the schedule for one chunk, advancing ``state`` in place.
+
+    ``out``: optional ``(win0, idx1, idx2, weight, mode)`` arrays to write
+    the schedule into instead of fresh ones: each contiguous, of length
+    ``num_output_frames``, int32, int32, int32, f32 and int8. Entries past
+    the generated count are zeroed, as in fresh arrays."""
     n = int(num_output_frames)
-    win0 = np.zeros(n, np.int32)
-    idx1 = np.zeros(n, np.int32)
-    idx2 = np.zeros(n, np.int32)
-    weight = np.zeros(n, np.float32)
-    mode = np.zeros(n, np.int8)
+    if out is None:
+        out = tuple(np.zeros(n, t) for t in _DTYPES)
+    elif any(a.dtype != t or a.shape != (n,) or not a.flags.c_contiguous
+             for a, t in zip(out, _DTYPES)):
+        raise ValueError(f"phase_grid: out must be contiguous {_DTYPES} arrays of length {n}")
+    win0, idx1, idx2, weight, mode = out
     off = C.c_float(float(state.offset))
     idx = C.c_int32(state.input_index)
     used = C.c_int32(0)
@@ -103,6 +113,8 @@ def phase_grid(
     state.offset = np.float32(off.value)
     state.input_index = idx.value
     g = gen.value
+    for a in out:
+        a[g:] = 0
     if g and win0[:g].min() < -(state.num_taps + HISTORY_MARGIN):
         raise AssertionError("phase grid window reached past history margin")
     return PhaseGrid(used.value, g, win0, idx1, idx2, weight, mode)

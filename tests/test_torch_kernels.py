@@ -260,12 +260,10 @@ def _chunk_operands(batch: int, frames: int):
     data = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, frames * 4), dtype=np.uint8))
     out_max = math.ceil(frames * float(r.sample_ratio)) + 8
-    g = phase_grid(dataclasses.replace(r.phase), r.config.number_of_filters, r.bank_flags,
-                   r.sample_ratio, frames, out_max)
+    (grid_t,), (gen,), _ = r._schedule(dataclasses.replace(r.phase), frames, out_max, 1)
     L = r._slab_len(frames)
-    Wt, starts = tpoly.banded_weights_device(r._filters, r._direct,
-                                             *r._device_grids([g], out_max)[0],
-                                             g.output_generated, K=r._K, taps_p=r._taps_p, L=L)
+    Wt, starts = tpoly.banded_weights_device(r._filters, r._direct, *grid_t, gen,
+                                             K=r._K, taps_p=r._taps_p, L=L)
     raw = q.unpack_pcm16_planar2_raw(data)
     raw = torch.nn.functional.pad(torch.cat([torch.zeros_like(raw[..., :r.hist_len]), raw], -1),
                                   (0, L - r.hist_len - frames))

@@ -1,7 +1,8 @@
 """The port's spans (``runtime/trace.py``): a shared no-op with no profiler
 running, and under a CPU ``torch.profiler.profile`` the layer spans of the
 exact resampler and of its fast tier, each nested in time inside its call's
-span."""
+span, with the schedule built at the head of a shape's first two calls and
+taken over from the call before from the third on."""
 
 import functools
 
@@ -42,10 +43,13 @@ def test_span_without_profiler_is_one_shared_noop(monkeypatch):
 
 
 @functools.lru_cache(None)
-def _traced(direction: str, method: str, exact: bool = True):
-    """The host events ``(start_ns, end_ns, name)`` of one traced call."""
+def _traced(direction: str, method: str, exact: bool = True, calls_before: int = 0):
+    """The host events ``(start_ns, end_ns, name)`` of one traced call, made
+    after ``calls_before`` untraced calls of the same shape."""
     r = _resampler(direction, exact)
     data = _pcm(FRAMES * CHUNKS)
+    for _ in range(calls_before):
+        r.resample_stream(data, FRAMES, CHUNKS)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         if method == "resample_stream":
             r.resample_stream(data, FRAMES, CHUNKS)
@@ -77,6 +81,27 @@ def test_fast_call_emits_layer_spans_inside_its_span(direction, method, name, pe
     banded contraction, the post-filter conv only when upsampling, and no
     biquad (its filters are folded into the banded weights)."""
     _assert_spans(_traced(direction, method, exact=False), method, name, 0, per_chunk[direction])
+
+
+@pytest.mark.parametrize("calls_before, builds, hits", [(1, 2, 0), (2, 1, 1), (4, 1, 1)])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("direction", ["down", "up"])
+def test_stream_call_takes_over_the_schedule_built_before(direction, exact, calls_before,
+                                                          builds, hits):
+    """The second call of a shape builds its schedule at its head and the
+    next call's at its tail: two ``eal.schedule``, no hit. Each later call
+    takes its schedule over at its head (``eal.schedule.hit``, before the
+    first chunk) and builds the next one after its last chunk. All inside
+    the call span."""
+    events = _traced(direction, "resample_stream", exact, calls_before)
+    _assert_spans(events, "resample_stream", "eal.schedule", builds, 0)
+    _assert_spans(events, "resample_stream", "eal.schedule.hit", hits, 0)
+    chunk_spans = [s for s, _, n in events if n in ("eal.unpack", "eal.quantize")]
+    tail = max(s for s, _, n in events if n == "eal.schedule")
+    assert tail > max(chunk_spans)
+    if hits:
+        (head, _, _), = [e for e in events if e[2] == "eal.schedule.hit"]
+        assert head < min(chunk_spans)
 
 
 def _assert_spans(events, method: str, name: str, per_call: int, per_chunk: int) -> None:
