@@ -61,11 +61,11 @@ Phases, each printing a line:
                bytes) second- and first-order, with valid_len, as iir2, and
                with a burst followed by silence whose tail decays through
                the subnormal range, and on the exact upsampling post-filter
-               chunk (16 -> 44.1 kHz at batch 256: the first chunk's
-               polyphase output [256, 2, 22588] with valid_len = its
-               generated count); the exact polyphase kernel on the main
+               chunk (16 -> 44.1 kHz at batch 2048, the up cell's shape: the
+               first chunk's polyphase output [2048, 2, 22588] with valid_len
+               = its generated count); the exact polyphase kernel on the main
                chunk's real operands ([4096, 8264] -> 2981 outputs, its last
-               tile ragged) and on the exact upsampling chunk's ([512, 8264]
+               tile ragged) and on the exact upsampling chunk's ([4096, 8264]
                -> 22588), each with and without the second dot and on 13
                rows. Times (CUDA events) of direct launches through the C
                entry points, operands prepared once, beside one wrapper call
@@ -83,9 +83,10 @@ Phases, each printing a line:
                8192, 8) on the phase-4 bytes, its packed bytes, counts and
                state equal to a CPU run of the plain path on 8 streams, with
                its launches asserted (2 biquad, 1 polyphase_exact and 1
-               quantize_pack16 per chunk); the same for 16 kHz -> 44.1 kHz at batch 256 (the
-               post-filter runs with valid_len); BatchedResample((2048, 2),
-               exact=True).process on one 8192-sample chunk; the
+               quantize_pack16 per chunk); the same for 16 kHz -> 44.1 kHz at
+               batch 2048 (the post-filter runs with valid_len);
+               BatchedResample((2048, 2), exact=True).process on one
+               8192-sample chunk; the
                biquad_cascade_2x_stereo configuration of bench_all.py (2048 x
                stereo x 65536, lowpass 0.18) in the conv form and through
                the exact kernel, held to each other at rtol 1e-4 / atol 1e-5.
@@ -808,33 +809,54 @@ def same_bits(a, b) -> bool:
     return torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
 
 
-def biquad_operands(data):
-    """The exact biquad's real launches: the main pre-filter chunk
-    ([2048, 2, 8192] from the phase-4 bytes, zero state) and the exact
-    upsampling post-filter chunk (16 kHz -> 44.1 kHz at batch 256: the first
-    chunk's polyphase output [256, 2, out_max] with valid_len = its
-    generated count, as ``Resampler._exact_stream`` launches it), each with
-    its resampler's coefficients. Returns {shape: (x, coeffs, state,
-    valid_len)}."""
+def exact_chunk_launches(src, dst, batch, data):
+    """The first chunk of a fresh exact stream (the first ``FRAMES`` frames
+    of ``data``'s first ``batch`` streams) through the resampler's own chunk
+    body, ``Resampler._exact_chunk``, with the operands it hands to the
+    biquad and the polyphase kernels recorded. Returns (the resampler, (x,
+    valid_len) of each biquad launch, (xext, grid) of each polyphase
+    launch)."""
     import dataclasses
 
     import torch
 
+    from esp_audio_libs_tpu_torch.models import resampler as rm
     from esp_audio_libs_tpu_torch.ops import quantization as q
 
-    factor = q.gain_factor(16, 0.0)
+    r = make_resampler(src, dst, batch, "cuda", exact=True)
+    out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
+    (grid_t,), (gen,), _ = r._schedule(dataclasses.replace(r.phase), FRAMES, out_max, 1)
+    packed, clips = r._outputs((), out_max * 4)
+    chunk = torch.as_tensor(data[:batch, : FRAMES * 4], device=r.device)
+    biquads, polys = [], []
+    real_b, real_p = rm.bq.biquad_apply, rm.polyphase_apply
+    rm.bq.biquad_apply = lambda x, c, s, **kw: (biquads.append((x, kw.get("valid_len")))
+                                               or real_b(x, c, s, **kw))
+    rm.polyphase_apply = lambda xe, fb, *g, **kw: polys.append((xe, g)) or real_p(xe, fb, *g, **kw)
+    try:
+        r._exact_chunk(chunk, (r.history, r._biquad_states()), grid_t, gen, packed, clips,
+                       hist_from=FRAMES, factor=q.gain_factor(16, 0.0), frames=FRAMES,
+                       T=out_max, out_max=out_max)
+    finally:
+        rm.bq.biquad_apply, rm.polyphase_apply = real_b, real_p
+    return r, biquads, polys
+
+
+def biquad_operands(data):
+    """The exact biquad's real launches: the main pre-filter chunk
+    ([2048, 2, 8192] from the phase-4 bytes, zero state) and the exact
+    upsampling post-filter chunk (16 kHz -> 44.1 kHz at batch 2048: the
+    first chunk's polyphase output [2048, 2, out_max] with valid_len = its
+    generated count), each the first launch of the resampler's chunk body
+    (:func:`exact_chunk_launches`), with its resampler's coefficients.
+    Returns {shape: (x, coeffs, state, valid_len)}."""
+    import torch
+
     ops = {}
     for key, src, dst, batch in (("main", 44100.0, 16000.0, BATCH),
-                                 ("upsample", 16000.0, 44100.0, 256)):
-        r = make_resampler(src, dst, batch, "cuda", exact=True)
-        x = r._unpack(torch.as_tensor(data[:batch, : FRAMES * 4], device="cuda"), factor,
-                      FRAMES).contiguous()
-        vl = None
-        if key == "upsample":
-            out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
-            (grid_t,), (vl,), _ = r._schedule(dataclasses.replace(r.phase), FRAMES, out_max, 1)
-            x = r._exact_chunk(x, r.history, r._biquad_states(), grid_t,
-                               hist_from=FRAMES)[0].contiguous()
+                                 ("upsample", 16000.0, 44100.0, BATCH)):
+        r, ((x, vl), *_), _ = exact_chunk_launches(src, dst, batch, data)
+        x = x.contiguous()
         zero = tuple(torch.zeros(x.shape[:-1], device="cuda") for _ in range(4))
         ops[key] = (x, r._coeffs_dev, zero, vl)
     return ops
@@ -886,42 +908,22 @@ def biquad_timing(x, c, state, valid_len):
     return ms, ms_wrapper, ms_one, nbytes, bound_ms, by, t_ops
 
 
-def polyphase_operands(data, main_input=None):
+def polyphase_operands(data):
     """The exact polyphase kernel's real launches: the main chunk (44.1 ->
     16 kHz at batch 2048: history + the chunk after the two exact
-    pre-filter stages, [4096, 8264] -> 2981 outputs; ``main_input`` is that
-    chunk before the stages, [2048, 2, 8192], unpacked from ``data`` when
-    None) and the exact upsampling chunk (16 -> 44.1 kHz at batch 256:
-    history + the unpacked chunk, [512, 8264] -> 22588 outputs), each the
-    first chunk of a fresh stream. Returns {shape: (xext [M, L], filters,
-    grid, half, compute_second)}."""
-    import dataclasses
-
-    import torch
-
-    from esp_audio_libs_tpu_torch.ops import biquad_kernels as bk
-    from esp_audio_libs_tpu_torch.ops import quantization as q
+    pre-filter stages, [4096, 8264] -> 2981 outputs) and the exact
+    upsampling chunk (16 -> 44.1 kHz at batch 2048: history + the unpacked
+    chunk, [4096, 8264] -> 22588 outputs), each the first chunk of a fresh
+    stream through the resampler's chunk body (:func:`exact_chunk_launches`).
+    Returns {shape: (xext [M, L], filters, grid, half, compute_second)}."""
     from esp_audio_libs_tpu_torch.ops import sinc
 
-    factor = q.gain_factor(16, 0.0)
     ops = {}
     for key, src, dst, batch in (("main", 44100.0, 16000.0, BATCH),
-                                 ("upsample", 16000.0, 44100.0, 256)):
-        r = make_resampler(src, dst, batch, "cuda", exact=True)
-        if key == "main" and main_input is not None:
-            x = main_input
-        else:
-            x = r._unpack(torch.as_tensor(data[:batch, : FRAMES * 4], device="cuda"), factor,
-                          FRAMES).contiguous()
-        if r.pre_filter:
-            states = r._biquad_states()
-            for stage in range(2):
-                x, states[stage] = bk.biquad_df1_cuda(x, r._coeffs_dev, states[stage])
-        out_max = math.ceil(FRAMES * float(r.sample_ratio)) + 8
-        (grid_t,), _, _ = r._schedule(dataclasses.replace(r.phase), FRAMES, out_max, 1)
-        xext = torch.cat([torch.zeros((*x.shape[:-1], r.hist_len), device="cuda"), x], dim=-1)
+                                 ("upsample", 16000.0, 44100.0, BATCH)):
+        r, _, ((xext, grid),) = exact_chunk_launches(src, dst, batch, data)
         ops[key] = (xext.reshape(-1, xext.shape[-1]).contiguous(), r._filters,
-                    grid_t, r.config.number_of_taps // 2,
+                    grid, r.config.number_of_taps // 2,
                     bool(r.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
     return ops
 
@@ -999,7 +1001,7 @@ def exact_kernels_phase(data):
     first = torch.tensor([0.3, 0.3, 0.0, -0.4, 0.0], device="cuda")
     burst = x.clone()
     burst[: BATCH // 2, :, 256:] = 0.0       # silence after a burst: the tail underflows
-    xu, cu, zu, gen = ops["upsample"]                                       # [256, 2, out_max]
+    xu, cu, zu, gen = ops["upsample"]                                      # [2048, 2, out_max]
     cases = [("second-order", x, c, zero, {}),
              ("first-order", x, first, zero, {"first_order": True}),
              ("valid_len 5000", x, c, zero, {"valid_len": 5000}),
@@ -1045,7 +1047,7 @@ def exact_kernels_phase(data):
     del ops, xu
 
     # the polyphase kernel on the main and the upsampling chunk's real operands
-    pops = polyphase_operands(data, main_input=x)
+    pops = polyphase_operands(data)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptime = {}
     for key, (xext, fb, grid, half, second) in pops.items():
@@ -1301,7 +1303,7 @@ def exact_phase(data):
     from esp_audio_libs_tpu_torch.ops import sinc
 
     main = exact_stream(44100.0, 16000.0, BATCH, data, "exact e2e 44.1k->16k")
-    up = exact_stream(16000.0, 44100.0, 256, data[:256], "exact upsample 16k->44.1k B=256")
+    up = exact_stream(16000.0, 44100.0, BATCH, data, f"exact upsample 16k->44.1k B={BATCH}")
 
     # BatchedResample on one chunk of the main path's pre-filtered-free input
     ratio = float(np.float32(np.float32(16000.0) / np.float32(44100.0)))

@@ -23,7 +23,7 @@
 // 0.131 ms, and the three mma.sync passes (10.8 M m16n8k8) account for about
 // 0.11 ms of it (tools/kernel_variants.py).
 //
-// The post-filter conv (Resampler._conv_post) uses this kernel with one
+// The post-filter conv (in Resampler._fast_chunk) uses this kernel with one
 // shared weight tile: wt_tile_stride = 0 (one set of band ranges).
 
 #include <cuda_runtime.h>

@@ -500,10 +500,11 @@ class Resampler:
                 frames = min(input_frames_available, output_frames_free)
 
             bps_in = q.bytes_per_sample(self.input_bits)
-            factor = q.gain_factor(self.input_bits, gain_db)
             data = _each(lambda d: d[:, : frames * ch * bps_in], self._to_device(input_bytes))
 
             if not self.requires_resampling:
+                factor = q.gain_factor(self.input_bits, gain_db)
+
                 def passthrough(d):
                     x = q.int_to_float(q.unpack_pcm(d, self.input_bits), factor)
                     samples, clipped = q.float_to_int(x, self.output_bits)
@@ -520,36 +521,16 @@ class Resampler:
                 self._prefetch = None
                 phase = dataclasses.replace(self.phase)
                 (grid_t,), (gen,), used = self._schedule(phase, frames, output_frames_free, 1)
-            # gen is host-known: quantize only the generated samples, as the
-            # reference does
-            packed, clips = self._outputs((), gen * ch * q.bytes_per_sample(self.output_bits))
-            if self.exact:
-                # and post-filter only them
-                def step(d, hist, states, p, c):
-                    out, hist, states = self._exact_chunk(self._unpack(d, factor, frames), hist,
-                                                          states, grid_t, hist_from=used)
-                    if self.post_filter:
-                        out, states = self._exact_post(out[..., :gen], states, None)
-                    self._quantize(out, gen, p, c)
-                    return hist, states
-
-                history, states = _each(step, data, self.history, self._biquad_states(), packed,
-                                        clips)
-                self.history = history
-                if self.pre_filter or self.post_filter:
-                    self._biquad_state = states
-            else:
-                history, post_hist = self._fast_chunk(
-                    data, factor, self.history, self._post_hist, grid_t, gen, packed, clips,
-                    frames=frames, out_max=output_frames_free, hist_from=used)
-                self.history, self._post_hist = history, post_hist
-            self.phase = phase
-            self._hist_gain_zero = gain_db == 0.0
-            return packed, ResamplerResults(
+            # gen is host-known: quantize (and post-filter) only the generated
+            # samples, as the reference does
+            packed, clips = self._run_chunks([data], [grid_t], [gen], phase, gain_db,
+                                             frames=frames, T=gen, out_max=output_frames_free,
+                                             hist_from=used, fused_ok=False)
+            return _chunk_of(packed, 0), ResamplerResults(
                 frames_used=used,
                 frames_generated=gen,
                 predicted_frames_used=frames,
-                clipped_samples=_clip_counts(clips),
+                clipped_samples=_clip_counts(_chunk_of(clips, 0)),
             )
 
     # ------------------------------------------------------------ schedule
@@ -615,46 +596,23 @@ class Resampler:
         self._prefetch = _Prefetch(self._schedule_key(chunk_frames, num_chunks, out_max),
                                    grids, gens, phase)
 
-    # ------------------------------------------------- exact-path pieces
+    # ------------------------------------------------------ chunk bodies
     def _biquad_states(self) -> list:
         """The carried states of the two biquad stages ([] without a filter)."""
         return list(self._biquad_state) if (self.pre_filter or self.post_filter) else []
 
-    def _exact_chunk(self, xc, hist, states, grid_t, *, hist_from: int):
-        """One chunk of exact mode up to the polyphase output, on one block
-        of streams: the two exact pre-filter stages (downsampling), then the
-        ordered-dot kernel over history + chunk, with the constants and the
-        grid on the block's device. ``hist_from`` is the number of input
-        frames consumed. Returns (out f32 [B, ch, n], new history, biquad
-        states)."""
-        dev = xc.device
-        states = list(states)
-        if self.pre_filter:
-            with span("eal.biquad"):
-                for stage in range(2):
-                    xc, states[stage] = bq.biquad_apply(xc, self._on(self._coeffs_dev, dev),
-                                                        states[stage], exact=True)
-        with span("eal.polyphase"):
-            xext = torch.cat([hist, xc], dim=-1)
-            new_hist = xext[..., hist_from:hist_from + self.hist_len].clone()
-            out = polyphase_apply(
-                xext, self._on(self._filters, dev), *(g.to(dev) for g in grid_t),
-                half=self.config.number_of_taps // 2, exact=True,
-                compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
-        return out, new_hist, states
+    @staticmethod
+    def _extend(hist, x, start: int, length: int | None = None):
+        """The carried history ``hist`` put before ``x`` along time, padded
+        with zeros at the end to ``length`` frames (None: unpadded), and the
+        next history: the clone of the ``hist.shape[-1]`` frames that start
+        at ``start``. Every history carry of the chunk path goes through
+        here: the input history of each tier and the fast post-filter's
+        output tail."""
+        xext = torch.cat([hist, x], dim=-1)
+        padded = xext if length is None else F.pad(xext, (0, length - xext.shape[-1]))
+        return padded, xext[..., start:start + hist.shape[-1]].clone()
 
-    def _exact_post(self, out, states, valid_len):
-        """The two exact post-filter stages (upsampling), on one block of
-        streams."""
-        states = list(states)
-        coeffs = self._on(self._coeffs_dev, out.device)
-        with span("eal.biquad"):
-            for stage in range(2):
-                out, states[stage] = bq.biquad_apply(out, coeffs, states[stage],
-                                                     exact=True, valid_len=valid_len)
-        return out, states
-
-    # -------------------------------------------------- fast-path pieces
     def _slab_len(self, frames: int) -> int:
         """xext's padded time length: at least one slab, a multiple of 128."""
         return _ceil_to(max(self.hist_len + frames, self._K), TILE)
@@ -670,15 +628,13 @@ class Resampler:
             return x.reshape(B, frames, ch).transpose(1, 2)
 
     def _quantize(self, out, gen: int, packed, clips) -> None:
-        """f32 [B, ch, >= T] -> the first T frames, quantized and packed into
-        ``packed`` (uint8 [B, T*ch*bps], which sets T), and the int64
-        per-stream clip counts over the ``gen`` valid outputs into ``clips``;
-        both modes. Stereo s16 is one kernel launch on the card
-        (ops/quantization_kernels.py); other formats run the torch ops."""
-        B, ch = out.shape[:2]
+        """f32 [B, ch, T] -> quantized and packed into ``packed`` (uint8 [B,
+        T*ch*bps]), and the int64 per-stream clip counts over the ``gen``
+        valid outputs into ``clips``; both modes. Stereo s16 is one kernel
+        launch on the card (ops/quantization_kernels.py); other formats run
+        the torch ops."""
+        B, ch, T = out.shape
         out_bits = self.output_bits
-        T = packed.shape[-1] // (ch * q.bytes_per_sample(out_bits))
-        out = out[..., :T]
         with span("eal.quantize"):
             if ch == 2 and out_bits == 16:
                 quantize_pack16_cuda(out, gen, packed, clips)
@@ -688,49 +644,152 @@ class Resampler:
             packed.copy_(q.pack_pcm(samples, out_bits))
             clips.copy_(clipped[:, : gen * ch].sum(-1, dtype=torch.int64))
 
-    def _conv_post(self, out, oh, gen: int, out_max: int):
-        """Post-lowpass (upsampling) as a banded conv over the output stream:
-        ``y[t] = sum_j h2[j] out[t-j]`` with ``oh`` carrying the previous
-        chunk's valid tail, through the same kernel as the polyphase with
-        one shared weight tile. Returns (y, new_oh)."""
-        Hlen, K2 = self._post_Hlen, self._post_K
-        nt2 = -(-out_max // TILE)
-        L2 = _ceil_to(Hlen + out_max + K2, TILE)
+    # The tier bodies, as :meth:`_run_chunks` calls them: one chunk, the
+    # carried (history, tier state) in and out, the first T frames of the
+    # out_max-wide contraction quantized into the chunk's slab.
+    def _exact_chunk(self, chunk, carry, grid_t, gen: int, packed, clips, *, hist_from: int,
+                     factor, frames: int, T: int, out_max: int):
+        """Exact mode, on each block of streams as a whole: unpack, the two
+        exact pre-filter stages (downsampling), the ordered-dot kernel over
+        history + chunk, the two exact post-filter stages over the T frames
+        with ``valid_len`` = ``gen`` (upsampling), the quantize. The tier
+        state is the biquad stages' ([] without a filter); the schedule is
+        already ``out_max`` wide."""
+        def step(d, hist, states, p, c):
+            x = self._unpack(d, factor, frames)
+            dev, states = x.device, list(states)
 
-        def extend(o, h):
-            xe = torch.cat([h, o], dim=-1)
-            return F.pad(xe, (0, L2 - Hlen - out_max)), xe[..., gen:gen + Hlen].clone()
+            def biquads(x, valid_len=None):
+                coeffs = self._on(self._coeffs_dev, dev)
+                with span("eal.biquad"):
+                    for stage in range(2):
+                        x, states[stage] = bq.biquad_apply(x, coeffs, states[stage], exact=True,
+                                                           valid_len=valid_len)
+                return x
 
-        xe, new_oh = _each(extend, out, oh)
-        starts2 = torch.arange(nt2, dtype=torch.int32, device=self.device) * TILE
-        Wt2 = self._post_W2[None].expand(nt2, K2, TILE)
-        return self._poly()(xe, Wt2, starts2, T=out_max), new_oh
+            if self.pre_filter:
+                x = biquads(x)
+            with span("eal.polyphase"):
+                xext, hist = self._extend(hist, x, hist_from)
+                out = polyphase_apply(
+                    xext, self._on(self._filters, dev), *(g.to(dev) for g in grid_t),
+                    half=self.config.number_of_taps // 2, exact=True,
+                    compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
+            # free the chunk's input before the post-filter stages, which
+            # hold three output-sized buffers at once (upsampling's peak)
+            del x, xext
+            out = out[..., :T]
+            if self.post_filter:
+                out = biquads(out, gen)
+            self._quantize(out, gen, p, c)
+            return hist, states
 
-    def _fast_chunk(self, chunk, factor, hist, oh, grid_t, gen: int, packed, clips, *,
-                    frames: int, out_max: int, hist_from: int):
-        """One chunk of the f32 fast path, its output quantized into
-        ``packed`` and ``clips`` (:meth:`_quantize`). ``hist_from`` is the
-        number of input frames consumed: the new history is xext[hist_from :
-        +hist_len]. Returns (new history, new post hist)."""
-        hist_len = self.hist_len
+        return _each(step, chunk, *carry, packed, clips)
+
+    def _fast_chunk(self, chunk, carry, grid_t, gen: int, packed, clips, *, hist_from: int,
+                    factor, frames: int, T: int, out_max: int):
+        """The f32 fast path: the extend and the quantize per block of
+        streams, the banded weight tiles built once, the contraction (once
+        per shard under a mesh), then the post-filter (upsampling) as a
+        banded conv over the output stream through the same kernel. The
+        tier state is the post-filter's output tail (None without it)."""
+        hist, oh = carry
         L = self._slab_len(frames)
-
-        def extend(c, h):
-            xext = torch.cat([h, self._unpack(c, factor, frames)], dim=-1)
-            return (F.pad(xext, (0, L - hist_len - frames)),
-                    xext[..., hist_from:hist_from + hist_len].clone())
-
-        xext, new_hist = _each(extend, chunk, hist)
+        xext, hist = _each(lambda c, h: self._extend(h, self._unpack(c, factor, frames),
+                                                     hist_from, L), chunk, hist)
         with span("eal.weights"):
             Wt, starts = banded_weights_device(
                 self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
         with span("eal.polyphase"):
             out = self._poly()(xext, Wt, starts, T=out_max)
         if self.post_filter:
+            # y[t] = sum_j h2[j] out[t-j], the tail carrying the previous
+            # chunk's valid outputs; one weight tile shared by every block
             with span("eal.post"):
-                out, oh = self._conv_post(out, oh, gen, out_max)
-        _each(lambda o, p, c: self._quantize(o, gen, p, c), out, packed, clips)
-        return new_hist, oh
+                K2 = self._post_K
+                L2 = _ceil_to(self._post_Hlen + out_max + K2, TILE)
+                xe, oh = _each(lambda o, h: self._extend(h, o, gen, L2), out, oh)
+                nt2 = -(-out_max // TILE)
+                starts2 = torch.arange(nt2, dtype=torch.int32, device=self.device) * TILE
+                Wt2 = self._post_W2[None].expand(nt2, K2, TILE)
+                out = self._poly()(xe, Wt2, starts2, T=out_max)
+        _each(lambda o, p, c: self._quantize(o[..., :T], gen, p, c), out, packed, clips)
+        return hist, oh
+
+    def _fused_chunk(self, chunk, carry, grid_t, gen: int, packed, clips, *, hist_from: int,
+                     factor, frames: int, T: int, out_max: int):
+        """The fused int16 tier: samples stay RAW int16 (the history too),
+        the gain ``factor`` (a device scalar here) is folded into the weight
+        tiles, and the fused kernel does contraction + quantize in one pass;
+        its packed bytes and clip counts are copied into the slab."""
+        ch = self.channels
+        L = self._slab_len(frames)
+
+        def extend(c, h):
+            x = q.unpack_pcm16_planar2_raw(c) if ch == 2 else q.unpack_pcm16_raw(c)[:, None, :]
+            xext, h = self._extend(h, x, hist_from, L)
+            return xext.reshape(-1, L), h
+
+        def finish(s16, cmask, p, c):
+            s16 = s16.reshape(-1, ch, s16.shape[-1])[..., :T]
+            cmask = cmask.reshape(-1, ch, cmask.shape[-1])[..., :gen]
+            clip = (cmask > 0).sum((1, 2), dtype=torch.int64)
+            if ch == 2:
+                p.copy_(q.pack_pcm16_interleave2(s16.to(torch.int32)))
+            else:
+                p.copy_(q.pack_pcm(s16[:, 0, :].to(torch.int32), 16))
+            c.copy_(clip)
+
+        hist, oh = carry
+        x2, hist = _each(extend, chunk, hist)
+        Wt, starts = banded_weights_device(
+            self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
+        _each(finish, *self._poly16()(x2, Wt * factor, starts), packed, clips)
+        return hist, oh
+
+    def _run_chunks(self, chunks, grids, gens, phase: PhaseState, gain_db: float, *,
+                    frames: int, T: int, out_max: int, hist_from: int, fused_ok: bool):
+        """The chunk loop of both entry points: the tier's body over each
+        chunk's packed bytes, schedule tuple and generated count, the
+        history and the tier state carried from chunk to chunk. Each chunk
+        consumes ``hist_from`` of its ``frames`` input frames, contracts
+        ``out_max`` output frames and quantizes the first T into its slab of
+        the call's outputs. ``fused_ok``: the fused int16 tier may serve
+        (:meth:`_fused_tier_selected`). The carried state, ``phase`` and the
+        gain flag commit once, after the last chunk was issued: a call that
+        raises commits nothing. Returns the outputs: packed uint8 ``[chunks,
+        batch, T*ch*bps]`` and int64 clip counts ``[chunks, batch]``."""
+        factor = q.gain_factor(self.input_bits, gain_db)
+        packed, clips = self._outputs((len(chunks),),
+                                      T * self.channels * q.bytes_per_sample(self.output_bits))
+        # the fused int16 tier carries the history as raw int16: exact only
+        # when the history holds int16 * factor products of this call's gain
+        # factor, so that f32 -> raw -> f32 gives identical floats
+        raw = not self.exact and self._fused_tier_selected(fused_ok)
+        if raw:
+            body = self._fused_chunk
+            factor = torch.tensor(factor, dtype=torch.float32, device=self.device)
+            carry = (_each(lambda h: torch.clamp(torch.round(h / factor.to(h.device)),
+                                                 -32768.0, 32767.0).to(torch.int16),
+                           self.history), self._post_hist)
+        elif self.exact:
+            body, carry = self._exact_chunk, (self.history, self._biquad_states())
+        else:
+            body, carry = self._fast_chunk, (self.history, self._post_hist)
+        for c, (chunk, grid_t, gen) in enumerate(zip(chunks, grids, gens)):
+            carry = body(chunk, carry, grid_t, gen, _chunk_of(packed, c), _chunk_of(clips, c),
+                         hist_from=hist_from, factor=factor, frames=frames, T=T, out_max=out_max)
+        history, state = carry
+        if raw:
+            history = _each(lambda h: h.to(torch.float32) * factor.to(h.device), history)
+        self.history = history
+        if not self.exact:
+            self._post_hist = state
+        elif self.pre_filter or self.post_filter:
+            self._biquad_state = state
+        self.phase = phase
+        self._hist_gain_zero = gain_db == 0.0
+        return packed, clips
 
     # ------------------------------------------------------------ streaming
     def resample_stream(self, input_bytes, chunk_frames: int, num_chunks: int,
@@ -779,61 +838,18 @@ class Resampler:
                     grids, gens, _ = self._schedule(phase, chunk_frames, out_max, num_chunks,
                                                     whole=True)
 
-            bps_in = q.bytes_per_sample(self.input_bits)
-            factor = q.gain_factor(self.input_bits, gain_db)
-            chunk_bytes = chunk_frames * ch * bps_in
+            chunk_bytes = chunk_frames * ch * q.bytes_per_sample(self.input_bits)
             data = self._to_device(input_bytes)
             chunks = [_each(lambda d, c=c: d[:, c * chunk_bytes:(c + 1) * chunk_bytes], data)
                       for c in range(num_chunks)]
-            # each chunk quantizes into its slab of the call's outputs
-            packed, clips = self._outputs((num_chunks,),
-                                          out_max * ch * q.bytes_per_sample(self.output_bits))
-            slabs = [(_chunk_of(packed, c), _chunk_of(clips, c)) for c in range(num_chunks)]
-
-            # the fused int16 tier is exact only when the carried history shares
-            # this call's gain factor; the flag commits only after the call
-            fused_ok = gain_db == 0.0 and self._hist_gain_zero
-            if self.exact:
-                history = self._exact_stream(chunks, grids, gens, slabs, factor, chunk_frames)
-            elif self._fused_tier_selected(fused_ok):
-                history = self._fused_stream(chunks, grids, gens, slabs, factor, chunk_frames,
-                                             out_max)
-            else:
-                hist, oh = self.history, self._post_hist
-                for chunk, grid_t, gen, (p, c) in zip(chunks, grids, gens, slabs):
-                    hist, oh = self._fast_chunk(
-                        chunk, factor, hist, oh, grid_t, gen, p, c,
-                        frames=chunk_frames, out_max=out_max, hist_from=chunk_frames)
-                history = hist
-                self._post_hist = oh
-            self.history = history
-            self.phase = phase
-            self._hist_gain_zero = gain_db == 0.0
+            packed, clips = self._run_chunks(
+                chunks, grids, gens, phase, gain_db, frames=chunk_frames, T=out_max,
+                out_max=out_max, hist_from=chunk_frames,
+                fused_ok=gain_db == 0.0 and self._hist_gain_zero)
             shape, self._last_shape = self._last_shape, (chunk_frames, num_chunks)
             if shape == self._last_shape:
                 self._prefetch_next(chunk_frames, num_chunks, out_max)
             return packed, gens, _clip_counts(clips)
-
-    def _exact_stream(self, chunks, grids, gens, slabs, factor, frames: int):
-        """Exact-mode chunk loop: each chunk consumes all its frames; the post
-        stages run over the chunk's ``out_max`` outputs with ``valid_len`` =
-        its generated count; chunk c quantizes into ``slabs[c]`` (packed
-        bytes, clip counts). The biquad states commit here, the history and
-        phase in the caller. Returns the history."""
-        hist, states = self.history, self._biquad_states()
-        for chunk, grid_t, gen, (packed, clips) in zip(chunks, grids, gens, slabs):
-            def step(x, h, st, p, c):
-                out, h, st = self._exact_chunk(self._unpack(x, factor, frames), h, st, grid_t,
-                                               hist_from=frames)
-                if self.post_filter:
-                    out, st = self._exact_post(out, st, gen)
-                self._quantize(out, gen, p, c)
-                return h, st
-
-            hist, states = _each(step, chunk, hist, states, packed, clips)
-        if self.pre_filter or self.post_filter:
-            self._biquad_state = states
-        return hist
 
     def _fused_tier_selected(self, fused_ok: bool) -> bool:
         """The fused int16 tier serves s16 in/out without a post stage, on
@@ -849,44 +865,3 @@ class Resampler:
                 # minimum, so that both packages pick the same tier
                 and (not is_split(self.mesh)
                      or (self.batch * self.channels // self.mesh.size) % 16 == 0))
-
-    def _fused_stream(self, chunks, grids, gens, slabs, factor, frames: int, out_max: int):
-        """Fused-tier chunk loop: samples stay RAW int16 end to end (int16
-        history carry, gain folded into the weight tiles) and the fused
-        kernel does contraction + quantize in one pass; chunk c's packed
-        bytes and clip counts are copied into ``slabs[c]``. The f32
-        ``self.history`` contract holds at the call boundary: history values
-        are ``int16 * factor`` products whenever the history was produced
-        under the same gain factor as this call (the ``fused_ok``
-        precondition), so f32 -> raw -> f32 round-trips to identical floats.
-        Returns the new f32 history."""
-        ch, hist_len = self.channels, self.hist_len
-        L = self._slab_len(frames)
-        fac = torch.tensor(factor, dtype=torch.float32, device=self.device)
-        hist_raw = _each(lambda h: torch.clamp(torch.round(h / fac.to(h.device)),
-                                               -32768.0, 32767.0).to(torch.int16), self.history)
-        for chunk, grid_t, gen, (packed, clips) in zip(chunks, grids, gens, slabs):
-            def extend(c, h):
-                if ch == 2:
-                    xc = q.unpack_pcm16_planar2_raw(c)
-                else:
-                    xc = q.unpack_pcm16_raw(c)[:, None, :]
-                xext = torch.cat([h, xc], dim=-1)
-                return (F.pad(xext, (0, L - hist_len - frames)).reshape(-1, L),
-                        xext[..., -hist_len:].clone())
-
-            def finish(s16, cmask):
-                s16 = s16.reshape(-1, ch, s16.shape[-1])[..., :out_max]
-                cmask = cmask.reshape(-1, ch, cmask.shape[-1])[..., :gen]
-                clip = (cmask > 0).sum((1, 2), dtype=torch.int64)
-                if ch == 2:
-                    return q.pack_pcm16_interleave2(s16.to(torch.int32)), clip
-                return q.pack_pcm(s16[:, 0, :].to(torch.int32), 16), clip
-
-            x2, hist_raw = _each(extend, chunk, hist_raw)
-            Wt, starts = banded_weights_device(
-                self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)
-            p, c = _each(finish, *self._poly16()(x2, Wt * fac, starts))
-            _each(lambda dst, cdst, src, csrc: (dst.copy_(src), cdst.copy_(csrc)),
-                  packed, clips, p, c)
-        return _each(lambda h: h.to(torch.float32) * fac.to(h.device), hist_raw)

@@ -163,8 +163,8 @@ def test_fused_tier_gain_change_routes_to_f32_body(monkeypatch):
     t = Resampler(batch=B, exact=False, device="cpu")
     t.initialize(ResamplerConfiguration(44100.0, 16000.0, 16, 16, 2, True, True, 64, FILTERS))
     fused = []
-    real = t._fused_stream
-    monkeypatch.setattr(t, "_fused_stream", lambda *a: fused.append(1) or real(*a))
+    real = t._fused_chunk
+    monkeypatch.setattr(t, "_fused_chunk", lambda *a, **k: fused.append(1) or real(*a, **k))
     for g, (pj, gj, _) in zip(gains, ref):
         pt, gt, _ = t.resample_stream(data, FRAMES, 1, gain_db=g)
         assert list(gj) == list(gt)

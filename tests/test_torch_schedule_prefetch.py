@@ -29,10 +29,9 @@ torch.set_num_threads(2)
 
 B, FRAMES, CHUNKS, CALLS = 4, 256, 3, 5
 RATES = {"down": (44100.0, 16000.0), "up": (16000.0, 44100.0)}
-# the method each tier's chunk loop hands the schedule to, and the argument
-# that holds it: all chunks' tuples, or one chunk's
-CONSUMER = {"exact": ("_exact_stream", 1, False), "fast": ("_fast_chunk", 4, True),
-            "fused": ("_fused_stream", 1, False)}
+# each tier's chunk body: the chunk loop hands it one chunk's schedule tuple,
+# its third argument
+CONSUMER = {"exact": "_exact_chunk", "fast": "_fast_chunk", "fused": "_fused_chunk"}
 CASES = [("down", "exact"), ("down", "fast"), ("down", "fused"), ("up", "exact"),
          ("up", "fast")]
 
@@ -83,15 +82,13 @@ def _consumed(r: Resampler, tier: str) -> list:
     """Patches ``r`` so that its chunk loop appends each chunk's schedule
     tuple, as consumed, to the returned list (copied at once, in the
     stream's order: the device slots are reused)."""
-    name, arg, per_chunk = CONSUMER[tier]
-    orig, seen = getattr(r, name), []
+    orig, seen = getattr(r, CONSUMER[tier]), []
 
     def grab(*args, **kw):
-        seen.extend(tuple(t.clone() for t in g)
-                    for g in ([args[arg]] if per_chunk else args[arg]))
+        seen.append(tuple(t.clone() for t in args[2]))
         return orig(*args, **kw)
 
-    setattr(r, name, grab)
+    setattr(r, CONSUMER[tier], grab)
     return seen
 
 
