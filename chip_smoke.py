@@ -79,11 +79,22 @@ Phases, each printing a line:
                strided inputs, padded rows left untouched) and at both
                cells' chunks ([2048, 2, 2981] and [2048, 2, 22587]), timed
                by direct launches beside its bytes bound and one wrapper call.
+               Then the unpack-gain-extend kernel (csrc/pcm_unpack16.cu)
+               bit for bit against its plain version on unpack16_cases (the
+               cells' H and L scaled down, a chunk inside a wider row, row
+               starts at 1-, 2-, 4-, 8- and 16-byte alignment, an odd L, a
+               strided history, 0 / -6.02 / +12 dB and a subnormal factor,
+               -32768 and 32767, B = 1, frames = 0) and at the three cells'
+               chunk shapes (2048 streams x 8192 frames read in place from
+               chunk 3 of the phase-4 bytes; H / L 72 / 8264, 326 / 8576,
+               0 / 8192), timed by direct launches beside its bytes bound,
+               one wrapper call and the plain version.
  10. exact e2e - Resampler(2048) (exact, the default) resample_stream(data,
                8192, 8) on the phase-4 bytes, its packed bytes, counts and
                state equal to a CPU run of the plain path on 8 streams, with
-               its launches asserted (2 biquad, 1 polyphase_exact and 1
-               quantize_pack16 per chunk); the same for 16 kHz -> 44.1 kHz at
+               its launches asserted (2 biquad, 1 polyphase_exact, 1
+               quantize_pack16 and 1 unpack16_extend per chunk); the same
+               for 16 kHz -> 44.1 kHz at
                batch 2048 (the post-filter runs with valid_len);
                BatchedResample((2048, 2), exact=True).process on one
                8192-sample chunk; the
@@ -1234,6 +1245,159 @@ def quantize16_phase():
             "bound_ms_upsample": timing["up"][1], "plain_ms_upsample": timing["up"][2]}
 
 
+UNPACK_FILL = float("nan")   # what the slab holds before an unpack16 case writes it
+UNPACK_GAINS_DB = (0.0, -6.02, 12.0)
+
+
+def unpack16_cases(device):
+    """Operands of unpack16_extend's checks: [(label, data, frames, gain_db,
+    hist, L)], ``data`` the view of a chunk's stereo s16 bytes inside wider
+    uint8 rows, ``hist`` f32 [B, 2, H] or None. Samples are uniform int16
+    with about 10 % at the edges (-32768, -32767, -1, 0, 1, 32766, 32767),
+    and those in order at the start of stream 0: the cells' shapes scaled
+    down (H = 72, 326 and 0, the fast slab's padded tail), a chunk inside a
+    wider row, row starts at 1-, 2-, 4-, 8- and 16-byte alignment and pitches
+    that move it from row to row, an odd L (channel 1's row off 16 bytes), a
+    strided history, rows that span two blocks, the three gains, a subnormal
+    gain factor, B = 1, frames = 0 and L = H + frames."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2700)
+    edges = np.array([-32768, -32767, -1, 0, 1, 32766, 32767], np.int16)
+
+    def rows(B, frames, offset, pitch):
+        """uint8 [B, pitch] rows (pitch bytes apart in one buffer), the
+        chunk's frames at ``offset`` of each; returns the chunk's view."""
+        s = rng.integers(-32768, 32768, B * pitch // 2 + 1).astype(np.int16)
+        pick = rng.random(s.shape) < 0.1
+        s[pick] = rng.choice(edges, int(pick.sum()))
+        raw = s.view(np.uint8)[:B * pitch].copy()
+        n = min(len(edges), 2 * frames)
+        raw[offset:offset + 2 * n] = edges[:n].view(np.uint8)
+        buf = torch.as_tensor(raw, device=device).view(B, pitch)
+        return buf[:, offset:offset + frames * 4]
+
+    def history(B, H, strided=False):
+        if H == 0:
+            return None
+        h = torch.as_tensor(rng.standard_normal((B, 2, H + 7)).astype(np.float32) * 0.3,
+                            device=device)
+        h[0, 0, :4] = torch.tensor([-0.0, 1e-42, -1e-42, 3.0e38])   # copied bit for bit
+        return h[..., 3:3 + H] if strided else h[..., :H].contiguous()
+
+    cases = []
+    for i, (label, B, frames, H, L, offset, pitch, strided) in enumerate((
+            ("up cell scaled: H 72, L = H + frames", 3, 1000, 72, 1072, 0, 4000, False),
+            ("fast cell scaled: H 326, padded tail", 3, 1000, 326, 1408, 0, 4000, False),
+            ("exact down scaled: H 0, L = frames", 3, 1000, 0, 1000, 0, 4000, False),
+            ("chunk 2 of 3 inside a wider row", 4, 512, 72, 584, 4096, 6144, False),
+            ("rows 1-byte aligned, odd pitch", 5, 300, 326, 640, 1, 1203, False),
+            ("rows 2-byte aligned, pitch 2 mod 4", 5, 300, 72, 372, 2, 1206, False),
+            ("rows 4-byte aligned, pitch 4 mod 16", 5, 300, 0, 300, 4, 1204, False),
+            ("rows 8-byte aligned", 3, 256, 72, 328, 8, 1032, False),
+            ("rows 16-byte aligned", 3, 256, 326, 640, 16, 1040, False),
+            ("odd L, strided history", 3, 97, 5, 103, 0, 388, True),
+            ("rows of two blocks' groups", 2, 4200, 326, 4608, 0, 16800, False),
+            ("B = 1, frames = 0, L = H", 1, 0, 72, 72, 0, 16, False),
+            ("frames = 0, H = 0, zeros only", 2, 0, 0, 9, 0, 16, False),
+            ("B = 1, frames = 1", 1, 1, 0, 1, 2, 16, False))):
+        gain = UNPACK_GAINS_DB[i % 3]
+        cases.append((f"{label}: B {B}, frames {frames}, H {H}, L {L}, {gain} dB",
+                       rows(B, frames, offset, pitch), frames, gain,
+                       history(B, H, strided), L))
+    data = rows(2, 200, 0, 800)
+    cases.append(("-700 dB: a subnormal gain factor: B 2, frames 200, H 0, L 200",
+                  data, 200, -700.0, None, 200))
+    return cases
+
+
+def unpack16_mismatches(unpack, cases) -> list:
+    """The labels of the cases where ``unpack(data, frames, factor, hist, L)``
+    differs from unpack16_extend_plain on the CPU in a bit of the slab or
+    in its shape."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import quantization as q
+    from esp_audio_libs_tpu_torch.ops.quantization_kernels import unpack16_extend_plain
+    bad = []
+    for label, data, frames, gain_db, hist, L in cases:
+        factor = q.gain_factor(16, gain_db)
+        want = unpack16_extend_plain(data.cpu(), frames, factor,
+                                     None if hist is None else hist.cpu(), L)
+        got = unpack(data, frames, factor, hist, L).cpu()
+        if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                      want.view(torch.int32)):
+            bad.append(label)
+    return bad
+
+
+def unpack16_bytes(B, frames, H, L) -> int:
+    """The bytes one launch must move: 4 input bytes a frame read, the
+    history read, the f32 slab [B, 2, L] written."""
+    return B * (frames * 4 + 2 * H * 4 + 2 * L * 4)
+
+
+UNPACK_SHAPES = (("up", 72, 8264), ("fast", 326, 8576), ("down", 0, 8192))
+
+
+def unpack16_phase(data):
+    """Phase 9c: the unpack-gain-extend kernel bit for bit against its plain
+    version on unpack16_cases, then at the three cells' chunk shapes (2048
+    streams, 8192 frames read in place from chunk 3 of the phase-4 bytes, H
+    and L of the exact up, fast down and exact down bodies); timed by direct
+    launches (queued behind a sleeping kernel) beside its bytes bound, one
+    wrapper call and the plain version. Returns the kernels-line entry
+    without its launch count."""
+    import torch
+
+    from esp_audio_libs_tpu_torch.ops import quantization as q
+    from esp_audio_libs_tpu_torch.ops import quantization_kernels as qk
+
+    bad = unpack16_mismatches(qk.unpack16_extend_cuda, unpack16_cases("cuda"))
+    if bad:
+        fail(f"unpack16_extend differs from its plain version: {bad}")
+    rows = torch.as_tensor(data, device="cuda")
+    chunk = rows[:, 3 * FRAMES * 4:4 * FRAMES * 4]
+    factor = q.gain_factor(16, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    timing = {}
+    for key, H, L in UNPACK_SHAPES:
+        hist = torch.empty((BATCH, 2, H), device="cuda").uniform_(-1, 1, generator=gen) if H \
+            else None
+        got = qk.unpack16_extend_cuda(chunk, FRAMES, factor, hist, L)
+        want = qk.unpack16_extend_plain(chunk, FRAMES, factor, hist, L)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"unpack16_extend differs from its plain version at the {key} shape")
+        del want
+        h = (hist, *hist.stride()) if H else (0, 0, 0, 0)
+        launch = direct_launcher("eal_unpack16_extend", chunk, chunk.stride(0), FRAMES,
+                                 float(factor), *h, H, got, L, BATCH)
+        ms = cuda_time_queued(launch, iters=40)
+        ms_wrapper = cuda_time(lambda: qk.unpack16_extend_cuda(chunk, FRAMES, factor, hist, L),
+                               iters=20)
+        plain_ms = cuda_time(lambda: qk.unpack16_extend_plain(chunk, FRAMES, factor, hist, L),
+                             iters=5)
+        nbytes = unpack16_bytes(BATCH, FRAMES, H, L)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        timing[key] = (ms, bound_ms, plain_ms, ms_wrapper)
+        print(f"kernel unpack16_extend {key} [{BATCH}, {FRAMES}] H {H} L {L}: {ms:.4f} ms per "
+              f"launch (queued; one wrapper call {ms_wrapper:.4f} ms), bound {bound_ms:.4f} ms "
+              f"(bytes: {nbytes} B at 3.35 TB/s), {bound_ms / ms:.1%} of the bound; plain "
+              f"version {plain_ms:.4f} ms")
+        del got, hist
+    print("kernel unpack16_extend: bit-identical to the plain version on unpack16_cases and "
+          "at the three cells' chunk shapes")
+    up, fast, down = (timing[k] for k, _, _ in UNPACK_SHAPES)
+    return {"name": "unpack16_extend", "route": "cuda",
+            "source": "esp_audio_libs_tpu_torch/csrc/pcm_unpack16.cu",
+            "replaces": "ops/quantization.py unpack_pcm16_planar2 + int_to_float and the "
+                        "resampler's history cat and pad (torch ops)",
+            "launches": 0, "max_abs_err": 0, "bit_exact": True, "ms": up[0], "plain_ms": up[2],
+            "bound_ms": up[1], "bound_by": "bytes", "library_ms": None, "ms_wrapper": up[3],
+            "ms_fast": fast[0], "bound_ms_fast": fast[1], "plain_ms_fast": fast[2],
+            "ms_down": down[0], "bound_ms_down": down[1], "plain_ms_down": down[2]}
+
+
 def exact_stream(src, dst, batch, data, label, reps=5):
     """Phase 10's Resampler paths: exact resample_stream on the card with
     its launches counted and asserted, bytes, counts and state against a
@@ -1264,9 +1428,11 @@ def exact_stream(src, dst, batch, data, label, reps=5):
     launches = {"biquad_exact": bk.biquad_df1_cuda.launches,
                 "polyphase_exact": pk.polyphase_exact_cuda.launches,
                 "quantize_pack16": qk.quantize_pack16_cuda.launches,
+                "unpack16_extend": qk.unpack16_extend_cuda.launches,
                 "polyphase_banded": pk.polyphase_banded_cuda.launches}
     want = {"biquad_exact": 2 * CHUNKS * (reps + 1), "polyphase_exact": CHUNKS * (reps + 1),
-            "quantize_pack16": CHUNKS * (reps + 1), "polyphase_banded": 0}
+            "quantize_pack16": CHUNKS * (reps + 1), "unpack16_extend": CHUNKS * (reps + 1),
+            "polyphase_banded": 0}
     if launches != want:
         fail(f"{label}: launched {launches}, expected {want}")
     ref = make_resampler(src, dst, CMP_STREAMS, "cpu", exact=True)
@@ -3337,7 +3503,8 @@ def launch_counts() -> dict:
             "mp3_mxu_pre": mk.mp3_mxu_pre_cuda.launches,
             "mp3_mxu_post": mk.mp3_mxu_post_cuda.launches,
             "dotprod_exact": dk.dotprod_exact_cuda.launches,
-            "quantize_pack16": qk.quantize_pack16_cuda.launches}
+            "quantize_pack16": qk.quantize_pack16_cuda.launches,
+            "unpack16_extend": qk.unpack16_extend_cuda.launches}
 
 
 def reset_all_counts() -> None:
@@ -3500,11 +3667,11 @@ def mesh_resampler(m, data, path):
         msh.initialize(cfg)
         got, counts, ms = path.run(lambda: msh.resample_stream(data_dev, FRAMES, CHUNKS))
         expect = ({"polyphase_exact": S * CHUNKS, "biquad_exact": 2 * S * CHUNKS,
-                   "quantize_pack16": S * CHUNKS} if exact else
+                   "quantize_pack16": S * CHUNKS, "unpack16_extend": S * CHUNKS} if exact else
                   {"polyphase_fused16": S * CHUNKS, "polyphase_fused16_sharded": S * CHUNKS}
                   if fused else
                   {"polyphase_banded": S * CHUNKS, "polyphase_banded_sharded": S * CHUNKS,
-                   "quantize_pack16": S * CHUNKS})
+                   "quantize_pack16": S * CHUNKS, "unpack16_extend": S * CHUNKS})
         if {k: counts[k] for k in expect} != expect or sum(counts.values()) != sum(expect.values()):
             fail(f"mesh resampler {label}: launches {counts}, expected {expect}")
         if not (isinstance(got[0], Sharded) and got[0].axis == 1
@@ -3996,10 +4163,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     exact_entries.append(quantize16_phase())
     torch.cuda.empty_cache()
+    exact_entries.append(unpack16_phase(data))
+    torch.cuda.empty_cache()
     exact_main, exact_other = exact_phase(data)
     exact_entries[0]["launches"] = exact_main["biquad_exact"]
     exact_entries[1]["launches"] = exact_main["polyphase_exact"]
     exact_entries[2]["launches"] = exact_main["quantize_pack16"]
+    exact_entries[3]["launches"] = exact_main["unpack16_extend"]
     exact_entries[0]["launches_other_paths"] = {
         "upsample": exact_other["upsample"]["biquad_exact"], "cascade": exact_other["cascade"]}
     exact_entries[1]["launches_other_paths"] = {

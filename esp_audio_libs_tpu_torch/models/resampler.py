@@ -8,7 +8,10 @@ required-samples throttle, pass-through when rates match and per-stream clip
 counts.
 
 Exact mode (the default, bit-exact against the JAX package's exact mode):
-each chunk runs unpack -> two exact pre-filter biquad stages (downsampling;
+each chunk runs unpack (stereo s16: one kernel,
+ops/quantization_kernels.py::unpack16_extend_cuda, which reads the chunk's
+bytes in place and writes the f32 slab behind the carried history; behind
+the pre-filter it unpacks alone) -> two exact pre-filter biquad stages (downsampling;
 the kernel ops/biquad_kernels.py::biquad_df1_cuda) -> the ordered-dot
 polyphase kernel (ops/polyphase_kernels.py::polyphase_exact_cuda) -> two
 exact post-filter stages (upsampling) -> quantize + pack (stereo s16: one
@@ -16,7 +19,8 @@ kernel, ops/quantization_kernels.py::quantize_pack16_cuda, which writes each
 chunk's bytes and clip counts into the call's output buffers).
 
 Fast mode: the pre-filter biquads are folded into the filterbank on the
-host; each chunk then runs on the device as unpack -> banded weight build ->
+host; each chunk then runs on the device as unpack into the slab (the same
+kernel, padded to the slab's length) -> banded weight build ->
 banded contraction (the CUDA kernel ops/polyphase_kernels.py::
 polyphase_banded_cuda) -> post-filter conv through the same kernel
 (upsampling) -> quantize + pack. The s16-in/s16-out fused tier
@@ -57,7 +61,7 @@ from ..ops import sinc
 from ..ops.polyphase import TILE, banded_K, banded_weights_device, polyphase_apply
 from ..ops.polyphase_kernels import (polyphase_banded_cuda, polyphase_banded_sharded,
                                      polyphase_fused16_cuda, polyphase_fused16_sharded)
-from ..ops.quantization_kernels import quantize_pack16_cuda
+from ..ops.quantization_kernels import quantize_pack16_cuda, unpack16_extend_cuda
 from ..parallel.mesh import Sharded, is_split, place, shard_streams, to_numpy
 from ..runtime.kernels import entry_device
 from ..runtime.native import design_filterbank_native
@@ -602,30 +606,44 @@ class Resampler:
         return list(self._biquad_state) if (self.pre_filter or self.post_filter) else []
 
     @staticmethod
+    def _carry(xext, start: int, n: int):
+        """The next history of a slab ``xext`` that holds the carried one
+        first: the clone of its ``n`` frames that start at ``start``. Every
+        history carry of the chunk path goes through here: the input history
+        of each tier and the fast post-filter's output tail."""
+        return xext[..., start:start + n].clone()
+
+    @staticmethod
     def _extend(hist, x, start: int, length: int | None = None):
         """The carried history ``hist`` put before ``x`` along time, padded
         with zeros at the end to ``length`` frames (None: unpadded), and the
-        next history: the clone of the ``hist.shape[-1]`` frames that start
-        at ``start``. Every history carry of the chunk path goes through
-        here: the input history of each tier and the fast post-filter's
-        output tail."""
+        next history (:meth:`_carry`)."""
         xext = torch.cat([hist, x], dim=-1)
         padded = xext if length is None else F.pad(xext, (0, length - xext.shape[-1]))
-        return padded, xext[..., start:start + hist.shape[-1]].clone()
+        return padded, Resampler._carry(xext, start, hist.shape[-1])
 
     def _slab_len(self, frames: int) -> int:
         """xext's padded time length: at least one slab, a multiple of 128."""
         return _ceil_to(max(self.hist_len + frames, self._K), TILE)
 
-    def _unpack(self, data, factor, frames):
-        """Packed bytes -> f32 [B, ch, frames] (both modes)."""
+    def _unpack(self, data, factor, frames, hist=None, start: int = 0,
+                length: int | None = None):
+        """Packed bytes -> f32 [B, ch, frames] times the gain ``factor``
+        (both modes). Given the carried ``hist``, what :meth:`_extend` gives
+        of those frames: the slab padded to ``length`` and the next history.
+        Stereo s16 is one kernel launch on the card that writes the whole
+        slab (ops/quantization_kernels.py); other formats run the torch ops."""
         B = data.shape[0]
         ch, in_bits = self.channels, self.input_bits
         with span("eal.unpack"):
             if ch == 2 and in_bits == 16:
-                return q.int_to_float(q.unpack_pcm16_planar2(data), factor)
+                H = 0 if hist is None else hist.shape[-1]
+                xext = unpack16_extend_cuda(data, frames, factor, hist,
+                                            H + frames if length is None else length)
+                return xext if hist is None else (xext, self._carry(xext, start, H))
             x = q.int_to_float(q.unpack_pcm(data, in_bits), factor)
-            return x.reshape(B, frames, ch).transpose(1, 2)
+            x = x.reshape(B, frames, ch).transpose(1, 2)
+            return x if hist is None else self._extend(hist, x, start, length)
 
     def _quantize(self, out, gen: int, packed, clips) -> None:
         """f32 [B, ch, T] -> quantized and packed into ``packed`` (uint8 [B,
@@ -656,8 +674,7 @@ class Resampler:
         state is the biquad stages' ([] without a filter); the schedule is
         already ``out_max`` wide."""
         def step(d, hist, states, p, c):
-            x = self._unpack(d, factor, frames)
-            dev, states = x.device, list(states)
+            dev, states = d.device, list(states)
 
             def biquads(x, valid_len=None):
                 coeffs = self._on(self._coeffs_dev, dev)
@@ -667,15 +684,19 @@ class Resampler:
                                                            valid_len=valid_len)
                 return x
 
-            if self.pre_filter:
-                x = biquads(x)
+            if self.pre_filter:   # the biquads run between the unpack and the extend
+                x = biquads(self._unpack(d, factor, frames))
+            else:
+                x = None
+                xext, hist = self._unpack(d, factor, frames, hist, hist_from)
             with span("eal.polyphase"):
-                xext, hist = self._extend(hist, x, hist_from)
+                if x is not None:
+                    xext, hist = self._extend(hist, x, hist_from)
                 out = polyphase_apply(
                     xext, self._on(self._filters, dev), *(g.to(dev) for g in grid_t),
                     half=self.config.number_of_taps // 2, exact=True,
                     compute_second=bool(self.bank_flags & sinc.SUBSAMPLE_INTERPOLATE))
-            # free the chunk's input before the post-filter stages, which
+            # free the chunk's slab before the post-filter stages, which
             # hold three output-sized buffers at once (upsampling's peak)
             del x, xext
             out = out[..., :T]
@@ -695,8 +716,8 @@ class Resampler:
         tier state is the post-filter's output tail (None without it)."""
         hist, oh = carry
         L = self._slab_len(frames)
-        xext, hist = _each(lambda c, h: self._extend(h, self._unpack(c, factor, frames),
-                                                     hist_from, L), chunk, hist)
+        xext, hist = _each(lambda c, h: self._unpack(c, factor, frames, h, hist_from, L),
+                           chunk, hist)
         with span("eal.weights"):
             Wt, starts = banded_weights_device(
                 self._filters, self._direct, *grid_t, gen, K=self._K, taps_p=self._taps_p, L=L)

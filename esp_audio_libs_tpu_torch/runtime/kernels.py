@@ -153,6 +153,8 @@ SIGNATURES = {
     "eal_mp3_mxu_pre": (C.c_int, [_P] * 9 + [_I, _I, _P]),
     "eal_mp3_mxu_post": (C.c_int, [_P] * 5 + [_LL, _I, _I, _P]),
     "eal_quantize_pack16": (C.c_int, [_P, _LL, _LL, _P, _LL, _P, _I, _I, _I, _P]),
+    "eal_unpack16_extend": (C.c_int, [_P, _LL, _I, C.c_float, _P, _LL, _LL, _LL, _I, _P, _I, _I,
+                                      _P]),
 }
 
 

@@ -1,7 +1,7 @@
 """The resampler's chunk path (``models/resampler.py``): both entry points,
 ``resample_stream`` and ``resample``, run one chunk loop
 (``Resampler._run_chunks``), and every history carry of every tier goes
-through one helper (``Resampler._extend``)."""
+through one helper (``Resampler._carry``)."""
 
 import numpy as np
 import pytest
@@ -25,7 +25,7 @@ CASES = [("resample_stream", "down", "exact"), ("resample_stream", "up", "exact"
 @pytest.mark.parametrize("entry, direction, tier", CASES)
 def test_one_loop_and_one_extend_per_chunk(entry, direction, tier, monkeypatch):
     """Each call enters the chunk loop once, with all its chunks. The
-    history extend runs once per chunk, plus once per chunk for the fast
+    history carry runs once per chunk, plus once per chunk for the fast
     tier's upsampling post-filter conv; it carries raw int16 in the fused
     tier of ``resample_stream`` and f32 everywhere else."""
     if tier == "fused":
@@ -33,10 +33,11 @@ def test_one_loop_and_one_extend_per_chunk(entry, direction, tier, monkeypatch):
     r = Resampler(B, exact=tier == "exact", device="cpu")
     r.initialize(ResamplerConfiguration(*RATES[direction], 16, 16, 2, True, True, 64, 32))
     loops, carried = [], []
-    run, extend = r._run_chunks, r._extend
+    run, carry = r._run_chunks, Resampler._carry
     monkeypatch.setattr(r, "_run_chunks",
                         lambda chunks, *a, **k: loops.append(len(chunks)) or run(chunks, *a, **k))
-    monkeypatch.setattr(r, "_extend", lambda hist, *a: carried.append(hist.dtype) or extend(hist, *a))
+    monkeypatch.setattr(Resampler, "_carry", staticmethod(
+        lambda xext, *a: carried.append(xext.dtype) or carry(xext, *a)))
 
     stream = entry == "resample_stream"
     chunks = CHUNKS if stream else 1

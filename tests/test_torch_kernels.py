@@ -1475,6 +1475,56 @@ def test_quantize_pack16_kernel_refuses_misaligned(cuda):
 
 
 @pytest.mark.cuda
+def test_unpack16_extend_kernel_cases(cuda):
+    """The kernel against its plain version bit for bit on
+    chip_smoke.unpack16_cases: the cells' H and L scaled down, a chunk
+    inside a wider row, row starts at 1-, 2-, 4-, 8- and 16-byte alignment,
+    an odd L, a strided history, three gains and a subnormal factor, B = 1,
+    frames = 0. One launch a case."""
+    qk.reset_launch_counts()
+    cases = chip_smoke.unpack16_cases(cuda)
+    assert chip_smoke.unpack16_mismatches(qk.unpack16_extend_cuda, cases) == []
+    assert qk.unpack16_extend_cuda.launches == len(cases)
+    # bytes two apart within a row: read from a contiguous copy of the chunk
+    wide = torch.randint(0, 256, (3, 2 * 4 * 50), dtype=torch.uint8, device=cuda)
+    hist = torch.rand((3, 2, 7), device=cuda)
+    got = qk.unpack16_extend_cuda(wide[:, ::2], 50, 1 / 32768, hist, 64)
+    assert same_bits(got.cpu(), qk.unpack16_extend_plain(wide[:, ::2].cpu(), 50, 1 / 32768,
+                                                         hist.cpu(), 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier, src, dst", [("exact", 44100.0, 16000.0),
+                                            ("exact", 16000.0, 44100.0),
+                                            ("fast", 44100.0, 16000.0)])
+def test_stream_unpacks_once_per_chunk(cuda, tier, src, dst):
+    """A resample_stream call of each body the cells run launches
+    unpack16_extend once per chunk on the call's input in place; bytes,
+    clip counts and history equal a CPU run of the plain path, two calls in
+    a row, the second at -6.02 dB."""
+    B, frames, n = 4, 1024, 3
+    cfg = ResamplerConfiguration(src, dst, 16, 16, 2, True, True, 64, 32)
+    card = Resampler(B, exact=tier == "exact", device=cuda)
+    cpu = Resampler(B, exact=tier == "exact", device="cpu")
+    card.initialize(cfg)
+    cpu.initialize(cfg)
+    for call, gain in enumerate((0.0, -6.02)):
+        data = hot_pcm(call, B, frames * n)
+        qk.reset_launch_counts()
+        pg, gg, cg = card.resample_stream(torch.as_tensor(data, device=cuda), frames, n, gain)
+        assert qk.unpack16_extend_cuda.launches == n
+        pc, gc, cc = cpu.resample_stream(data, frames, n, gain)
+        assert list(gg) == list(gc)
+        if tier == "exact":
+            assert torch.equal(pg.cpu(), pc)
+            np.testing.assert_array_equal(cg, cc)
+        else:   # the banded contraction: within 1 LSB of the CPU's order
+            d = (pg.cpu().view(torch.int16).int() - pc.view(torch.int16).int()).abs()
+            assert int(d.max()) <= 1
+        assert same_bits(card.history.cpu(), cpu.history)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("src,dst", [(44100.0, 16000.0), (16000.0, 44100.0)])
 def test_exact_stream_quantizes_once_per_chunk(cuda, src, dst):
     """An exact resample_stream call launches quantize_pack16 once per
@@ -1575,4 +1625,11 @@ def test_every_kernel_launches_on_the_last_device(cuda):
                             torch.empty(37, dtype=torch.int64, device=dev))
     want = qk.quantize_pack16_plain(xq.cpu(), 990)
     assert torch.equal(packed.cpu(), want[0]) and torch.equal(clips.cpu(), want[1])
+
+    pcm = torch.as_tensor(rng.integers(0, 256, (37, 4 * 1003 + 6), dtype=np.uint8), device=dev)
+    hist = torch.as_tensor(rng.standard_normal((37, 2, 72)), dtype=torch.float32, device=dev)
+    slab = counted(qk.unpack16_extend_cuda, pcm[:, 2:2 + 4 * 1001], 1001, 1 / 32768, hist, 1152)
+    want = qk.unpack16_extend_plain(pcm[:, 2:2 + 4 * 1001].cpu(), 1001, 1 / 32768, hist.cpu(),
+                                    1152)
+    assert same_bits(slab.cpu(), want)
     assert torch.cuda.current_device() == 0
